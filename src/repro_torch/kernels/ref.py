@@ -1,0 +1,71 @@
+"""Plain PyTorch versions of the port's kernels.
+
+Each hand-written kernel in `kernels/csrc/` computes the function of the
+same name here.  The wrappers in `kernels/ops.py` take these on the CPU,
+the CPU tests hold them against the JAX package, and `chip_smoke.py`
+holds each kernel against them on the card.
+
+The decode functions follow the JAX oracles (`repro/kernels/ref.py`
+flash_decode / paged_flash_decode) with the kernel's numerics: masked
+scores become ``NEG_INF = -1e30`` (never ``-inf``), p is taken from the
+mask rather than from the scores, p is cast to the value dtype before the
+PV product while its sum stays f32, and the result is divided by
+``max(l, 1e-30)`` — so a fully masked (inactive) lane gives exact zeros,
+never NaN.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+KPOS_SENTINEL = 2 ** 30  # never-written cache slot
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 kpos: torch.Tensor, qpos: torch.Tensor,
+                 active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Single-query (decode) attention over a dense per-lane cache.
+
+    q: (B, H, hd) pre-scaled by 1/sqrt(hd); k/v: (B, Sk, KVH, hd) with
+    H = G * KVH (GQA: KV is never expanded); kpos: (B, Sk) absolute key
+    positions, 2^30 = never written; qpos: (B,); active: optional (B,)
+    bool lane gate.  A key counts iff ``kpos <= qpos`` and the lane is
+    active.  Returns (B, H, hd) in q.dtype.
+    """
+    b, h, hd = q.shape
+    kvh = k.shape[2]
+    q5 = q.reshape(b, kvh, h // kvh, hd).float()
+    s = torch.einsum("bngd,bknd->bngk", q5, k.float())  # (B, KVH, G, Sk)
+    msk = kpos[:, None, None, :] <= qpos.reshape(b, 1, 1, 1)
+    if active is not None:
+        msk = msk & active.reshape(b, 1, 1, 1).bool()
+    s = torch.where(msk, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(msk, torch.exp(s - m), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bngk,bknd->bngd", p.to(v.dtype).float(), v.float())
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.reshape(b, h, hd).to(q.dtype)
+
+
+def paged_flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       kpos: torch.Tensor, page_table: torch.Tensor,
+                       qpos: torch.Tensor,
+                       active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Paged decode: gather each lane's pages through the table, then
+    decode.
+
+    k/v: (P, ps, KVH, hd) global page arenas; kpos: (P, ps); page_table:
+    (B, MAXP) — lane b's logical positions [j*ps, (j+1)*ps) live in arena
+    page page_table[b, j] (entries may repeat across lanes: shared prefix
+    pages; unused entries name the all-sentinel trash page 0).
+    """
+    b = q.shape[0]
+    kvh, hd = k.shape[2], k.shape[3]
+    pt = page_table.long()
+    kg = k[pt].reshape(b, -1, kvh, hd)
+    vg = v[pt].reshape(b, -1, kvh, hd)
+    kpg = kpos[pt].reshape(b, -1)
+    return flash_decode(q, kg, vg, kpg, qpos, active=active)

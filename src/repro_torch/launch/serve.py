@@ -1,0 +1,113 @@
+"""Serving CLI of the PyTorch port: the paged continuous-batching engine
+on one device, fed a synthetic request stream.
+
+Runs on the CUDA device unless ``--device cpu`` is given; without a card
+it stops with an error instead of falling back to the CPU.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
+      --requests 16 --stream shared-prefix
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.models.transformer import init_params, make_model
+from repro_torch.runtime.stragglers import StragglerMonitor
+from repro_torch.serving.engine import ContinuousBatchingEngine
+from repro_torch.serving.stream import (poisson_requests,
+                                        shared_prefix_requests)
+
+BUCKETS = (16, 32, 64, 128)
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(prog="repro_torch.launch.serve")
+    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--max-new", type=int, default=8)
+    ap.add_argument("--rate", type=float, default=0.0,
+                    help="Poisson arrival rate (req/s); 0 = all at t=0")
+    ap.add_argument("--decode-horizon", type=int, default=8,
+                    help="max fused decode steps per dispatch")
+    ap.add_argument("--stream", choices=["poisson", "shared-prefix"],
+                    default="poisson",
+                    help="shared-prefix: one system prompt + unique tails "
+                         "(the radix prefix cache's target ingress)")
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--num-pages", type=int, default=0,
+                    help="KV page-pool size (0 = the dense table's "
+                         "capacity + the trash page)")
+    ap.add_argument("--warmup", action="store_true",
+                    help="first serve, unmeasured, a stream drawn from "
+                         "seed + 1")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device; cpu runs the kernels' plain "
+                         "PyTorch versions")
+    return ap.parse_args(argv)
+
+
+def serve(args: argparse.Namespace):
+    """Build the model and engine, serve the stream; returns (engine,
+    finished requests, wall seconds of the measured pass)."""
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("serve: no CUDA device is available; pass "
+                         "--device cpu to run the plain PyTorch path")
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    model = make_model(cfg, device=device)
+    params = init_params(cfg, seed=args.seed, device=device)
+    kw = {"num_pages": args.num_pages} if args.num_pages else {}
+    engine = ContinuousBatchingEngine(
+        model, params, max_batch=args.max_batch, buckets=BUCKETS,
+        monitor=StragglerMonitor(), decode_horizon=args.decode_horizon,
+        page_size=args.page_size, **kw)
+    if args.warmup:  # another seed: the measured prompts stay uncached
+        for r in make_stream(args, cfg.vocab_size, args.seed + 1):
+            engine.submit(r)
+        engine.run()
+    t0 = time.perf_counter()
+    for r in make_stream(args, cfg.vocab_size, args.seed):
+        engine.submit(r)
+    done = engine.run()
+    return engine, done, time.perf_counter() - t0
+
+
+def make_stream(args: argparse.Namespace, vocab_size: int, seed: int):
+    rng = np.random.default_rng(seed)
+    if args.stream == "shared-prefix":
+        return shared_prefix_requests(rng, args.requests, vocab_size,
+                                      prefix_len=48, suffix_range=(3, 9),
+                                      budgets=args.max_new, rate=args.rate)
+    return poisson_requests(rng, args.requests, vocab_size,
+                            len_range=(4, 60), budgets=args.max_new,
+                            rate=args.rate)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    engine, done, wall = serve(args)
+    toks = sum(len(r.tokens_out) for r in done)
+    lat = sorted((r.t_done - r.t_enqueue) * 1e3 for r in done)
+    ttft = sorted((r.t_first_token - r.t_enqueue) * 1e3 for r in done)
+    print(f"serve[cb]: arch={engine.model.cfg.name} device={args.device} "
+          f"requests={len(done)} tokens={toks} wall={wall*1e3:.0f}ms "
+          f"throughput={toks/wall:.1f}tok/s "
+          f"ttft_p50={ttft[len(ttft)//2]:.0f}ms "
+          f"p50={lat[len(lat)//2]:.0f}ms p_max={lat[-1]:.0f}ms "
+          f"stats={engine.stats}")
+    return done
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,228 @@
+"""Attention: GQA, RoPE, dense and KV-chunked prefill, paged decode (port
+of `repro/models/attention.py`).
+
+Prefill attends densely up to `DENSE_ATTN_MAX_KV` keys and through a
+KV-chunked online softmax above that.  Decode attends one query row per
+lane against the paged KV arena through the `paged_flash_decode` kernel
+(kernels/ops.py), once per layer per step.
+
+The JAX code builds new cache arrays with ``.at[].set`` and relies on
+buffer donation; this port updates the cache tensors in place
+(``index_put_`` and slice assignment) and returns the same dict.
+
+Not ported yet — each raises NotImplementedError naming its slice: the
+paged multi-query verify branch (speculative decoding), sliding windows
+and the dense slot decode branch (the dense slot path and the other
+families), int8 arenas, and the flash-attention route for long prefill
+at contiguous positions (`forward_logits` / `loss`).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.models.layers import COMPUTE_DTYPE, apply_rope, dense
+
+Params = Dict[str, Any]
+
+DENSE_ATTN_MAX_KV = 1024  # above this, use the KV-chunked online softmax
+KV_CHUNK = 1024
+NEG_INF = -1e30
+KPOS_SENTINEL = 2 ** 30  # never-written cache slot
+
+
+def _split_heads(x, n):  # (B,S,n*hd) -> (B,S,n,hd)
+    b, s, _ = x.shape
+    return x.reshape(b, s, n, -1)
+
+
+def _mask(sq: int, sk: int, q_pos, k_pos, causal: bool, window: int,
+          q_seg=None, k_seg=None) -> torch.Tensor:
+    """(B, sq, sk) bool mask from absolute positions."""
+    m = torch.ones((q_pos.shape[0], sq, sk), dtype=torch.bool,
+                   device=q_pos.device)
+    if causal:
+        m = m & (q_pos[:, :, None] >= k_pos[:, None, :])
+    if window:
+        m = m & (q_pos[:, :, None] - k_pos[:, None, :] < window)
+    if q_seg is not None:
+        m = m & (q_seg[:, :, None] == k_seg[:, None, :])
+    return m
+
+
+def _gq_scores(q, k) -> torch.Tensor:
+    """Grouped scores without expanding KV: q (B,Sq,H,hd), k (B,Sk,KVH,hd)
+    -> (B,H,Sq,Sk) in the working dtype."""
+    b, sq, h, hd = q.shape
+    kvh = k.shape[2]
+    q5 = q.reshape(b, sq, kvh, h // kvh, hd)
+    s = torch.einsum("bqngd,bknd->bngqk", q5, k)
+    return s.reshape(b, h, sq, k.shape[1])
+
+
+def _gq_pv(p, v) -> torch.Tensor:
+    """p (B,H,Sq,Sk) x v (B,Sk,KVH,hd) -> (B,Sq,H,hd), grouped."""
+    b, h, sq, sk = p.shape
+    kvh, hd = v.shape[2], v.shape[3]
+    p5 = p.reshape(b, kvh, h // kvh, sq, sk)
+    out = torch.einsum("bngqk,bknd->bqngd", p5, v)
+    return out.reshape(b, sq, h, hd)
+
+
+def _dense_attention(q, k, v, mask) -> torch.Tensor:
+    """q (B,Sq,H,hd), k/v (B,Sk,KVH,hd), mask (B,Sq,Sk)."""
+    s = _gq_scores(q, k).float()
+    m = mask[:, None]
+    s = torch.where(m, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(m.any(dim=-1, keepdim=True), p, torch.zeros_like(p))
+    return _gq_pv(p.to(q.dtype), v)
+
+
+def _chunked_attention(q, k, v, q_pos, k_pos, causal, window,
+                       q_seg=None, k_seg=None) -> torch.Tensor:
+    """Online softmax over KV chunks; O(Sq * KV_CHUNK) live scores."""
+    b, sq, h, hd = q.shape
+    sk = k.shape[1]
+    chunk = min(KV_CHUNK, sk)
+    m_run = torch.full((b, h, sq), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+    l_run = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, sq, hd), dtype=torch.float32, device=q.device)
+    for c0 in range(0, sk, chunk):
+        # the last chunk may be short: the JAX scan pads it with sentinel
+        # keys, which the mask drops, so a short chunk is the same sum
+        kx, vx = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
+        px = k_pos[:, c0:c0 + chunk]
+        sx = None if k_seg is None else k_seg[:, c0:c0 + chunk]
+        s = _gq_scores(q, kx).float()
+        msk = _mask(sq, kx.shape[1], q_pos, px, causal, window, q_seg, sx)
+        s = torch.where(msk[:, None], s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m_run, s.amax(dim=-1))
+        alpha = torch.exp(m_run - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l_run = l_run * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + _gq_pv(
+            p.to(q.dtype), vx).transpose(1, 2).float()
+        m_run = m_new
+    out = acc / torch.clamp(l_run, min=1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)  # (B,Sq,H,hd)
+
+
+def attention(x: torch.Tensor, p: Params, cfg, positions: torch.Tensor,
+              segment_ids: Optional[torch.Tensor] = None,
+              cache: Optional[Dict[str, torch.Tensor]] = None,
+              pos_contiguous: bool = False,
+              page_table: Optional[torch.Tensor] = None,
+              active: Optional[torch.Tensor] = None,
+              ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """Full attention block.
+
+    Prefill: cache=None -> self-attention over x; cache={'k','v','kpos'}
+    (a dense bucket cache) -> also write x's KV and positions into it.
+    Paged decode: page_table (B, MAXP) marks `cache` as a paged arena
+    (`k`/`v`: (P, ps, KVH, hd), `kpos`: (P, ps)); lane b's position q
+    lives at arena page page_table[b, q // ps], offset q % ps.  The new
+    row is scattered through the table in place; inactive lanes write to
+    the trash page 0 with sentinel kpos, so a parked lane never touches a
+    live page.  Returns (output (B, S, d_model), the same cache dict).
+    """
+    from repro_torch.kernels import ops as kops
+
+    if cfg.local_window:
+        raise NotImplementedError(
+            "sliding-window attention arrives with the dense slot path / "
+            "other-families slice")
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = _split_heads(dense(x, p["wq"]), nh)
+    k = _split_heads(dense(x, p["wk"]), nkv)
+    v = _split_heads(dense(x, p["wv"]), nkv)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    qs = q * (1.0 / math.sqrt(hd))  # bf16, as the reference scales it
+
+    if cache is not None and page_table is not None and x.shape[1] > 1:
+        raise NotImplementedError(
+            "the paged multi-query verify branch arrives with the "
+            "speculative-decoding slice")
+    if cache is None or x.shape[1] > 1:
+        s = x.shape[1]
+        if s <= DENSE_ATTN_MAX_KV:
+            msk = _mask(s, s, positions, positions, cfg.causal, 0,
+                        segment_ids, segment_ids)
+            out = _dense_attention(qs, k, v, msk)
+        elif pos_contiguous and segment_ids is None:
+            raise NotImplementedError(
+                "long prefill at contiguous positions routes to the "
+                "flash_attention kernel, which arrives with the "
+                "forward_logits/loss slice")
+        else:
+            out = _chunked_attention(qs, k, v, positions, positions,
+                                     cfg.causal, 0, segment_ids, segment_ids)
+        if cache is not None:
+            # prefill: write the (first `slots`) KV + absolute positions
+            take = min(s, cache["k"].shape[1])
+            cache["k"][:, :take] = k[:, -take:].to(cache["k"].dtype)
+            cache["v"][:, :take] = v[:, -take:].to(cache["v"].dtype)
+            cache["kpos"][:, :take] = positions[:, -take:].to(torch.int32)
+    elif page_table is not None:
+        if "k_scale" in cache:
+            raise NotImplementedError(
+                "int8 KV arenas arrive with the int8 slice")
+        b = x.shape[0]
+        ck, cv, ckpos = cache["k"], cache["v"], cache["kpos"]
+        ps = ck.shape[1]
+        cpos = positions[:, 0].to(torch.int32)
+        act = (torch.ones((b,), dtype=torch.bool, device=x.device)
+               if active is None else active.bool())
+        lane = torch.arange(b, device=x.device)
+        # clamped like a JAX gather, for lanes whose stale counter ran off
+        # the table (they are inactive and write to the trash page)
+        col = torch.clamp(cpos // ps, max=page_table.shape[1] - 1).long()
+        page = page_table[lane, col]
+        zero = torch.zeros_like(page)
+        wr_page = torch.where(act, page, zero).long()
+        wr_off = torch.where(act, cpos % ps, zero).long()
+        kpos_val = torch.where(act, cpos,
+                               torch.full_like(cpos, KPOS_SENTINEL))
+        ck.index_put_((wr_page, wr_off), k[:, 0].to(ck.dtype))
+        cv.index_put_((wr_page, wr_off), v[:, 0].to(cv.dtype))
+        ckpos.index_put_((wr_page, wr_off), kpos_val)
+        out = kops.paged_flash_decode(
+            qs[:, 0].contiguous(), ck, cv, ckpos, page_table, cpos,
+            active=act)[:, None]
+    else:
+        raise NotImplementedError(
+            "dense slot-cache decode (flash_decode) arrives with the dense "
+            "slot path slice")
+
+    out = out.reshape(x.shape[0], x.shape[1], nh * hd)
+    return dense(out, p["wo"]), cache
+
+
+def init_paged_attn_cache(cfg, num_pages: int, page_size: int,
+                          dtype=COMPUTE_DTYPE, device=None):
+    """Paged KV arena: a global page pool, no batch axis.  kpos starts at
+    the never-written sentinel everywhere, the trash page 0 included."""
+    kv_shape = (num_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(kv_shape, dtype=dtype, device=device),
+        "v": torch.zeros(kv_shape, dtype=dtype, device=device),
+        "kpos": torch.full((num_pages, page_size), KPOS_SENTINEL,
+                           dtype=torch.int32, device=device),
+    }
+
+
+def init_attn_cache(cfg, batch: int, seq_len: int, dtype=COMPUTE_DTYPE,
+                    device=None):
+    """Dense per-lane KV cache (the prefill bucket cache)."""
+    shape = (batch, seq_len, cfg.n_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        # 2^30 marks never-written slots so the causal mask excludes them
+        "kpos": torch.full((batch, seq_len), KPOS_SENTINEL,
+                           dtype=torch.int32, device=device),
+    }

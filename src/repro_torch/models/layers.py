@@ -1,0 +1,99 @@
+"""Shared float layers: norms, RoPE, MLPs, embeddings (port of
+`repro/models/layers.py`).
+
+Parameters are plain nested dicts of tensors in the JAX package's layout
+(`dense` weights are (d_in, d_out)).  Compute dtype is bf16; norms and
+RoPE compute in f32 and cast back, matmuls round their result to bf16.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+import torch.nn.functional as F
+
+Params = Dict[str, Any]
+
+COMPUTE_DTYPE = torch.bfloat16
+
+
+def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., d) @ w (d, f) in the working dtype."""
+    return torch.matmul(x, w)
+
+
+def rmsnorm(x: torch.Tensor, p: Params, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    rms = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return ((xf * rms) * p["g"]).to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, p: Params, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps) * p["g"] + p["b"]
+    return y.to(x.dtype)
+
+
+def norm(x, p, cfg):
+    return layernorm(x, p) if cfg.norm == "layernorm" else rmsnorm(x, p)
+
+
+# -- RoPE -------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """Split-half RoPE.  x: (B, S, H, hd); positions: (B, S) int."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, device=x.device)  # (hd/2,)
+    angles = positions[..., None].float() * freqs  # (B, S, hd/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# -- MLP --------------------------------------------------------------------
+
+
+def act_fn(name: str):
+    return {
+        "silu": F.silu,
+        # jax.nn.gelu defaults to the tanh form; F.gelu to exact erf
+        "gelu": lambda x: F.gelu(x, approximate="tanh"),
+        "relu2": lambda x: torch.square(F.relu(x)),
+    }[name]
+
+
+def mlp(x: torch.Tensor, p: Params, cfg) -> torch.Tensor:
+    a = act_fn(cfg.act)
+    h = dense(x, p["wi"])
+    if cfg.mlp_style == "swiglu":
+        h = a(dense(x, p["wg"])) * h
+    else:
+        h = a(h)
+    return dense(h, p["wo"])
+
+
+# -- embedding / head -------------------------------------------------------
+
+
+def embed(tokens: torch.Tensor, p: Params) -> torch.Tensor:
+    return p["tok"][tokens.long()]
+
+
+def lm_head(h: torch.Tensor, p: Params) -> torch.Tensor:
+    """f32 logits of a bf16 product: rounded to bf16 first, then cast."""
+    w = p.get("head")
+    if w is None:
+        w = p["tok"].t()
+    return torch.matmul(h, w).float()

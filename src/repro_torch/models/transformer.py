@@ -1,0 +1,392 @@
+"""Decoder backbone, prefill and the fused greedy decode loop (port of
+`repro/models/transformer.py`, attention-only families).
+
+Parameters keep the JAX package's layout: {"embed", "scan", "tail",
+"final_norm"}, with every "scan" leaf stacked on a leading layer-period
+axis.  The backbone is a Python loop over the periods, indexing one
+period's parameter and cache views at a time.  Caches follow the same
+layout; the serving path updates them in place (models/attention.py).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.layers import (
+    COMPUTE_DTYPE, embed, lm_head, mlp, norm,
+)
+
+Params = Dict[str, Any]
+
+KPOS_SENTINEL = attn_mod.KPOS_SENTINEL
+
+
+# ---------------------------------------------------------------------------
+# layer plan
+# ---------------------------------------------------------------------------
+
+
+def period_length(cfg: ModelConfig) -> int:
+    if cfg.family == "hybrid" and cfg.block_pattern:
+        return len(cfg.block_pattern)
+    if cfg.family == "ssm" and cfg.slstm_every:
+        return cfg.slstm_every
+    if cfg.n_experts and cfg.moe_every > 1:
+        return cfg.moe_every
+    return 1
+
+
+def layer_plan(cfg: ModelConfig) -> Tuple[int, int, List[str]]:
+    """(n_repeat, tail_len, kinds-of-one-period)."""
+    p = period_length(cfg)
+    kinds = [cfg.block_kind(i) for i in range(p)]
+    return cfg.n_layers // p, cfg.n_layers % p, kinds
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    _, _, kinds = layer_plan(cfg)
+    if any(k != "attn" for k in kinds) or cfg.n_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: recurrent and MoE blocks arrive with the "
+            "other-families slice; the port runs attention-only models")
+
+
+# ---------------------------------------------------------------------------
+# one block
+# ---------------------------------------------------------------------------
+
+
+def block_apply(cfg: ModelConfig, p: Params, h: torch.Tensor,
+                positions: torch.Tensor, segment_ids, state,
+                pos_contiguous: bool = False, page_table=None, active=None):
+    """One attention block: pre-norm attention + pre-norm MLP, residual.
+    `state` (a cache) is updated in place."""
+    z = norm(h, p["norm1"], cfg)
+    y, _ = attn_mod.attention(z, p["mix"], cfg, positions, segment_ids,
+                              cache=state, pos_contiguous=pos_contiguous,
+                              page_table=page_table, active=active)
+    h = h + y
+    if "ffn" in p:
+        h = h + mlp(norm(h, p["norm2"], cfg), p["ffn"], cfg)
+    return h
+
+
+def greedy_token_update(logits, cur, active, remaining, eos_id, pad_token):
+    """One step of the fused decode loop's token state machine (no forced
+    queue): greedy argmax, -1 emission for masked lanes, EOS/budget lane
+    exit, pad feedback.  Returns (emit, cur, active, remaining)."""
+    nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+    emit = torch.where(active, nxt, torch.full_like(nxt, -1))
+    remaining = torch.where(active, remaining - 1, remaining)
+    still = active & (nxt != eos_id) & (remaining > 0)
+    cur = torch.where(still, nxt, torch.full_like(nxt, pad_token))
+    return emit, cur, still, remaining
+
+
+# ---------------------------------------------------------------------------
+# params
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
+    """Random parameters in the JAX layout, drawn from a torch.Generator.
+
+    Same shapes, dtypes and scales as `repro.models.transformer
+    .init_params` (normal weights scaled 1/sqrt(d_in), embeddings 0.02,
+    norm gains 1), but torch's generator gives other numbers than
+    jax.random from the same seed; load JAX weights with
+    `models.convert.params_from_jax` to compare with the reference.
+    """
+    _check_supported(cfg)
+    n_rep, tail, kinds = layer_plan(cfg)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def normal(shape, scale):
+        w = torch.randn(shape, generator=gen, device=device,
+                        dtype=torch.float32)
+        return (w * scale).to(COMPUTE_DTYPE)
+
+    def dense_w(lead, d_in, d_out):
+        return normal(lead + (d_in, d_out), d_in ** -0.5)
+
+    def ones(lead, d):
+        return torch.ones(lead + (d,), dtype=torch.float32, device=device)
+
+    def block(lead):
+        d, hd = cfg.d_model, cfg.head_dim
+        p = {"norm1": {"g": ones(lead, d)},
+             "mix": {"wq": dense_w(lead, d, cfg.n_heads * hd),
+                     "wk": dense_w(lead, d, cfg.n_kv_heads * hd),
+                     "wv": dense_w(lead, d, cfg.n_kv_heads * hd),
+                     "wo": dense_w(lead, cfg.n_heads * hd, d)},
+             "norm2": {"g": ones(lead, d)}}
+        if cfg.mlp_style != "none" and cfg.d_ff:
+            p["ffn"] = {"wi": dense_w(lead, d, cfg.d_ff),
+                        "wo": dense_w(lead, cfg.d_ff, d)}
+            if cfg.mlp_style == "swiglu":
+                p["ffn"]["wg"] = dense_w(lead, d, cfg.d_ff)
+        return p
+
+    emb = {"tok": normal((cfg.vocab_size, cfg.d_model), 0.02)}
+    if not cfg.tie_embeddings:
+        emb["head"] = normal((cfg.d_model, cfg.vocab_size), 0.02)
+    return {
+        "embed": emb,
+        "scan": ({f"b{i}": block((n_rep,)) for i in range(len(kinds))}
+                 if n_rep else {}),
+        "tail": {str(t): block(()) for t in range(tail)},
+        "final_norm": {"g": ones((), cfg.d_model)},
+    }
+
+
+def _index(tree, i: int):
+    """Period i's view of a scan-stacked (params or cache) subtree."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+# ---------------------------------------------------------------------------
+# full model
+# ---------------------------------------------------------------------------
+
+
+class Model:
+    """Binds a ModelConfig and a device to the apply functions."""
+
+    def __init__(self, cfg: ModelConfig, device="cuda"):
+        _check_supported(cfg)
+        self.cfg = cfg
+        self.device = torch.device(device)
+
+    # -- core --------------------------------------------------------------
+
+    def backbone(self, params: Params, h: torch.Tensor,
+                 positions: torch.Tensor, segment_ids=None, caches=None,
+                 pos_contiguous: bool = False, page_table=None, active=None):
+        """h (B,S,D) embeddings -> final-normed h.  Cache leaves are
+        updated in place; the page table is shared by every layer."""
+        cfg = self.cfg
+        n_rep, tail, kinds = layer_plan(cfg)
+        kw = dict(pos_contiguous=pos_contiguous, page_table=page_table,
+                  active=active)
+        for i in range(n_rep):
+            pp = _index(params["scan"], i)
+            pc = None if caches is None else _index(caches["scan"], i)
+            for j in range(len(kinds)):
+                h = block_apply(cfg, pp[f"b{j}"], h, positions, segment_ids,
+                                None if pc is None else pc[f"b{j}"], **kw)
+        for t in range(tail):
+            st = None if caches is None else caches["tail"][str(t)]
+            h = block_apply(cfg, params["tail"][str(t)], h, positions,
+                            segment_ids, st, **kw)
+        return norm(h, params["final_norm"], cfg)
+
+    # -- caches ------------------------------------------------------------
+
+    def init_cache(self, batch: int, seq_len: int):
+        """Dense per-lane cache (the prefill bucket cache), JAX layout:
+        {"scan": {"b0": {"k","v": (n_rep, B, S, KVH, hd), "kpos":
+        (n_rep, B, S)}}, "tail": {...}, "pos": (B,)}."""
+        cfg, dev = self.cfg, self.device
+        n_rep, tail, kinds = layer_plan(cfg)
+
+        def stacked():
+            one = attn_mod.init_attn_cache(cfg, batch, seq_len, device=dev)
+            return {k: v[None].repeat((n_rep,) + (1,) * v.dim())
+                    for k, v in one.items()}
+
+        return {"scan": ({f"b{i}": stacked() for i in range(len(kinds))}
+                         if n_rep else {}),
+                "tail": {str(t): attn_mod.init_attn_cache(
+                    cfg, batch, seq_len, device=dev) for t in range(tail)},
+                "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+
+    def init_paged_cache(self, batch: int, num_pages: int, page_size: int,
+                         max_pages: int, kv_dtype: str = "bf16"):
+        """Paged serving cache: per-layer global KV page arenas (no batch
+        axis) + per-lane position counters "pos" (B,) and page tables
+        "pt" (B, max_pages) (0 = the allocator's trash page)."""
+        if kv_dtype != "bf16":
+            raise NotImplementedError(
+                "int8 KV arenas arrive with the int8 slice")
+        cfg, dev = self.cfg, self.device
+        n_rep, tail, kinds = layer_plan(cfg)
+
+        def stacked():
+            one = attn_mod.init_paged_attn_cache(cfg, num_pages, page_size,
+                                                 device=dev)
+            return {k: v[None].repeat((n_rep,) + (1,) * v.dim())
+                    for k, v in one.items()}
+
+        return {"scan": ({f"b{i}": stacked() for i in range(len(kinds))}
+                         if n_rep else {}),
+                "tail": {str(t): attn_mod.init_paged_attn_cache(
+                    cfg, num_pages, page_size, device=dev)
+                    for t in range(tail)},
+                "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
+                "pt": torch.zeros((batch, max_pages), dtype=torch.int32,
+                                  device=dev)}
+
+    # -- entry points ------------------------------------------------------
+
+    def prefill(self, params, caches, tokens, positions=None, last_idx=None):
+        """Fill `caches` (in place) from a left-aligned prompt batch.
+
+        last_idx: (B,) index of each request's final prompt token;
+        defaults to S-1.  Returns (logits at last_idx (B, V) f32, caches).
+        """
+        x = embed(tokens, params["embed"])
+        b, s = x.shape[:2]
+        contiguous = positions is None
+        if positions is None:
+            positions = torch.arange(s, dtype=torch.int32,
+                                     device=x.device).expand(b, s)
+        if last_idx is None:
+            last_idx = torch.full((b,), s - 1, dtype=torch.long,
+                                  device=x.device)
+        last_idx = last_idx.long()
+        h = self.backbone(params, x, positions, caches=caches,
+                          pos_contiguous=contiguous)
+        bidx = torch.arange(b, device=x.device)
+        caches["pos"] = positions[bidx, last_idx].to(torch.int32) + 1
+        h_last = h[bidx, last_idx][:, None]
+        return lm_head(h_last, params["embed"])[:, 0], caches
+
+    def decode_step(self, params, caches, token: torch.Tensor,
+                    active: Optional[torch.Tensor] = None):
+        """token (B,) -> (logits (B, V) f32, caches) on a paged cache.
+
+        Inactive lanes are computed (the batch shape is static) but write
+        only to the trash page and keep their position counters."""
+        if "pt" not in caches:
+            raise NotImplementedError(
+                "dense slot-cache decode arrives with the dense slot path "
+                "slice")
+        x = embed(token[:, None], params["embed"])
+        positions = caches["pos"][:, None]
+        h = self.backbone(params, x, positions, caches=caches,
+                          page_table=caches["pt"], active=active)
+        pos = caches["pos"]
+        caches["pos"] = (pos + 1 if active is None
+                         else torch.where(active, pos + 1, pos))
+        return lm_head(h[:, -1:], params["embed"])[:, 0], caches
+
+    def decode_steps(self, params, caches, token: torch.Tensor,
+                     active: torch.Tensor, n: int,
+                     eos_id: Optional[torch.Tensor] = None,
+                     budget: Optional[torch.Tensor] = None,
+                     pad_token: int = 0,
+                     forced: Optional[torch.Tensor] = None,
+                     forced_len: Optional[torch.Tensor] = None,
+                     forced_ptr: Optional[torch.Tensor] = None):
+        """n greedy decode steps without a host sync: the whole loop
+        (decode_step -> argmax -> feed back) stays on the device and the
+        caller fetches one (n, B) int32 token block.
+
+        A lane drops out after it emits EOS or exhausts its budget; from
+        then on it emits -1 and leaves its cache rows and counter alone.
+        forced/forced_len/forced_ptr (all or none): per-lane queues of
+        forced input tokens — a prefix-cache hit's prompt-suffix ingest.
+        While ``forced_ptr[b] < forced_len[b]`` the lane feeds the queued
+        token, emits -1 and keeps its budget; the step that consumes its
+        last pending input emits the first generated token.
+
+        Returns (tokens (n, B), next token (B,), active (B,), remaining
+        (B,), caches); with a forced queue, forced_ptr (B,) comes before
+        caches.
+        """
+        b = token.shape[0]
+        dev = token.device
+        if eos_id is None:
+            eos_id = torch.full((b,), -1, dtype=torch.int32, device=dev)
+        if budget is None:
+            budget = torch.full((b,), 2 ** 30, dtype=torch.int32, device=dev)
+        cur, act, rem = token.to(torch.int32), active, budget
+        toks = []
+        if forced is None:
+            for _ in range(n):
+                logits, caches = self.decode_step(params, caches, cur,
+                                                  active=act)
+                emit, cur, act, rem = greedy_token_update(
+                    logits, cur, act, rem, eos_id, pad_token)
+                toks.append(emit)
+            return torch.stack(toks), cur, act, rem, caches
+
+        fcap = forced.shape[1]
+        lane = torch.arange(b, device=dev)
+        fptr = forced_ptr.to(torch.int32)
+        for _ in range(n):
+            logits, caches = self.decode_step(params, caches, cur,
+                                              active=act)
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            pending = fptr < forced_len  # this step's output is swallowed
+            emitting = act & ~pending
+            toks.append(torch.where(emitting, nxt, torch.full_like(nxt, -1)))
+            rem = torch.where(emitting, rem - 1, rem)
+            still = act & (pending | ((nxt != eos_id) & (rem > 0)))
+            feed = torch.where(
+                pending, forced[lane, torch.clamp(fptr, max=fcap - 1).long()],
+                nxt)
+            cur = torch.where(still, feed, torch.full_like(feed, pad_token))
+            fptr = torch.where(act & pending, fptr + 1, fptr)
+            act = still
+        return torch.stack(toks), cur, act, rem, fptr, caches
+
+    def admit_lane_cache(self, big, slot: int, pt_row, pos0: int,
+                         reset_pages, small=None, write_pages=None):
+        """Prepare lane `slot` of the paged cache `big` for a new occupant,
+        in place.
+
+        reset_pages: (R,) pages whose kpos return to the never-written
+        sentinel before use (recycled pages must not expose the previous
+        occupant's keys; padded with the trash page 0).  small /
+        write_pages: optional batch-1 bucket cache from a dense prefill and
+        the (W,) pages that receive it, positions [0, W*page_size) in
+        prompt order.  The lane's table row becomes `pt_row` and its
+        counter `pos0` (the prompt length; a prefix hit passes hit_len and
+        no `small` — its suffix arrives through the forced queue).
+        """
+        dev = self.device
+        reset = torch.as_tensor(reset_pages, dtype=torch.long, device=dev)
+        wp = (None if write_pages is None else
+              torch.as_tensor(write_pages, dtype=torch.long, device=dev))
+
+        def leaf(page_axis, name, b, s):
+            ps = b.shape[page_axis + 1]
+            idx = (slice(None),) * page_axis
+            if name == "kpos":
+                b[idx + (reset,)] = KPOS_SENTINEL
+            if s is None:
+                return
+            s = s.squeeze(page_axis).to(b.dtype)  # drop the batch-1 axis
+            need, got = wp.shape[0] * ps, s.shape[page_axis]
+            if got < need:
+                fill = KPOS_SENTINEL if name == "kpos" else 0
+                pad_shape = list(s.shape)
+                pad_shape[page_axis] = need - got
+                s = torch.cat([s, torch.full(pad_shape, fill, dtype=s.dtype,
+                                             device=s.device)], page_axis)
+            elif got > need:  # the lane owns fewer pages than the bucket
+                s = s.narrow(page_axis, 0, need)
+            s = s.reshape(s.shape[:page_axis] + (wp.shape[0], ps)
+                          + s.shape[page_axis + 1:])
+            b[idx + (wp,)] = s
+
+        for key, axis in (("scan", 1), ("tail", 0)):
+            for blk, arena in big[key].items():
+                sm = None if small is None else small[key][blk]
+                for name, t in arena.items():
+                    leaf(axis, name, t, None if sm is None else sm[name])
+        big["pos"][slot] = int(pos0)
+        big["pt"][slot] = torch.as_tensor(pt_row, dtype=torch.int32,
+                                          device=dev)
+        return big
+
+
+def make_model(cfg: ModelConfig, device="cuda") -> Model:
+    return Model(cfg, device=device)

@@ -1,0 +1,139 @@
+"""Device-side serving execution for one device (port of
+`repro/serving/executor.py`, paged path).
+
+The executor owns the params and the device decode state: bucketed
+prefill, the fused n-step decode loop (`Model.decode_steps`), and the lane
+admission/park updates.  PyTorch runs eagerly, so there is nothing to
+compile; the state tensors are updated in place.  Each decode dispatch
+returns one (n, B) token tensor that the engine fetches once — the loop
+itself never syncs with the host.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.core.packing import bucket_len
+from repro_torch.models.transformer import Model
+
+PAD_TOKEN = 0  # fed for finished/free lanes; their logits are never read
+
+
+class Executor:
+    """Device programs + decode state for one paged serving engine."""
+
+    def __init__(self, model: Model, params, max_batch: int = 8,
+                 cache_len: int = 0, buckets=()):
+        self.model = model
+        self.params = params
+        self.device = model.device
+        self.max_batch = max_batch
+        self.cache_len = cache_len  # the engine re-rounds it to pages
+        self.buckets = tuple(sorted(buckets))
+        self._warm = []  # buckets prefilled at batch 1, first-use order
+
+    def _tensor(self, a, dtype=torch.int32) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+
+    # -- cache / state -------------------------------------------------------
+
+    def init_caches(self, page_size: int, num_pages: int, max_pages: int):
+        return self.model.init_paged_cache(self.max_batch, num_pages,
+                                           page_size, max_pages)
+
+    def fresh_state(self, caches) -> Dict[str, Any]:
+        """Device decode state, mutated only by the methods below."""
+        b, dev = self.max_batch, self.device
+
+        def full(shape, val, dtype=torch.int32):
+            return torch.full(shape, val, dtype=dtype, device=dev)
+
+        return {"caches": caches,
+                "cur": full((b,), PAD_TOKEN),
+                "active": full((b,), False, torch.bool),
+                "eos": full((b,), -1),
+                "budget": full((b,), 0),
+                "forced": full((b, self.cache_len), 0),
+                "flen": full((b,), 0),
+                "fptr": full((b,), 0)}
+
+    # -- prefill -------------------------------------------------------------
+
+    def prefill_prompts(self, prompts, batch: int):
+        """Bucketed left-aligned batched prefill into a bucket-sized dense
+        cache; returns (logits (batch, V), caches)."""
+        maxlen = max(len(p) for p in prompts)
+        bucket = bucket_len(maxlen, self.buckets, lane=8)
+        toks = np.zeros((batch, bucket), np.int32)
+        # pad positions = 2^30 so the causal mask never attends to them
+        pos = np.full((batch, bucket), 2 ** 30, np.int32)
+        lengths = np.ones((batch,), np.int32)
+        for i, p in enumerate(prompts):
+            n = len(p)
+            toks[i, :n] = p
+            pos[i, :n] = np.arange(n)
+            lengths[i] = n
+        if batch == 1 and bucket not in self._warm:
+            self._warm.append(bucket)
+        caches = self.model.init_cache(batch, bucket)
+        with torch.no_grad():
+            return self.model.prefill(
+                self.params, caches, self._tensor(toks),
+                positions=self._tensor(pos),
+                last_idx=self._tensor(lengths - 1, torch.long))
+
+    @property
+    def warm_buckets(self):
+        """Buckets already prefilled at batch 1 — the reference reports
+        its compiled prefill programs here, and the admission order
+        prefers them, so the port reports the same set."""
+        return list(self._warm)
+
+    # -- fused decode ----------------------------------------------------------
+
+    def decode(self, st: Dict[str, Any], n: int) -> torch.Tensor:
+        """One fused n-step dispatch; returns the (n, B) token tensor (on
+        the device), st updated in place."""
+        with torch.no_grad():
+            toks, cur, active, budget, fptr, caches = self.model.decode_steps(
+                self.params, st["caches"], st["cur"], st["active"], n,
+                eos_id=st["eos"], budget=st["budget"], pad_token=PAD_TOKEN,
+                forced=st["forced"], forced_len=st["flen"],
+                forced_ptr=st["fptr"])
+        st.update(caches=caches, cur=cur, active=active, budget=budget,
+                  fptr=fptr)
+        return toks
+
+    # -- lane updates ----------------------------------------------------------
+
+    def admit_hit(self, st, slot: int, pt_row, pos0: int, reset) -> None:
+        """Point a lane at its (shared prefix + own) pages; the suffix
+        arrives later through the decode loop's forced queue."""
+        self.model.admit_lane_cache(st["caches"], slot, pt_row, pos0, reset)
+
+    def admit_cold(self, st, slot: int, small, pt_row, pos0: int, reset,
+                   write_pages: np.ndarray) -> None:
+        """Scatter a bucket prefill cache into the lane's arena pages."""
+        self.model.admit_lane_cache(st["caches"], slot, pt_row, pos0, reset,
+                                    small=small, write_pages=write_pages)
+
+    def admit_lane_paged(self, st, sl: int, tok: int, eos_id: int, bud: int,
+                         forced_rest, flen: int) -> None:
+        """Lane decode state plus its forced-token (suffix-ingest) row."""
+        frow = np.zeros((self.cache_len,), np.int32)
+        frow[:len(forced_rest)] = forced_rest
+        st["cur"][sl] = tok
+        st["active"][sl] = True
+        st["eos"][sl] = eos_id
+        st["budget"][sl] = bud
+        st["forced"][sl] = self._tensor(frow)
+        st["flen"][sl] = flen
+        st["fptr"][sl] = 0
+
+    def park_lane(self, st, sl: int) -> None:
+        """Deactivate a lane (preemption): its writes go to the trash page
+        from the next step on."""
+        st["cur"][sl] = PAD_TOKEN
+        st["active"][sl] = False

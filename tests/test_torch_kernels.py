@@ -1,0 +1,137 @@
+"""The port's plain paged_flash_decode against the JAX package's kernel.
+
+Same numpy inputs go through `repro_torch.kernels.ops.paged_flash_decode`
+on CPU tensors (which takes the plain PyTorch version) and through
+`repro.kernels.ops.paged_flash_decode` with impl="interpret" (the Pallas
+kernel body, run by the interpreter) and impl="ref" (the jnp gather
+oracle).  Page tables carry pages shared between lanes, trash page 0
+entries, sentinel and stale (kpos > qpos) rows, and inactive lanes.
+
+Tolerances: f32 inputs agree to 1e-5 (only the summation order differs).
+bf16 inputs agree to 2e-2: outputs lie in (-1, 1), where one bf16 ulp is
+at most 2^-8, and the oracle rounds its scores and normalised p to bf16
+where the kernel keeps f32 scores and rounds the unnormalised p.
+Inactive lanes must be exact zeros.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.kernels import ops as jops
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+
+torch.set_num_threads(1)
+
+SENTINEL = 2 ** 30
+
+
+def make_paged(seed, b, kvh, g, hd, ps=4, maxp=5):
+    """Random arena + page tables in the serving engine's invariants: a
+    lane's logical page j holds positions [j*ps, (j+1)*ps); prefix pages
+    may be shared with lane 0; pages past a lane's length name the trash
+    page 0; rows past qpos in a lane's last page are stale (kpos > qpos)
+    or never written (sentinel).  Lanes 1 and b-1 are inactive."""
+    rng = np.random.default_rng(seed)
+    n_pages = 1 + b * maxp
+    q = rng.normal(0, 1, (b, kvh * g, hd)) * hd ** -0.5
+    k = rng.uniform(-1, 1, (n_pages, ps, kvh, hd))
+    v = rng.uniform(-1, 1, (n_pages, ps, kvh, hd))
+    kpos = np.full((n_pages, ps), SENTINEL, np.int32)
+    pt = np.zeros((b, maxp), np.int32)
+    qpos = rng.integers(ps, maxp * ps - 2, b).astype(np.int32)
+    nxt = 1
+    for lane in range(b):
+        for j in range(int(qpos[lane]) // ps + 1):
+            full = (j + 1) * ps <= min(qpos[0], qpos[lane])
+            if lane and full and (lane == 2 or rng.random() < 0.5):
+                pt[lane, j] = pt[0, j]  # shared prefix page
+                continue
+            pt[lane, j] = nxt
+            kpos[nxt] = j * ps + np.arange(ps)
+            nxt += 1
+        last = pt[lane, int(qpos[lane]) // ps]
+        off = int(qpos[lane]) % ps
+        if off + 1 < ps:  # the row after qpos: never written
+            kpos[last, off + 1] = SENTINEL
+    active = np.ones((b,), bool)
+    active[[1, b - 1]] = False
+    return dict(q=q, k=k, v=v, kpos=kpos, pt=pt, qpos=qpos, active=active)
+
+
+def _jax(inp, dtype, impl):
+    out = jops.paged_flash_decode(
+        jnp.asarray(inp["q"], dtype), jnp.asarray(inp["k"], dtype),
+        jnp.asarray(inp["v"], dtype), jnp.asarray(inp["kpos"]),
+        jnp.asarray(inp["pt"]), jnp.asarray(inp["qpos"]),
+        active=jnp.asarray(inp["active"]), impl=impl)
+    return np.asarray(out.astype(jnp.float32))
+
+
+def _torch(inp, dtype):
+    out = tops.paged_flash_decode(
+        torch.tensor(inp["q"]).to(dtype), torch.tensor(inp["k"]).to(dtype),
+        torch.tensor(inp["v"]).to(dtype), torch.tensor(inp["kpos"]),
+        torch.tensor(inp["pt"]), torch.tensor(inp["qpos"]),
+        active=torch.tensor(inp["active"]))
+    assert out.dtype == dtype
+    return out.float().numpy()
+
+
+@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("g", [1, 2, 3])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_paged_flash_decode_matches_jax(dtype, g, hd):
+    inp = make_paged(seed=10 * g + hd, b=4, kvh=2, g=g, hd=hd)
+    assert (inp["pt"] == 0).any() and len(np.unique(inp["pt"])) < \
+        (inp["pt"] > 0).sum() + 1, "want trash entries and shared pages"
+    tdt, jdt, atol = ((torch.float32, jnp.float32, 1e-5) if dtype == "f32"
+                      else (torch.bfloat16, jnp.bfloat16, 2e-2))
+    got = _torch(inp, tdt)
+    for impl in ("interpret", "ref"):
+        want = _jax(inp, jdt, impl)
+        np.testing.assert_allclose(got, want, atol=atol, rtol=0,
+                                   err_msg=impl)
+    off = ~inp["active"]
+    assert (got[off] == 0).all(), "inactive lanes must be exact zeros"
+    assert np.isfinite(got).all()
+
+
+def test_fully_masked_lane_is_zero_not_nan():
+    """A lane whose every key is masked (qpos below its first row) gives
+    exact zeros through the plain version, as the kernel does."""
+    inp = make_paged(seed=3, b=3, kvh=1, g=2, hd=16)
+    inp["qpos"][0] = -1
+    got = _torch(inp, torch.float32)
+    assert (got[0] == 0).all() and np.isfinite(got).all()
+
+
+def test_wrapper_refuses_bad_shapes_and_counts_no_cpu_launch():
+    inp = make_paged(seed=4, b=2, kvh=1, g=2, hd=16)
+    q = torch.tensor(inp["q"]).float()
+    k = torch.tensor(inp["k"]).float()
+    before = dict(tops.launches)
+    with pytest.raises(ValueError, match="kpos"):
+        tops.paged_flash_decode(q, k, k, torch.tensor(inp["kpos"])[:, :2],
+                                torch.tensor(inp["pt"]),
+                                torch.tensor(inp["qpos"]))
+    tops.paged_flash_decode(q, k, k, torch.tensor(inp["kpos"]),
+                            torch.tensor(inp["pt"]),
+                            torch.tensor(inp["qpos"]))
+    assert tops.launches == before  # the plain version is no launch
+
+
+def test_ref_gather_equals_dense_decode():
+    """The paged plain version is the dense one over the gathered cache."""
+    inp = make_paged(seed=5, b=3, kvh=2, g=2, hd=16)
+    t = {n: torch.tensor(a) for n, a in inp.items()}
+    pt = t["pt"].long()
+    dense = tref.flash_decode(
+        t["q"], t["k"][pt].reshape(3, -1, 2, 16),
+        t["v"][pt].reshape(3, -1, 2, 16), t["kpos"][pt].reshape(3, -1),
+        t["qpos"], active=t["active"])
+    paged = tref.paged_flash_decode(t["q"], t["k"], t["v"], t["kpos"],
+                                    t["pt"], t["qpos"], active=t["active"])
+    assert torch.equal(dense, paged)
