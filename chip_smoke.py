@@ -10,9 +10,12 @@ the JAX package.  Phases, in order — any fault exits non-zero:
 2. build: every CUDA kernel of the port, from the sources in the checkout,
    one nvcc per source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes (and a long-context one), with the error, the
-   kernel's time, the plain version's time, a library yardstick's time
-   and the least time the card could take (bytes over HBM rate);
+   the main paths' shapes (and a long-context one for the decode kernel),
+   with the error, the kernel's time, the plain version's time, a library
+   yardstick's time where one PyTorch call computes the same function, and
+   the least time the card could take (bytes over the HBM rate, or
+   operations over the peak rate of their type, whichever is larger); the
+   four I-BERT integer kernels must equal their plain versions bit for bit;
 4. serve: smollm-135m at full width (random weights from a seed) serves a
    Poisson stream and a shared-prefix stream through the port's
    ContinuousBatchingEngine; every request must finish its budget, the
@@ -21,10 +24,20 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    stream under torch.profiler says where the serve path's time goes;
 5. model: the same weights run prefill and 8 decode steps on the card and
    on the CPU (plain versions); logits must agree within a stated bound;
-6. summary: a JSON line of the kernels, then the device line.
+6. encode: the integer I-BERT encoder (ibert-base at full width, 12
+   layers, random float weights from seed 0, calibrated at batch 1, seq
+   128) through `repro_torch.launch.ibert_encoder`: one forward must
+   launch exactly 72 / 12 / 24 / 12 int8_matmul / i_softmax / i_layernorm
+   / i_gelu kernels, equal the CPU plain path bit for bit from the same
+   int8 entry tensor, and track the float forward (one encoder within
+   tests/test_ibert_model.py's bounds, 12 within the reference's own
+   12-layer error on these weights); then one forward under
+   torch.profiler, and the entry point's time at seq 1, 8, 32, 64, 128;
+7. summary: a JSON line of the kernels, then the device line.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -39,15 +52,34 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import ibert_ops  # noqa: E402
+from repro_torch.core.quant import QTensor  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.launch import ibert_encoder  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.models import ibert as ib  # noqa: E402
 from repro_torch.models.transformer import init_params, make_model  # noqa: E402
 from repro_torch.serving.engine import ContinuousBatchingEngine  # noqa: E402
 
 SENTINEL = 2 ** 30
 # published peaks of one H100 SXM at 700 W (NVIDIA data sheet, dense): HBM
-# bytes/s and f32 flop/s outside the tensor cores
-HBM_BYTES_S, F32_FLOP_S = 3.35e12, 67e12
+# bytes/s, f32 flop/s outside the tensor cores, int8 tensor-core ops/s.
+# int32 ALU ops are bounded by the f32 rate (the card has no more int32
+# lanes than f32 lanes), which keeps their bound a lower bound.
+HBM_BYTES_S, F32_FLOP_S, INT8_OPS_S = 3.35e12, 67e12, 1979e12
+# int32 operations per element of the I-BERT nonlinearities (the max and
+# sum reductions included), for their operations bound
+IBERT_OPS_PER_ELEM = {"i_softmax": 16, "i_layernorm": 10, "i_gelu": 12}
+# one 12-layer ibert-base forward: launches per kernel
+IBERT_LAUNCHES = {"int8_matmul": 72, "i_softmax": 12, "i_layernorm": 24,
+                  "i_gelu": 12}
+# the card's 12-layer integer-vs-float error may exceed the reference's
+# (the CPU plain path on the same weights) by these fractions: the card
+# calibrates from its own float forward, whose summation order moves the
+# scales by ulps.  Three calibrations of seed 0's weights (JAX's, the
+# port's on one CPU thread and on eight) gave max 3.59-3.80 (6% apart)
+# and mean 0.7543-0.7566 (0.3% apart)
+REF_ERR_MARGIN = {"max": 0.10, "mean": 0.02}
 KERNEL_TOL = 1e-2  # bf16 outputs in (-1, 1): ~2 ulps of summation order
 LOGIT_TOL = 0.1    # 30 bf16 layers, CPU vs card summation order
 
@@ -168,6 +200,94 @@ def kernel_phase(dev, flush, bw: float, flops: float, maxp: int) -> dict:
                 nflop / flops else "operations", library_ms=library_ms)
 
 
+def _bound(nbytes: float, nops: float, ops_rate: float):
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, nops / ops_rate
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _ibert_case(name: str, label: str, kernel, plain, flush, nbytes: float,
+                nops: float, ops_rate: float, library=None) -> dict:
+    """One I-BERT kernel at one shape: bit-exact against its plain version
+    on the same card inputs, then timed beside it."""
+    out, want = kernel(), plain()
+    torch.cuda.synchronize()
+    require(out.dtype == want.dtype and out.shape == want.shape,
+            f"{name} {label}: {out.dtype} {tuple(out.shape)} vs plain "
+            f"{want.dtype} {tuple(want.shape)}")
+    err = (out.long() - want.long()).abs().max().item()
+    require(err == 0, f"{name} {label}: kernel differs from its plain "
+            f"version (max abs err {err}, {(out != want).sum().item()} "
+            "elements)")
+    ms = time_ms(kernel, flush)
+    plain_ms = time_ms(plain, flush)
+    library_ms = None
+    if library is not None:  # a yardstick only, never part of the port
+        try:
+            library_ms = time_ms(library, flush)
+        except RuntimeError as exc:
+            log(f"kernel {name} {label}: library yardstick refused: {exc}")
+    bound_ms, bound_by = _bound(nbytes, nops, ops_rate)
+    lib = (f"library_ms={library_ms:.5f}" if library_ms is not None
+           else "library_ms=none (no single PyTorch call computes it)")
+    log(f"kernel {name} {label}: max_abs_err={err} (bit-exact) ms={ms:.5f} "
+        f"plain_ms={plain_ms:.5f} {lib} bound_ms={bound_ms:.6f} "
+        f"({bound_by}; {nbytes:.0f} bytes, {nops:.4g} ops)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+def ibert_kernel_phase(dev, flush) -> dict:
+    """The four I-BERT kernels at ibert-base's batch-1, seq-128 shapes.
+    Returns {kernel: metrics at its main shape}; int8_matmul's main shape
+    is the q/k/v/wo GEMM (4 of its 6 launches per layer)."""
+    rng = np.random.default_rng(12)
+    m, d, f = 128, 768, 3072
+
+    def ints(lo, hi, shape, dtype):
+        return torch.tensor(rng.integers(lo, hi, shape), dtype=dtype,
+                            device=dev)
+
+    res = {}
+    for k, n, requant in ((d, d, True), (d, f, False), (f, d, True)):
+        a, b = ints(-127, 128, (m, k), torch.int8), ints(-127, 128, (k, n),
+                                                          torch.int8)
+        bias = ints(-20000, 20000, (n,), torch.int32)
+        sa, sb = torch.tensor(0.02), torch.tensor(0.004)
+        so = torch.tensor(0.3) if requant else None
+        out_bytes = m * n * (1 if requant else 4)
+        r = _ibert_case(
+            "int8_matmul", f"{m}x{k}x{n} {'requant' if requant else 'int32'}",
+            lambda: ops.int8_matmul(a, b, sa, sb, s_out=so, bias=bias),
+            lambda: ref.int8_matmul(a, b, sa, sb, s_out=so, bias=bias), flush,
+            m * k + k * n + 4 * n + out_bytes, 2 * m * n * k, INT8_OPS_S,
+            library=lambda: torch._int_mm(a, b))
+        res.setdefault("int8_matmul", r)
+    rows, cols = 12 * m, m
+    q = ints(-2047, 2048, (rows, cols), torch.int32)
+    res["i_softmax"] = _ibert_case(
+        "i_softmax", f"({rows}, {cols})", lambda: ops.i_softmax(q, 0.004),
+        lambda: ref.i_softmax_rows(q, 0.004), flush, 2 * 4 * rows * cols,
+        IBERT_OPS_PER_ELEM["i_softmax"] * rows * cols, F32_FLOP_S)
+    r = ints(-127, 128, (m, d), torch.int32) + ints(-127, 128, (m, d),
+                                                    torch.int32)
+    prep = ibert_ops.layernorm_prepare(
+        torch.tensor(rng.uniform(0.5, 1.5, d), dtype=torch.float32,
+                     device=dev),
+        torch.tensor(rng.normal(0, 0.1, d), dtype=torch.float32, device=dev))
+    res["i_layernorm"] = _ibert_case(
+        "i_layernorm", f"({m}, {d})", lambda: ops.i_layernorm(r, prep)[0],
+        lambda: ref.i_layernorm_rows(r, prep.q_gamma, prep.q_beta), flush,
+        2 * 4 * m * d + 2 * 4 * d, IBERT_OPS_PER_ELEM["i_layernorm"] * m * d,
+        F32_FLOP_S)
+    g = ints(-2047, 2048, (m, f), torch.int32)
+    res["i_gelu"] = _ibert_case(
+        "i_gelu", f"({m}, {f})", lambda: ops.i_gelu(g, 0.003),
+        lambda: ref.i_gelu_elem(g, 0.003), flush, 2 * 4 * m * f,
+        IBERT_OPS_PER_ELEM["i_gelu"] * m * f, F32_FLOP_S)
+    return res
+
+
 def serve_phase(stream: str, n: int) -> dict:
     args = serve_cli.parse_args([
         "--arch", "smollm-135m", "--requests", str(n), "--max-batch", "8",
@@ -197,15 +317,39 @@ def serve_phase(stream: str, n: int) -> dict:
     return dict(launches=launches, prefix_hits=s["prefix_hits"])
 
 
+def _device_spans(fn) -> tuple:
+    """fn() under torch.profiler: the device's (start, end, name) spans in
+    start order, and the window's wall time on the host clock (us)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return spans, wall_us
+
+
+def _busy_us(spans) -> float:
+    """Length of the union of the spans: the device's busy time."""
+    busy, end = 0.0, -1.0
+    for s, e, _ in spans:
+        busy += max(0.0, e - max(s, end))
+        end = max(end, e)
+    return busy
+
+
 def profile_phase(dev) -> None:
     """Where the serve path's time goes: one Poisson stream served under
     torch.profiler.  Prints the device's busy share of the window (union
     of kernel and copy intervals over the host clock), the decode
     kernel's share of device time, and launches per decode step.  The
     profiler's own host cost lowers the busy share somewhat."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     args = serve_cli.parse_args(["--requests", "16", "--max-batch", "8",
                                  "--max-new", "32", "--seed", "3"])
     cfg = get_config(args.arch)
@@ -214,31 +358,18 @@ def profile_phase(dev) -> None:
         max_batch=args.max_batch, buckets=serve_cli.BUCKETS)
     for r in serve_cli.make_stream(args, cfg.vocab_size, args.seed):
         engine.submit(r)
-    torch.cuda.synchronize()
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        engine.run()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    spans, wall_us = _device_spans(engine.run)
     if not spans:
         log("profile: the profiler recorded no device time (not measured)")
         return
-    busy, end, kern, n_kern = 0.0, -1.0, 0.0, 0
-    for s, e, name in spans:
-        busy += max(0.0, e - max(s, end))
-        end = max(end, e)
-        if "paged_flash_decode" in name:
-            kern += e - s
-            n_kern += 1
+    kern = [e - s for s, e, name in spans if "paged_flash_decode" in name]
     dev_total = sum(e - s for s, e, _ in spans)
     steps = engine.stats["decode_steps"]
     log(f"profile poisson x16 (B=8, max_new 32): wall_ms={wall_us / 1e3:.2f}"
-        f" device_busy_share={busy / wall_us:.4f} device_kernel_ms="
-        f"{dev_total / 1e3:.2f} paged_flash_decode_share_of_device="
-        f"{kern / max(dev_total, 1e-9):.4f} ({n_kern} launches) "
+        f" device_busy_share={_busy_us(spans) / wall_us:.4f} "
+        f"device_kernel_ms={dev_total / 1e3:.2f} "
+        f"paged_flash_decode_share_of_device="
+        f"{sum(kern) / max(dev_total, 1e-9):.4f} ({len(kern)} launches) "
         f"device_ops_per_decode_step={len(spans) / max(steps, 1):.1f} "
         f"decode_steps={steps} wall_ms_per_decode_step="
         f"{wall_us / 1e3 / max(steps, 1):.3f}")
@@ -276,6 +407,8 @@ def model_phase() -> None:
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, tuple):  # LNParams
+        return type(tree)(*(_to(v, dev) for v in tree))
     return tree.to(dev)
 
 
@@ -323,6 +456,113 @@ def _model_run(model, params, prompts, ps, maxp, steps, teacher):
     return out
 
 
+def _first_difference(qp, qp_cpu, cfg, x) -> str:
+    """The first layer and site where the card's encoder and the CPU's
+    disagree, both run from the same int8 entry tensor."""
+    card, cpu = {}, {}
+    with torch.no_grad():
+        ib.ibert_encode(qp, cfg, x, trace=card)
+        ib.ibert_encode(qp_cpu, cfg, QTensor(x.values.cpu(), x.scale),
+                        trace=cpu)
+    for name, t in card.items():
+        if not torch.equal(t.cpu(), cpu[name]):
+            n = (t.cpu() != cpu[name]).sum().item()
+            return f"{name} ({n} of {t.numel()} elements differ)"
+    return "no site differs"
+
+
+def encode_phase() -> dict:
+    """The integer I-BERT encoder through the entry point's own code."""
+    argv = ["--layers", "12"]  # batch 1, seed 0
+    args = ibert_encoder.parse_args(argv)
+    t0 = time.perf_counter()
+    cfg, params, qp, toks = ibert_encoder.build(args)
+    torch.cuda.synchronize()
+    log(f"encode: ibert-base x{cfg.n_layers} built, calibrated at batch "
+        f"{args.batch} seq {toks.shape[1]} and quantized in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    ops.reset_launches()
+    with torch.no_grad():
+        out = ib.ibert_int_forward(qp, cfg, toks)
+    torch.cuda.synchronize()
+    counts = {k: ops.launches[k] for k in IBERT_LAUNCHES}
+    log(f"encode: one forward at batch 1 seq 128 launched {counts}")
+    require(counts == IBERT_LAUNCHES and ops.launches[
+        "paged_flash_decode"] == 0, f"launches {dict(ops.launches)} != "
+            f"{IBERT_LAUNCHES}")
+
+    # card against the CPU plain path, from the card's int8 entry tensor
+    qp_cpu = _to(qp, "cpu")
+    with torch.no_grad():
+        x = ib.ibert_embed(qp, toks)
+        x_cpu = ib.ibert_embed(qp_cpu, toks.cpu())
+        out_cpu = ib.ibert_encode(qp_cpu, cfg,
+                                  QTensor(x.values.cpu(), x.scale))
+    flips = (x.values.cpu() != x_cpu.values).sum().item()
+    same = torch.equal(out.values.cpu(), out_cpu.values)
+    log(f"encode: card vs CPU plain path from the same entry tensor: "
+        f"bit-exact={same} ({out.values.numel()} int8 outputs); float "
+        f"embedding entry tensor, card vs CPU: {flips} of "
+        f"{x.values.numel()} int8 values differ (float LayerNorm "
+        "summation order, outside the integer encoder)")
+    if not same:
+        require(False, "card and CPU integer encoders differ; first at "
+                + _first_difference(qp, qp_cpu, cfg, x))
+
+    # integer against float on one encoder at full width (layer 0 of these
+    # weights: the paper's proof-of-concept unit), held to
+    # tests/test_ibert_model.py's bounds
+    e = ibert_encoder.int_vs_float(params, qp,
+                                   dataclasses.replace(cfg, n_layers=1), toks)
+    log(f"encode: integer vs float, 1 layer: max={e['max']:.4f} "
+        f"mean={e['mean']:.4f} (float std {e['std']:.3f}; bounds 0.5 and "
+        "0.1 std)")
+    require(e["max"] < 0.5 * e["std"] and e["mean"] < 0.1 * e["std"],
+            f"integer vs float out of bounds: {e}")
+    ibert_profile(qp, cfg, toks)
+    del params, qp, qp_cpu
+
+    # the entry point itself: its 12-layer integer-vs-float error, held to
+    # the reference's on the same weights (the CPU plain path, calibrated
+    # on the CPU; tests/test_torch_ibert.py holds it bit-exact against
+    # JAX's impl="ref"), then its time per seq length
+    _, p_cpu, q_cpu, t_cpu = ibert_encoder.build(
+        ibert_encoder.parse_args(argv + ["--device", "cpu"]))
+    ref = ibert_encoder.int_vs_float(p_cpu, q_cpu, cfg, t_cpu)
+    del p_cpu, q_cpu
+    err = ibert_encoder.main(argv)["error"]
+    log(f"encode: integer vs float, 12 layers: max={err['max']:.4f} "
+        f"mean={err['mean']:.4f}; reference (CPU plain path) "
+        f"max={ref['max']:.4f} mean={ref['mean']:.4f}, bounds "
+        f"x{1 + REF_ERR_MARGIN['max']} and x{1 + REF_ERR_MARGIN['mean']}")
+    require(all(err[k] <= ref[k] * (1 + m) for k, m in REF_ERR_MARGIN.items()),
+            f"12-layer integer vs float {err} beyond the reference's {ref}")
+    return counts
+
+
+def ibert_profile(qp, cfg, toks) -> None:
+    """Where one integer forward's time goes (batch 1, seq 128): device
+    busy share of the window and device time by kernel."""
+    with torch.no_grad():
+        ib.ibert_int_forward(qp, cfg, toks)  # warm
+        spans, wall_us = _device_spans(
+            lambda: ib.ibert_int_forward(qp, cfg, toks))
+    if not spans:
+        log("encode profile: the profiler recorded no device time "
+            "(not measured)")
+        return
+    by = {k: 0.0 for k in list(IBERT_LAUNCHES) + ["other"]}
+    for s_, e_, name in spans:
+        key = next((k for k in IBERT_LAUNCHES if k + "_kernel" in name),
+                   "other")
+        by[key] += e_ - s_
+    log(f"encode profile seq=128: wall_ms={wall_us / 1e3:.3f} "
+        f"device_busy_share={_busy_us(spans) / wall_us:.4f} "
+        f"device_ops={len(spans)} device_ms={sum(by.values()) / 1e3:.4f} "
+        + " ".join(f"{k}_ms={v / 1e3:.4f}" for k, v in by.items()))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
@@ -350,20 +590,33 @@ def main() -> None:
     flush = torch.empty(256 * 2 ** 20, dtype=torch.int32, device=dev)
     main_shape = kernel_phase(dev, flush, bw, flops, maxp=12)
     kernel_phase(dev, flush, bw, flops, maxp=128)
+    ibert_main = ibert_kernel_phase(dev, flush)
     del flush
     torch.cuda.empty_cache()
 
     served = [serve_phase("poisson", 16), serve_phase("shared-prefix", 8)]
     profile_phase(dev)
     model_phase()
+    encoded = encode_phase()
 
-    entry = dict(name="paged_flash_decode", route="cuda",
-                 source="src/repro_torch/kernels/csrc/paged_flash_decode.cu",
-                 replaces="src/repro/kernels/flash_decode.py:250",
-                 launches=sum(s["launches"] for s in served), **main_shape)
-    log(json.dumps({"kernels": [entry]}))
+    entries = [dict(name="paged_flash_decode", route="cuda",
+                    source="src/repro_torch/kernels/csrc/"
+                           "paged_flash_decode.cu",
+                    replaces="src/repro/kernels/flash_decode.py:250",
+                    launches=sum(s["launches"] for s in served),
+                    **main_shape)]
+    for kernel, replaces in (("int8_matmul", "int8_matmul.py:60"),
+                             ("i_softmax", "i_softmax.py:49"),
+                             ("i_layernorm", "i_layernorm.py:50"),
+                             ("i_gelu", "i_gelu.py:41")):
+        entries.append(dict(
+            name=kernel, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{kernel}.cu",
+            replaces=f"src/repro/kernels/{replaces}",
+            launches=encoded[kernel], **ibert_main[kernel]))
+    log(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
 
 

@@ -2,11 +2,11 @@
 
 Each source in `csrc/` compiles to its own shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds).  The target is
-Hopper's `sm_90a`.  Libraries go to `_build/` beside this file, named by a
-hash of the source and the flags, so an edited source rebuilds and an
-unchanged one loads at once.  Nothing is built when the module is
-imported: `load(name)` builds at first use, `build_all()` starts one nvcc
-per source together and waits for them all.
+Hopper's `sm_90a`.  Libraries go to `_build/` beside this file, named by
+a hash of the source, the shared headers and the flags, so an edited
+source rebuilds and an unchanged one loads at once.  Nothing is built
+when the module is imported: `load(name)` builds at first use,
+`build_all()` starts one nvcc per source together and waits for them all.
 
     PYTHONPATH=src python -c "from repro_torch.kernels import build; build.build_all()"
 """
@@ -22,9 +22,18 @@ from typing import Dict, List, Optional
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
-SOURCES = ("paged_flash_decode",)  # one library per csrc/<name>.cu
+# one library per csrc/<name>.cu
+SOURCES = ("paged_flash_decode", "int8_matmul", "i_softmax", "i_layernorm",
+           "i_gelu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the integer I-BERT kernels repeat the reference's float32 scale
+# arithmetic operation by operation: no multiply-add contraction
+NO_FMAD = ("int8_matmul", "i_softmax", "i_layernorm", "i_gelu")
+
+
+def flags(name: str) -> tuple:
+    return NVCC_FLAGS + (("-fmad=false",) if name in NO_FMAD else ())
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -44,8 +53,13 @@ def nvcc_path() -> str:
 
 
 def lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, named by a hash of its source, the shared
+    headers in csrc/ and its flags."""
+    digest = hashlib.sha256(" ".join(flags(name)).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for src in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC, src), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
@@ -56,7 +70,7 @@ def _start(name: str):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+    cmd = [nvcc_path(), *flags(name), "-o", tmp,
            os.path.join(CSRC, name + ".cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)

@@ -5,6 +5,10 @@ there is no fallback on the card.  A CPU tensor goes to the kernel's plain
 PyTorch version in `kernels/ref.py`.  Each wrapper counts its kernel
 launches in `launches` (plain integers), so a run can show that its main
 path went through the kernels.
+
+Scales (float32 scalars: Python floats or 0-d tensors) reach a kernel by
+value; a 0-d tensor on the card is read back to the host for that, so
+callers keep scales on the CPU (the I-BERT model does).
 """
 from __future__ import annotations
 
@@ -13,12 +17,27 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.ibert_ops import LNParams
 from repro_torch.kernels import ref as _ref
 
-launches = {"paged_flash_decode": 0}
+launches = {"paged_flash_decode": 0, "int8_matmul": 0, "i_softmax": 0,
+            "i_layernorm": 0, "i_gelu": 0}
 
 HEAD_DIMS = (16, 64, 128)  # the kernel's compiled head_dim instances
 MAX_GROUP = 8  # query heads per kv head the kernel takes
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points: library -> (symbol, argtypes); pointers and the stream as
+# c_void_p, since a bare int would be cut to 32 bits
+_SIGNATURES = {
+    "paged_flash_decode": ("paged_flash_decode_bf16", [_P] * 8 + [_I] * 6
+                           + [_P]),
+    "int8_matmul": ("int8_matmul", [_P] * 4 + [_I] * 3 + [_F] * 3
+                    + [_I, _P]),
+    "i_softmax": ("i_softmax", [_P, _P, _I, _I, _F, _P]),
+    "i_layernorm": ("i_layernorm", [_P] * 4 + [_I, _I, _P]),
+    "i_gelu": ("i_gelu", [_P, _P, ctypes.c_longlong, _F, _P]),
+}
 
 
 def reset_launches() -> None:
@@ -29,25 +48,51 @@ def reset_launches() -> None:
 _FNS = {}
 
 
-def _paged_flash_decode_fn():
-    """The kernel's C entry point, built and bound at first use."""
-    fn = _FNS.get("paged_flash_decode")
+def _kernel_fn(name: str):
+    """Kernel `name`'s C entry point, built and bound at first use."""
+    fn = _FNS.get(name)
     if fn is None:
         from repro_torch.kernels.build import load
 
-        fn = load("paged_flash_decode").paged_flash_decode_bf16
-        # pointers and the stream as c_void_p: a bare int would be cut to
-        # 32 bits
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
-            ctypes.c_void_p]
+        sym, argtypes = _SIGNATURES[name]
+        fn = getattr(load(name), sym)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _FNS["paged_flash_decode"] = fn
+        _FNS[name] = fn
     return fn
 
 
-def _check(cond: bool, msg: str) -> None:
+def _launch(name: str, device: torch.device, *args) -> None:
+    """Launch kernel `name` on `device`'s current stream; count it or
+    raise."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = _kernel_fn(name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    launches[name] += 1
+
+
+def _check(cond: bool, msg: str, kernel: str = "paged_flash_decode") -> None:
     if not cond:
-        raise ValueError("paged_flash_decode: " + msg)
+        raise ValueError(f"{kernel}: {msg}")
+
+
+def _check_cuda(kernel: str, dtypes: dict, **tensors) -> None:
+    """The card's contract: every tensor on the first one's CUDA device,
+    contiguous, in its dtype."""
+    first = next(iter(tensors.values()))
+    _check(first.is_cuda, f"no kernel for device {first.device}", kernel)
+    for name, t in tensors.items():
+        _check(t.device == first.device, f"{name} on {t.device}, not "
+               f"{first.device}", kernel)
+        _check(t.is_contiguous(), f"{name} is not contiguous", kernel)
+        _check(t.dtype == dtypes[name], f"{name} is {t.dtype}, the kernel "
+               f"takes {dtypes[name]}", kernel)
+
+
+def _scale(s) -> float:
+    """A float32 scale as the float the kernel takes by value."""
+    return float(torch.as_tensor(s, dtype=torch.float32))
 
 
 def paged_flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -101,12 +146,108 @@ def paged_flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _check(tensors[name].data_ptr() % 16 == 0,
                f"{name} is not 16-byte aligned")
     out = torch.empty_like(q)
-    err = _paged_flash_decode_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), kpos.data_ptr(),
-             page_table.data_ptr(), qpos.data_ptr(), active.data_ptr(),
-             out.data_ptr(), b, kvh, h // kvh, hd, ps, page_table.shape[1],
-             torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"paged_flash_decode kernel launch failed: CUDA "
-                           f"error {err}")
-    launches["paged_flash_decode"] += 1
+    _launch("paged_flash_decode", q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), kpos.data_ptr(), page_table.data_ptr(),
+            qpos.data_ptr(), active.data_ptr(), out.data_ptr(), b, kvh,
+            h // kvh, hd, ps, page_table.shape[1])
+    return out
+
+
+def int8_matmul(a: torch.Tensor, b: torch.Tensor, s_a, s_b, s_out=None,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """INT8 (M, K) @ INT8 (K, N) -> INT32 accumulators, plus an optional
+    int32 bias (N,) at scale s_a*s_b; with `s_out`, requantized to INT8 at
+    s_out (round half away from zero, clip to ±127).
+
+    On the card: a, b int8 and bias int32, contiguous; M, N, K of any size
+    (the kernel masks ragged edges).
+    """
+    name = "int8_matmul"
+    _check(a.dim() == 2 and b.dim() == 2 and a.shape[1] == b.shape[0],
+           f"a {tuple(a.shape)} @ b {tuple(b.shape)}: want (M, K) @ (K, N)",
+           name)
+    m, k = a.shape
+    n = b.shape[1]
+    _check(bias is None or tuple(bias.shape) == (n,),
+           f"bias {None if bias is None else tuple(bias.shape)}: want ({n},)",
+           name)
+    if a.device.type == "cpu":
+        return _ref.int8_matmul(a, b, s_a, s_b, bias=bias, s_out=s_out)
+    tensors, dtypes = {"a": a, "b": b}, {"a": torch.int8, "b": torch.int8,
+                                         "bias": torch.int32}
+    if bias is not None:
+        tensors["bias"] = bias
+    _check_cuda(name, dtypes, **tensors)
+    requant = s_out is not None
+    out = torch.empty((m, n), dtype=torch.int8 if requant else torch.int32,
+                      device=a.device)
+    if out.numel() == 0:
+        return out
+    _launch(name, a.device, a.data_ptr(), b.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(), m,
+            n, k, _scale(s_a), _scale(s_b),
+            _scale(s_out) if requant else 1.0, int(requant))
+    return out
+
+
+def i_softmax(q: torch.Tensor, scale) -> torch.Tensor:
+    """Integer softmax (I-BERT) over the last axis of int32 scores at
+    float32 `scale` -> int32 probabilities at 2^-14, same shape.
+
+    On the card: q int32 and contiguous.
+    """
+    name = "i_softmax"
+    _check(q.dim() >= 1 and q.shape[-1] > 0, f"q {tuple(q.shape)}", name)
+    if q.device.type == "cpu":
+        return _ref.i_softmax_rows(q, scale)
+    _check_cuda(name, {"q": torch.int32}, q=q)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    cols = q.shape[-1]
+    _launch(name, q.device, q.data_ptr(), out.data_ptr(), q.numel() // cols,
+            cols, _scale(scale))
+    return out
+
+
+def i_layernorm(q8: torch.Tensor, prep: LNParams):
+    """Integer LayerNorm (I-BERT) over the last axis of int8-range int32
+    values (or sums of two such) -> (int32 values, prep.s_out).
+
+    On the card: q8, prep.q_gamma and prep.q_beta int32 and contiguous.
+    """
+    name = "i_layernorm"
+    h = q8.shape[-1] if q8.dim() else 0
+    _check(h > 0 and tuple(prep.q_gamma.shape) == (h,)
+           and tuple(prep.q_beta.shape) == (h,),
+           f"q8 {tuple(q8.shape)}, gamma {tuple(prep.q_gamma.shape)}, beta "
+           f"{tuple(prep.q_beta.shape)}: want (..., H), (H,), (H,)", name)
+    if q8.device.type == "cpu":
+        return _ref.i_layernorm_rows(q8, prep.q_gamma, prep.q_beta), prep.s_out
+    i32 = torch.int32
+    _check_cuda(name, {"q8": i32, "q_gamma": i32, "q_beta": i32}, q8=q8,
+                q_gamma=prep.q_gamma, q_beta=prep.q_beta)
+    out = torch.empty_like(q8)
+    if out.numel() == 0:
+        return out, prep.s_out
+    _launch(name, q8.device, q8.data_ptr(), prep.q_gamma.data_ptr(),
+            prep.q_beta.data_ptr(), out.data_ptr(), q8.numel() // h, h)
+    return out, prep.s_out
+
+
+def i_gelu(q: torch.Tensor, scale) -> torch.Tensor:
+    """Integer GELU (I-BERT), elementwise over int32 q at float32 `scale`
+    -> int32 at the scale `core.ibert_ops.i_gelu` returns.
+
+    On the card: q int32 and contiguous.
+    """
+    name = "i_gelu"
+    if q.device.type == "cpu":
+        return _ref.i_gelu_elem(q, scale)
+    _check_cuda(name, {"q": torch.int32}, q=q)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    _launch(name, q.device, q.data_ptr(), out.data_ptr(), q.numel(),
+            _scale(scale))
     return out

@@ -5,6 +5,12 @@ same name here.  The wrappers in `kernels/ops.py` take these on the CPU,
 the CPU tests hold them against the JAX package, and `chip_smoke.py`
 holds each kernel against them on the card.
 
+The I-BERT functions are the integer oracles of `core/ibert_ops.py`
+(and the INT8 GEMM contract of `core/quant.py`); kernel and plain
+version agree bit for bit.  The GEMM's plain version forms the product
+in float64, which is exact (|acc| <= K * 127^2 < 2^53) and runs on the
+CPU and on the card alike (PyTorch has no int32 matmul on CUDA).
+
 The decode functions follow the JAX oracles (`repro/kernels/ref.py`
 flash_decode / paged_flash_decode) with the kernel's numerics: masked
 scores become ``NEG_INF = -1e30`` (never ``-inf``), p is taken from the
@@ -18,6 +24,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from repro_torch.core import ibert_ops as _io
+from repro_torch.core.quant import f32 as _f32
+from repro_torch.core.quant import requantize as _requantize
 
 NEG_INF = -1e30
 KPOS_SENTINEL = 2 ** 30  # never-written cache slot
@@ -69,3 +79,42 @@ def paged_flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vg = v[pt].reshape(b, -1, kvh, hd)
     kpg = kpos[pt].reshape(b, -1)
     return flash_decode(q, kg, vg, kpg, qpos, active=active)
+
+
+def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact integer (..., M, K) @ (..., K, N) -> int32, through float64
+    (every partial sum is an integer below 2^53 at the shapes here)."""
+    return torch.matmul(a.double(), b.double()).to(torch.int32)
+
+
+def int8_matmul(a: torch.Tensor, b: torch.Tensor, s_a, s_b,
+                bias: Optional[torch.Tensor] = None,
+                s_out=None) -> torch.Tensor:
+    """INT8 (M,K) x INT8 (K,N) -> INT32 accum (+ int32 bias at scale
+    s_a*s_b), optionally requantized to INT8 at s_out.  The paper's Linear
+    module (Matrix-Multiply + Bias Addition + Quant)."""
+    acc = int_matmul(a, b)
+    if bias is not None:
+        acc = acc + bias.to(torch.int32)[None, :]
+    if s_out is None:
+        return acc
+    return _requantize(acc, _f32(s_a) * _f32(s_b), s_out)
+
+
+def i_softmax_rows(q: torch.Tensor, scale) -> torch.Tensor:
+    """Integer softmax over the last axis; returns int32 probs at 2^-14."""
+    out, _ = _io.i_softmax(q.to(torch.int32), scale, dim=-1)
+    return out
+
+
+def i_layernorm_rows(q8: torch.Tensor, q_gamma: torch.Tensor,
+                     q_beta: torch.Tensor) -> torch.Tensor:
+    """Integer LayerNorm over the last axis (input int8-range int32)."""
+    prep = _io.LNParams(q_gamma, None, q_beta, None)
+    out, _ = _io.i_layernorm(q8.to(torch.int32), prep)
+    return out
+
+
+def i_gelu_elem(q: torch.Tensor, scale) -> torch.Tensor:
+    out, _ = _io.i_gelu(q.to(torch.int32), scale)
+    return out

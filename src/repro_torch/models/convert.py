@@ -1,19 +1,30 @@
 """Weight bridge: JAX parameter trees -> the port's parameters.
 
-The JAX package's `init_params` tree (`{"embed", "scan", "tail",
-"final_norm"}`, "scan" leaves stacked on a leading layer axis) arrives as
-nested dicts of numpy arrays — e.g. ``jax.tree.map(np.asarray, params)``
-— so this module needs no JAX.  The layout is kept as it is; only the
-leaves become tensors of the same dtype.  numpy's bfloat16
-(ml_dtypes) does not go through ``torch.from_numpy``, so bf16 leaves
-travel as their raw 16-bit patterns and are reinterpreted, bit for bit.
+The JAX package's trees arrive as nested dicts of numpy arrays — e.g.
+``jax.tree.map(np.asarray, params)`` — so this module needs no JAX.  Two
+kinds are carried:
+
+* the decoder LM's `init_params` tree (`{"embed", "scan", "tail",
+  "final_norm"}`, "scan" leaves stacked on a leading layer axis);
+* I-BERT's float tree (`init_ibert_params`) and its quantized tree
+  (`quantize_ibert`): int8 weights, int32 biases, `LNParams` named tuples
+  (which become the port's `LNParams`), 0-d float32 scales and the
+  calibrated `act` dict.
+
+The layout is kept as it is; only the leaves become tensors of the same
+dtype.  A 0-d leaf (a scale) stays on the CPU, where the port keeps scale
+arithmetic.  numpy's bfloat16 (ml_dtypes) does not go through
+``torch.from_numpy``, so bf16 leaves travel as their raw 16-bit patterns
+and are reinterpreted, bit for bit.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any
 
 import numpy as np
 import torch
+
+from repro_torch.core.ibert_ops import LNParams
 
 
 def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
@@ -25,10 +36,16 @@ def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def params_from_jax(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
-    """Nested dicts of numpy arrays (the JAX layout) -> nested dicts of
-    tensors on `device`, the layout `repro_torch.models.transformer`
-    reads."""
+def params_from_jax(tree: Any, device="cuda") -> Any:
+    """Nested dicts (and named tuples) of numpy arrays, in the JAX layout
+    -> the same structure of tensors on `device` (0-d leaves on the
+    CPU), the layout `repro_torch.models.transformer` and
+    `repro_torch.models.ibert` read."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
-    return tensor_from_numpy(tree, device)
+    if isinstance(tree, tuple):
+        if type(tree).__name__ != "LNParams":
+            raise TypeError(f"no port type for {type(tree).__name__}")
+        return LNParams(*(params_from_jax(v, device) for v in tree))
+    leaf = np.asarray(tree)
+    return tensor_from_numpy(leaf, "cpu" if leaf.ndim == 0 else device)

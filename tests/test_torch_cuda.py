@@ -6,7 +6,9 @@ a machine with one (and nvcc) with
 
 Tolerance: bf16 outputs in (-1, 1) agree to 1e-2 (a few ulps: the kernel
 and the plain version sum scores and p @ V in different orders).
-Inactive lanes are exact zeros on both.
+Inactive lanes are exact zeros on both.  The I-BERT integer kernels have
+no tolerance: each equals its plain version bit for bit, on the card and
+on the CPU.
 """
 import numpy as np
 import pytest
@@ -79,3 +81,115 @@ def test_kernel_wrapper_refuses_what_it_cannot_run(dev):
                                k[..., :32].contiguous(),
                                v[..., :32].contiguous(), kpos, pt, qpos,
                                active=act)
+
+
+# ---------------------------------------------------------------------------
+# The I-BERT integer kernels: bit for bit against the plain versions, on
+# the card and on the CPU, at ragged shapes (no tile multiples; rows of 1
+# and of 513).
+# ---------------------------------------------------------------------------
+
+from repro_torch.core import ibert_ops as io  # noqa: E402
+
+MIN_SCALE = float(np.float32(np.float32(0.5) / np.float32(2047)))
+
+
+def _same_everywhere(out, want_card, want_cpu):
+    torch.cuda.synchronize()
+    assert out.dtype == want_card.dtype and out.shape == want_card.shape
+    assert torch.equal(out, want_card)
+    assert torch.equal(out.cpu(), want_cpu)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 3, 5), (33, 65, 77), (128, 768, 768),
+                                   (130, 770, 3072), (7, 1, 1000),
+                                   (128, 3072, 768)])
+@pytest.mark.parametrize("requant", [False, True])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_int8_matmul_kernel_matches_plain(dev, m, k, n, requant, with_bias):
+    rng = np.random.default_rng(m * 7 + k * 3 + n)
+    a = torch.tensor(rng.integers(-127, 128, (m, k)), dtype=torch.int8)
+    b = torch.tensor(rng.integers(-127, 128, (k, n)), dtype=torch.int8)
+    bias = (torch.tensor(rng.integers(-5000, 5000, (n,)), dtype=torch.int32)
+            if with_bias else None)
+    sa, sb = torch.tensor(0.013), torch.tensor(0.021)
+    so = torch.tensor(0.9) if requant else None
+    n0 = ops.launches["int8_matmul"]
+    out = ops.int8_matmul(a.to(dev), b.to(dev), sa, sb, s_out=so,
+                          bias=None if bias is None else bias.to(dev))
+    assert ops.launches["int8_matmul"] == n0 + 1
+    want = ref.int8_matmul(a.to(dev), b.to(dev), sa, sb, s_out=so,
+                           bias=None if bias is None else bias.to(dev))
+    _same_everywhere(out, want, ref.int8_matmul(a, b, sa, sb, s_out=so,
+                                                bias=bias))
+
+
+@pytest.mark.parametrize("rows,cols", [(1, 1), (3, 513), (1536, 128),
+                                       (5, 1), (1, 513)])
+@pytest.mark.parametrize("scale", [0.004, 0.02, MIN_SCALE])
+def test_i_softmax_kernel_matches_plain(dev, rows, cols, scale):
+    rng = np.random.default_rng(rows + cols)
+    q = torch.tensor(rng.integers(-2047, 2048, (rows, cols)),
+                     dtype=torch.int32)
+    q[0, : cols // 2] = 0  # an equal run: at MIN_SCALE the sum wraps
+    n0 = ops.launches["i_softmax"]
+    out = ops.i_softmax(q.to(dev), scale)
+    assert ops.launches["i_softmax"] == n0 + 1
+    _same_everywhere(out, ref.i_softmax_rows(q.to(dev), scale),
+                     ref.i_softmax_rows(q, scale))
+
+
+@pytest.mark.parametrize("rows,h", [(1, 768), (128, 768), (5, 513), (3, 1)])
+def test_i_layernorm_kernel_matches_plain(dev, rows, h):
+    rng = np.random.default_rng(rows * h)
+    r = (rng.integers(-127, 128, (rows, h))
+         + rng.integers(-127, 128, (rows, h)))
+    r[0] -= 120  # a negative mean
+    q = torch.tensor(r, dtype=torch.int32)
+    prep = io.layernorm_prepare(
+        torch.tensor(rng.uniform(-1.5, 1.5, h), dtype=torch.float32),
+        torch.tensor(rng.normal(0, 0.3, h), dtype=torch.float32))
+    prep_dev = prep._replace(q_gamma=prep.q_gamma.to(dev),
+                             q_beta=prep.q_beta.to(dev))
+    n0 = ops.launches["i_layernorm"]
+    out, s_out = ops.i_layernorm(q.to(dev), prep_dev)
+    assert ops.launches["i_layernorm"] == n0 + 1
+    assert s_out is prep.s_out
+    _same_everywhere(out, ref.i_layernorm_rows(q.to(dev), prep_dev.q_gamma,
+                                               prep_dev.q_beta),
+                     ref.i_layernorm_rows(q, prep.q_gamma, prep.q_beta))
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (3, 513), (128, 3072), (2, 5, 7)])
+@pytest.mark.parametrize("scale", [0.003, MIN_SCALE, 1e-6, 0.3])
+def test_i_gelu_kernel_matches_plain(dev, shape, scale):
+    rng = np.random.default_rng(sum(shape))
+    q = torch.tensor(rng.integers(-2047, 2048, shape), dtype=torch.int32)
+    n0 = ops.launches["i_gelu"]
+    out = ops.i_gelu(q.to(dev), scale)
+    assert ops.launches["i_gelu"] == n0 + 1
+    _same_everywhere(out, ref.i_gelu_elem(q.to(dev), scale),
+                     ref.i_gelu_elem(q, scale))
+
+
+def test_ibert_wrappers_refuse_what_they_cannot_run(dev):
+    a = torch.zeros((4, 8), dtype=torch.int8, device=dev)
+    b = torch.zeros((8, 4), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="int8"):
+        ops.int8_matmul(a.int(), b, 0.1, 0.1)
+    with pytest.raises(ValueError, match="int32"):
+        ops.int8_matmul(a, b, 0.1, 0.1,
+                        bias=torch.zeros(4, dtype=torch.int64, device=dev))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.int8_matmul(a, b.t().contiguous().t(), 0.1, 0.1)
+    with pytest.raises(ValueError, match=r"\(M, K\) @ \(K, N\)"):
+        ops.int8_matmul(a, a, 0.1, 0.1)
+    q = torch.zeros((4, 8), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        ops.i_softmax(q.long(), 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.i_gelu(q.t(), 0.1)
+    prep = io.LNParams(torch.ones(8, dtype=torch.int32), torch.tensor(1.0),
+                       torch.zeros(8, dtype=torch.int32), torch.tensor(1.0))
+    with pytest.raises(ValueError, match="cpu"):
+        ops.i_layernorm(q, prep)  # gamma/beta left on the CPU

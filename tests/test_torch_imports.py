@@ -1,6 +1,6 @@
 """The port stands alone: no module of `repro_torch`, and not
-`chip_smoke.py`, imports JAX or the JAX package; its CLI runs on the CPU
-only when asked and otherwise refuses to start without a card."""
+`chip_smoke.py`, imports JAX or the JAX package; its CLIs run on the CPU
+only when asked and otherwise refuse to start without a card."""
 import os
 import pkgutil
 import subprocess
@@ -10,7 +10,7 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch.launch import serve
+from repro_torch.launch import ibert_encoder, serve
 
 torch.set_num_threads(1)
 
@@ -46,7 +46,9 @@ def test_every_port_module_is_walked():
                                                    "repro_torch.")}
     for want in ("repro_torch.kernels.ops", "repro_torch.kernels.build",
                  "repro_torch.serving.engine", "repro_torch.launch.serve",
-                 "repro_torch.models.convert"):
+                 "repro_torch.models.convert", "repro_torch.models.ibert",
+                 "repro_torch.core.ibert_ops",
+                 "repro_torch.launch.ibert_encoder"):
         assert want in names
 
 
@@ -55,6 +57,13 @@ def test_cli_refuses_to_start_without_a_card():
         pytest.skip("a CUDA device is present: the CLI would run on it")
     with pytest.raises(SystemExit, match="--device cpu"):
         serve.main(["--reduced", "--requests", "2"])
+
+
+def test_ibert_cli_refuses_to_start_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the CLI would run on it")
+    with pytest.raises(SystemExit, match="--device cpu"):
+        ibert_encoder.main(["--layers", "1", "--seq-lens", "8"])
 
 
 def test_cli_serves_on_cpu_when_asked(capsys):
