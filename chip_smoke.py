@@ -10,20 +10,26 @@ the JAX package.  Phases, in order — any fault exits non-zero:
 2. build: every CUDA kernel of the port, from the sources in the checkout,
    one nvcc per source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main paths' shapes (and a long-context one for the decode kernel),
+   the main paths' shapes (and long-context ones for the decode kernels),
    with the error, the kernel's time, the plain version's time, a library
    yardstick's time where one PyTorch call computes the same function, and
    the least time the card could take (bytes over the HBM rate, or
    operations over the peak rate of their type, whichever is larger); the
-   four I-BERT integer kernels must equal their plain versions bit for bit;
-4. serve: smollm-135m at full width (random weights from a seed) serves a
-   Poisson stream and a shared-prefix stream through the port's
-   ContinuousBatchingEngine; every request must finish its budget, the
-   shared prefix must hit the radix cache, and the decode kernel must
-   have launched once per layer per fused decode step; then one more
-   stream under torch.profiler says where the serve path's time goes;
+   three decode kernels give exact zeros on inactive lanes, and the four
+   I-BERT integer kernels must equal their plain versions bit for bit;
+4. serve: smollm-135m at full width (random weights from a seed) through
+   the serve entry point: a Poisson and a shared-prefix stream on the
+   paged bf16 arena, then a Poisson stream each through the wave engine,
+   the continuous-batching engine on dense slot rows and on an int8 page
+   arena; every request must finish its budget, the shared prefix must
+   hit the radix cache, and the route's decode kernel (paged_flash_decode,
+   flash_decode, paged_flash_decode_q) must have launched once per layer
+   per fused decode step and the other two never; then one more stream
+   per route under torch.profiler says where its time goes;
 5. model: the same weights run prefill and 8 decode steps on the card and
-   on the CPU (plain versions); logits must agree within a stated bound;
+   on the CPU (plain versions), on a bf16 page arena, dense slot rows and
+   an int8 page arena; logits must agree within a stated bound, and
+   kv_quantize of the card's K/V rows must equal the CPU's bit for bit;
 6. encode: the integer I-BERT encoder (ibert-base at full width, 12
    layers, random float weights from seed 0, calibrated at batch 1, seq
    128) through `repro_torch.launch.ibert_encoder`: one forward must
@@ -40,6 +46,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -52,7 +59,7 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import ibert_ops  # noqa: E402
+from repro_torch.core import ibert_ops, quant  # noqa: E402
 from repro_torch.core.quant import QTensor  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.launch import ibert_encoder  # noqa: E402
@@ -60,6 +67,7 @@ from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models import ibert as ib  # noqa: E402
 from repro_torch.models.transformer import init_params, make_model  # noqa: E402
 from repro_torch.serving.engine import ContinuousBatchingEngine  # noqa: E402
+from repro_torch.serving.wave import WaveEngine  # noqa: E402
 
 SENTINEL = 2 ** 30
 # published peaks of one H100 SXM at 700 W (NVIDIA data sheet, dense): HBM
@@ -81,6 +89,8 @@ IBERT_LAUNCHES = {"int8_matmul": 72, "i_softmax": 12, "i_layernorm": 24,
 # and mean 0.7543-0.7566 (0.3% apart)
 REF_ERR_MARGIN = {"max": 0.10, "mean": 0.02}
 KERNEL_TOL = 1e-2  # bf16 outputs in (-1, 1): ~2 ulps of summation order
+DECODE_KERNELS = ("paged_flash_decode", "paged_flash_decode_q",
+                  "flash_decode")
 LOGIT_TOL = 0.1    # 30 bf16 layers, CPU vs card summation order
 
 
@@ -153,51 +163,133 @@ def paged_inputs(seed: int, b: int, kvh: int, g: int, hd: int, ps: int,
     return t
 
 
-def kernel_phase(dev, flush, bw: float, flops: float, maxp: int) -> dict:
+def kernel_phase(dev, flush, maxp: int) -> dict:
+    """The bf16 paged kernel at the serve path's shape (paged_inputs)."""
     b, kvh, g, hd, ps = 8, 3, 3, 64, 16
     t = paged_inputs(maxp, b, kvh, g, hd, ps, maxp, dev)
     args = (t["q"], t["k"], t["v"], t["kpos"], t["page_table"], t["qpos"])
-    out = ops.paged_flash_decode(*args, active=t["active"])
-    want = ref.paged_flash_decode(*args, active=t["active"])
-    torch.cuda.synchronize()
-    err = (out.float() - want.float()).abs().max().item()
-    off = ~t["active"]
-    require(bool(torch.isfinite(out).all()), "kernel output not finite")
-    require(bool((out[off] == 0).all()), "inactive lanes must be exact zeros")
-    require(err <= KERNEL_TOL, f"kernel vs plain: {err} > {KERNEL_TOL}")
-    ms = time_ms(lambda: ops.paged_flash_decode(*args, active=t["active"]),
-                 flush)
-    plain_ms = time_ms(lambda: ref.paged_flash_decode(
-        *args, active=t["active"]), flush)
-    # yardstick only (the port never calls it): SDPA over the cache
-    # gathered beforehand, kv heads expanded to the query heads
     pt = t["page_table"].long()
-    kg, vg = (x[pt].reshape(b, maxp * ps, kvh, hd).transpose(1, 2)
-              .repeat_interleave(g, dim=1).contiguous()
-              for x in (t["k"], t["v"]))
-    mask = ((t["kpos"][pt].reshape(b, 1, 1, -1) <= t["qpos"].view(b, 1, 1, 1))
-            & t["active"].view(b, 1, 1, 1))
-    q4 = t["q"].view(b, kvh * g, 1, hd)
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q4, kg, vg, attn_mask=mask, scale=1.0), flush)
+    kg, vg = (x[pt].reshape(b, -1, kvh, hd) for x in (t["k"], t["v"]))
+    mask = ((t["kpos"][pt].reshape(b, -1) <= t["qpos"][:, None])
+            & t["active"][:, None])
     # least bytes: the pages the tables name (each once), kpos of those
     # pages, q, out, the table, qpos, active
     pages = torch.unique(t["page_table"]).numel()
     nbytes = (pages * ps * kvh * hd * 2 * 2 + pages * ps * 4
               + 2 * t["q"].numel() * 2 + t["page_table"].numel() * 4
               + b * 4 + b)
-    nflop = 4 * b * maxp * ps * kvh * g * hd
-    bound_ms = max(nbytes / bw, nflop / flops) * 1e3
-    # what the kernel reads as written: every table entry's page, per lane
-    walked = b * maxp * ps * kvh * hd * 2 * 2 + b * maxp * ps * 4
-    log(f"kernel paged_flash_decode B={b} KVH={kvh} G={g} hd={hd} ps={ps} "
-        f"MAXP={maxp}: max_abs_err={err:.3g} (tol {KERNEL_TOL}) "
+    return _decode_case(
+        "paged_flash_decode", f"B={b} KVH={kvh} G={g} hd={hd} ps={ps} "
+        f"MAXP={maxp}",
+        lambda: ops.paged_flash_decode(*args, active=t["active"]),
+        lambda: ref.paged_flash_decode(*args, active=t["active"]),
+        _sdpa(t["q"], kg, vg, mask, g), flush, t["active"], nbytes,
+        4 * b * maxp * ps * kvh * g * hd)
+
+
+def _decode_case(name: str, label: str, kernel, plain, library, flush,
+                 active: torch.Tensor, nbytes: float, nflop: float) -> dict:
+    """One decode kernel at one shape: against its plain version on the
+    same card inputs (bf16 tolerance, exact zeros on inactive lanes),
+    then timed beside it and beside a library yardstick."""
+    out, want = kernel(), plain()
+    torch.cuda.synchronize()
+    require(out.dtype == want.dtype and out.shape == want.shape,
+            f"{name} {label}: {out.dtype} {tuple(out.shape)} vs plain "
+            f"{want.dtype} {tuple(want.shape)}")
+    err = (out.float() - want.float()).abs().max().item()
+    require(bool(torch.isfinite(out).all()), f"{name} {label}: not finite")
+    require(bool((out[~active] == 0).all()),
+            f"{name} {label}: inactive lanes must be exact zeros")
+    require(err <= KERNEL_TOL, f"{name} {label}: kernel vs plain {err} > "
+            f"{KERNEL_TOL}")
+    ms = time_ms(kernel, flush)
+    plain_ms = time_ms(plain, flush)
+    library_ms = time_ms(library, flush)
+    bound_ms, bound_by = _bound(nbytes, nflop, F32_FLOP_S)
+    log(f"kernel {name} {label}: max_abs_err={err:.3g} (tol {KERNEL_TOL}) "
         f"ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
-        f"bound_ms={bound_ms:.6f} ({nbytes} bytes, {pages} pages) "
-        f"walked_bytes={walked} ({walked / bw * 1e3:.6f} ms)")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by="bytes" if nbytes / bw >=
-                nflop / flops else "operations", library_ms=library_ms)
+        f"bound_ms={bound_ms:.6f} ({bound_by}; {nbytes:.0f} bytes, "
+        f"{nflop:.4g} flop)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+def _sdpa(q, k, v, mask, g):
+    """The yardstick call: SDPA of q (B, H, hd) over k/v (B, S, KVH, hd),
+    kv heads expanded to the query heads beforehand, mask (B, S)."""
+    b, h, hd = q.shape
+    kx, vx = (x.transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
+              for x in (k, v))
+    q4, m4 = q.view(b, h, 1, hd), mask.view(b, 1, 1, -1)
+    return lambda: F.scaled_dot_product_attention(q4, kx, vx, attn_mask=m4,
+                                                  scale=1.0)
+
+
+def flash_decode_phase(dev, flush, sk: int, window: int = 0) -> dict:
+    """The dense slot-cache kernel at the serve path's shape: B=8 lanes of
+    Sk slots, lane i holding positions 0..n_i-1 (the rest never written),
+    qpos = n_i - 1, lanes 5 and 7 inactive."""
+    b, kvh, g, hd = 8, 3, 3, 64
+    rng = np.random.default_rng(sk + window)
+    n = rng.integers(sk // 4, sk + 1, b)
+    slot = np.arange(sk)[None]
+    kpos = np.where(slot < n[:, None], slot, SENTINEL).astype(np.int32)
+    active = np.ones((b,), bool)
+    active[[5, 7]] = False
+    bf = torch.bfloat16
+    q = torch.tensor(rng.normal(0, 1, (b, kvh * g, hd)) * hd ** -0.5).to(
+        bf).to(dev)
+    k, v = (torch.tensor(rng.uniform(-1, 1, (b, sk, kvh, hd))).to(bf).to(dev)
+            for _ in range(2))
+    kpos_t = torch.tensor(kpos, device=dev)
+    qpos = torch.tensor((n - 1).astype(np.int32), device=dev)
+    act = torch.tensor(active, device=dev)
+    args = (q, k, v, kpos_t, qpos)
+    keep = (kpos <= (n - 1)[:, None]) & active[:, None]
+    if window:
+        keep &= (n - 1)[:, None] - kpos < window
+    # least bytes: the keys the active lanes attend (K and V rows), their
+    # lanes' kpos, q, out, qpos, active
+    attended = int(keep.sum())
+    nbytes = (attended * kvh * hd * 2 * 2 + int(active.sum()) * sk * 4
+              + 2 * q.numel() * 2 + b * 4 + b)
+    return _decode_case(
+        "flash_decode", f"B={b} Sk={sk} KVH={kvh} G={g} hd={hd} "
+        f"window={window}",
+        lambda: ops.flash_decode(*args, active=act, window=window),
+        lambda: ref.flash_decode(*args, active=act, window=window),
+        _sdpa(q, k, v, torch.tensor(keep, device=dev), g), flush, act,
+        nbytes, 4 * attended * kvh * g * hd)
+
+
+def paged_q_phase(dev, flush, maxp: int) -> dict:
+    """The int8 paged kernel at the serve path's shape: paged_inputs'
+    tables and lanes, k/v quantized into an int8 arena on the card."""
+    b, kvh, g, hd, ps = 8, 3, 3, 64, 16
+    t = paged_inputs(maxp, b, kvh, g, hd, ps, maxp, dev)
+    k8, ks = quant.kv_quantize(t["k"])
+    v8, vs = quant.kv_quantize(t["v"])
+    args = (t["q"], k8, v8, ks, vs, t["kpos"], t["page_table"], t["qpos"])
+    pt = t["page_table"].long()
+    kg, vg = (quant.kv_dequantize(x[pt], sc[pt]).reshape(b, -1, kvh, hd)
+              for x, sc in ((k8, ks), (v8, vs)))
+    mask = ((t["kpos"][pt].reshape(b, -1) <= t["qpos"][:, None])
+            & t["active"][:, None])
+    # least bytes, as for paged_flash_decode: the pages the tables name
+    # (each once: int8 K and V, their f32 scales, kpos), q, out, the
+    # table, qpos, active
+    pages = torch.unique(t["page_table"]).numel()
+    nbytes = (pages * ps * (kvh * (2 * hd + 2 * 4) + 4)
+              + 2 * t["q"].numel() * 2 + t["page_table"].numel() * 4
+              + b * 4 + b)
+    return _decode_case(
+        "paged_flash_decode_q", f"B={b} KVH={kvh} G={g} hd={hd} ps={ps} "
+        f"MAXP={maxp}",
+        lambda: ops.paged_flash_decode_q(*args, active=t["active"]),
+        lambda: ref.paged_flash_decode_q(*args, active=t["active"]),
+        _sdpa(t["q"].float(), kg, vg, mask, g), flush, t["active"], nbytes,
+        4 * b * maxp * ps * kvh * g * hd)
 
 
 def _bound(nbytes: float, nops: float, ops_rate: float):
@@ -288,33 +380,49 @@ def ibert_kernel_phase(dev, flush) -> dict:
     return res
 
 
-def serve_phase(stream: str, n: int) -> dict:
+def serve_phase(stream: str, n: int, engine: str = "cb",
+                kv_dtype: str = "bf16", paged="auto") -> dict:
+    """One stream served at full width through the serve entry point, after
+    a warm-up stream.  The route's decode kernel must launch once per layer
+    per fused decode step, and the other decode kernels never."""
     args = serve_cli.parse_args([
         "--arch", "smollm-135m", "--requests", str(n), "--max-batch", "8",
-        "--max-new", "32", "--stream", stream, "--warmup", "--seed", "0"])
+        "--max-new", "32", "--stream", stream, "--warmup", "--seed", "0",
+        "--engine", engine, "--kv-dtype", kv_dtype])
+    kernel = ("flash_decode" if engine == "wave" or paged is False else
+              "paged_flash_decode_q" if kv_dtype == "int8" else
+              "paged_flash_decode")
+    route = (engine if engine == "wave" else
+             f"cb {'dense' if paged is False else 'paged ' + kv_dtype}")
     ops.reset_launches()
-    engine, done, wall = serve_cli.serve(args)
-    launches = ops.launches["paged_flash_decode"]
-    steps = engine.stats["decode_steps"]  # warm-up pass included
-    n_layers = engine.model.cfg.n_layers
-    require(len(done) == n, f"{len(done)} of {n} requests finished")
+    eng, done, wall = serve_cli.serve(args, paged=paged)
+    launches = ops.launches[kernel]
+    others = {k: ops.launches[k] for k in DECODE_KERNELS if k != kernel}
+    steps = eng.stats["decode_steps"]  # warm-up pass included
+    n_layers = eng.model.cfg.n_layers
+    require(len(done) == n, f"{route}: {len(done)} of {n} requests finished")
     for r in done:
         require(r.done and (len(r.tokens_out) == r.max_new_tokens
                             or r.tokens_out[-1] == r.eos_id),
-                f"request {r.rid} stopped short of its budget")
+                f"{route}: request {r.rid} stopped short of its budget")
     require(launches == n_layers * steps,
-            f"{launches} kernel launches != {n_layers} x {steps} steps")
+            f"{route}: {launches} {kernel} launches != {n_layers} x {steps} "
+            "steps")
+    require(not any(others.values()), f"{route}: other decode kernels "
+            f"launched: {others}")
     toks = sum(len(r.tokens_out) for r in done)
     ttft = sorted((r.t_first_token - r.t_enqueue) * 1e3 for r in done)
-    s = engine.stats
-    log(f"serve {stream}: requests={n} tokens={toks} wall_s={wall:.4f} "
-        f"tok_s={toks / wall:.1f} ttft_p50_ms={ttft[len(ttft) // 2]:.2f} "
-        f"decode_steps={steps} kernel_launches={launches} "
-        f"(= {n_layers} x {steps}) prefix_hits={s['prefix_hits']} "
-        f"pages_peak={s['pages_peak']} preemptions={s['preemptions']}")
+    s = eng.stats
+    log(f"serve {route} {stream}: requests={n} tokens={toks} "
+        f"wall_s={wall:.4f} tok_s={toks / wall:.1f} "
+        f"ttft_p50_ms={ttft[len(ttft) // 2]:.2f} decode_steps={steps} "
+        f"{kernel}_launches={launches} (= {n_layers} x {steps}) "
+        f"prefix_hits={s.get('prefix_hits', 0)} "
+        f"pages_peak={s.get('pages_peak', 0)} "
+        f"preemptions={s.get('preemptions', 0)}")
     if stream == "shared-prefix":
         require(s["prefix_hits"] > 0, f"no prefix hit: {s}")
-    return dict(launches=launches, prefix_hits=s["prefix_hits"])
+    return dict(kernel=kernel, launches=launches)
 
 
 def _device_spans(fn) -> tuple:
@@ -344,40 +452,55 @@ def _busy_us(spans) -> float:
     return busy
 
 
-def profile_phase(dev) -> None:
-    """Where the serve path's time goes: one Poisson stream served under
-    torch.profiler.  Prints the device's busy share of the window (union
-    of kernel and copy intervals over the host clock), the decode
-    kernel's share of device time, and launches per decode step.  The
-    profiler's own host cost lowers the busy share somewhat."""
+def profile_phase(dev, route: str) -> None:
+    """Where a serve route's time goes: one Poisson stream served under
+    torch.profiler, through the route's engine ("cb paged bf16", "cb
+    paged int8", "cb dense", "wave").  Prints the device's busy share of
+    the window (union of kernel and copy intervals over the host clock),
+    the route's decode kernel's share of device time, and device ops per
+    decode step.  The profiler's own host cost lowers the busy share
+    somewhat."""
     args = serve_cli.parse_args(["--requests", "16", "--max-batch", "8",
                                  "--max-new", "32", "--seed", "3"])
     cfg = get_config(args.arch)
-    engine = ContinuousBatchingEngine(
-        make_model(cfg, device=dev), init_params(cfg, seed=0, device=dev),
-        max_batch=args.max_batch, buckets=serve_cli.BUCKETS)
+    kw = {"cb paged int8": {"kv_dtype": "int8"},
+          "cb dense": {"paged": False}}.get(route, {})
+    cls = WaveEngine if route == "wave" else ContinuousBatchingEngine
+    kernel = ("paged_flash_decode_q" if "int8" in route else
+              "paged_flash_decode" if "paged" in route else "flash_decode")
+    engine = cls(make_model(cfg, device=dev),
+                 init_params(cfg, seed=0, device=dev),
+                 max_batch=args.max_batch, buckets=serve_cli.BUCKETS, **kw)
     for r in serve_cli.make_stream(args, cfg.vocab_size, args.seed):
         engine.submit(r)
     spans, wall_us = _device_spans(engine.run)
     if not spans:
-        log("profile: the profiler recorded no device time (not measured)")
+        log(f"profile {route}: the profiler recorded no device time (not "
+            "measured)")
         return
-    kern = [e - s for s, e, name in spans if "paged_flash_decode" in name]
+    # "(?<!paged_)": flash_decode_kernel is a substring of
+    # paged_flash_decode_kernel
+    kern = [e - s for s, e, name in spans
+            if re.search(f"(?<!paged_){kernel}_kernel", name)]
     dev_total = sum(e - s for s, e, _ in spans)
     steps = engine.stats["decode_steps"]
-    log(f"profile poisson x16 (B=8, max_new 32): wall_ms={wall_us / 1e3:.2f}"
-        f" device_busy_share={_busy_us(spans) / wall_us:.4f} "
-        f"device_kernel_ms={dev_total / 1e3:.2f} "
-        f"paged_flash_decode_share_of_device="
-        f"{sum(kern) / max(dev_total, 1e-9):.4f} ({len(kern)} launches) "
+    log(f"profile {route} poisson x16 (B=8, max_new 32): "
+        f"wall_ms={wall_us / 1e3:.2f} "
+        f"device_busy_share={_busy_us(spans) / wall_us:.4f} "
+        f"device_kernel_ms={dev_total / 1e3:.2f} {kernel}_share_of_device="
+        f"{sum(kern) / max(dev_total, 1e-9):.4f} ({len(kern)} launches, "
+        f"{cfg.n_layers} x {steps} steps) "
         f"device_ops_per_decode_step={len(spans) / max(steps, 1):.1f} "
         f"decode_steps={steps} wall_ms_per_decode_step="
         f"{wall_us / 1e3 / max(steps, 1):.3f}")
 
 
-def model_phase() -> None:
-    """Same weights on card and CPU: prefill two prompts, then 8 decode
-    steps fed the same tokens on both; then 8 fused greedy steps."""
+def model_phase(kind: str) -> None:
+    """Same weights on card and CPU, on a bf16 page arena ("paged"), an
+    int8 one ("int8") or dense slot rows ("dense"): prefill two prompts,
+    then 8 decode steps fed the same tokens on both; then 8 fused greedy
+    steps.  On the int8 arena, kv_quantize of the card's K/V rows must
+    equal the CPU's of the same rows bit for bit."""
     cfg = get_config("smollm-135m")
     ps, maxp, steps = 16, 6, 8
     rng = np.random.default_rng(1)
@@ -391,17 +514,25 @@ def model_phase() -> None:
         model = make_model(cfg, device=name)
         with torch.no_grad():
             runs[name] = _model_run(model, params, prompts, ps, maxp, steps,
-                                    runs.get("cpu"))
+                                    runs.get("cpu"), kind)
     cpu, gpu = runs["cpu"], runs["cuda"]
     errs = [(g - c).abs().max().item() for c, g in zip(cpu["logits"],
                                                        gpu["logits"])]
     scale = max(c.abs().max().item() for c in cpu["logits"])
     match = (cpu["block"] == gpu["block"]).float().mean().item()
-    log(f"model smollm-135m prefill+{steps} decode steps, card vs CPU: "
-        f"max_abs_logit_err={max(errs):.4g} (tol {LOGIT_TOL}, "
+    log(f"model smollm-135m {kind} cache, prefill+{steps} decode steps, card "
+        f"vs CPU: max_abs_logit_err={max(errs):.4g} (tol {LOGIT_TOL}, "
         f"|logit| max {scale:.3g}) per step={['%.3g' % e for e in errs]} "
         f"fused {steps}-step token match={match:.3f}")
-    require(max(errs) <= LOGIT_TOL, f"card vs CPU logits: {errs}")
+    require(max(errs) <= LOGIT_TOL, f"{kind}: card vs CPU logits: {errs}")
+    if kind == "int8":
+        rows = gpu["kv_rows"]
+        same = [torch.equal(a.cpu(), b) for x in rows
+                for a, b in zip(quant.kv_quantize(x),
+                                quant.kv_quantize(x.cpu()))]
+        log(f"model: kv_quantize of {sum(x[..., 0].numel() for x in rows)} "
+            f"K/V rows, card == CPU bit for bit: {all(same)}")
+        require(all(same), "kv_quantize differs between card and CPU")
 
 
 def _to(tree, dev):
@@ -412,15 +543,21 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
-def _model_run(model, params, prompts, ps, maxp, steps, teacher):
-    """Prefill each prompt into its lane of a paged cache, then decode.
+def _model_run(model, params, prompts, ps, maxp, steps, teacher, kind):
+    """Prefill each prompt into its lane of a `kind` cache, then decode.
     The per-step input tokens come from `teacher` (the CPU run) when
     given, so both devices see the same inputs."""
     dev = model.device
     b = len(prompts)
+    out = {"tokens": []}
 
     def admitted():
-        big = model.init_paged_cache(b, 1 + b * maxp, ps, maxp)
+        if kind == "dense":
+            big = model.init_cache(b, maxp * ps)
+        else:
+            big = model.init_paged_cache(
+                b, 1 + b * maxp, ps, maxp,
+                kv_dtype="int8" if kind == "int8" else "bf16")
         logits = []
         for i, p in enumerate(prompts):
             bucket = -(-len(p) // ps) * ps
@@ -432,15 +569,20 @@ def _model_run(model, params, prompts, ps, maxp, steps, teacher):
                 torch.tensor(toks, device=dev),
                 positions=torch.tensor(pos, device=dev),
                 last_idx=torch.tensor([len(p) - 1], device=dev))
-            pages = np.arange(1 + i * maxp, 1 + (i + 1) * maxp,
-                              dtype=np.int32)
-            model.admit_lane_cache(big, i, pages, len(p), pages, small=small,
-                                   write_pages=pages[:bucket // ps])
+            out["kv_rows"] = [small["scan"]["b0"][n] for n in ("k", "v")]
+            if kind == "dense":
+                model.insert_prefill_cache(big, small, i)
+            else:
+                pages = np.arange(1 + i * maxp, 1 + (i + 1) * maxp,
+                                  dtype=np.int32)
+                model.admit_lane_cache(big, i, pages, len(p), pages,
+                                       small=small,
+                                       write_pages=pages[:bucket // ps])
             logits.append(lg[0])
         return big, torch.stack(logits)
 
     big, lg = admitted()
-    out = {"logits": [lg.float().cpu()], "tokens": []}
+    out["logits"] = [lg.float().cpu()]
     active = torch.ones((b,), dtype=torch.bool, device=dev)
     for s in range(steps):
         tok = (teacher["tokens"][s] if teacher is not None
@@ -571,11 +713,10 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
     log(smi)
-    name = torch.cuda.get_device_name(0)
-    bw, flops = HBM_BYTES_S, F32_FLOP_S
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
-        f"{name}; bound uses H100 SXM peaks: {bw:.3g} B/s, {flops:.3g} "
-        "flop/s (f32)")
+        f"{torch.cuda.get_device_name(0)}; bounds use H100 SXM peaks: "
+        f"{HBM_BYTES_S:.3g} B/s, {F32_FLOP_S:.3g} flop/s (f32), "
+        f"{INT8_OPS_S:.3g} int8 op/s")
 
     t0 = time.perf_counter()
     reports = build.build_all()
@@ -588,32 +729,41 @@ def main() -> None:
 
     dev = torch.device("cuda")
     flush = torch.empty(256 * 2 ** 20, dtype=torch.int32, device=dev)
-    main_shape = kernel_phase(dev, flush, bw, flops, maxp=12)
-    kernel_phase(dev, flush, bw, flops, maxp=128)
-    ibert_main = ibert_kernel_phase(dev, flush)
+    main_shape = {"paged_flash_decode": kernel_phase(dev, flush, maxp=12)}
+    kernel_phase(dev, flush, maxp=128)
+    main_shape["paged_flash_decode_q"] = paged_q_phase(dev, flush, maxp=12)
+    paged_q_phase(dev, flush, maxp=128)
+    main_shape["flash_decode"] = flash_decode_phase(dev, flush, sk=192)
+    flash_decode_phase(dev, flush, sk=192, window=48)
+    flash_decode_phase(dev, flush, sk=2048)
+    main_shape.update(ibert_kernel_phase(dev, flush))
     del flush
     torch.cuda.empty_cache()
 
-    served = [serve_phase("poisson", 16), serve_phase("shared-prefix", 8)]
-    profile_phase(dev)
-    model_phase()
-    encoded = encode_phase()
+    served = [serve_phase("poisson", 16), serve_phase("shared-prefix", 8),
+              serve_phase("poisson", 16, engine="wave"),
+              serve_phase("poisson", 16, paged=False),
+              serve_phase("poisson", 16, kv_dtype="int8")]
+    for route in ("cb paged bf16", "cb paged int8", "cb dense", "wave"):
+        profile_phase(dev, route)
+    for kind in ("paged", "dense", "int8"):
+        model_phase(kind)
+    launches = {k: sum(s["launches"] for s in served if s["kernel"] == k)
+                for k in DECODE_KERNELS}
+    launches.update(encode_phase())
 
-    entries = [dict(name="paged_flash_decode", route="cuda",
-                    source="src/repro_torch/kernels/csrc/"
-                           "paged_flash_decode.cu",
-                    replaces="src/repro/kernels/flash_decode.py:250",
-                    launches=sum(s["launches"] for s in served),
-                    **main_shape)]
-    for kernel, replaces in (("int8_matmul", "int8_matmul.py:60"),
-                             ("i_softmax", "i_softmax.py:49"),
-                             ("i_layernorm", "i_layernorm.py:50"),
-                             ("i_gelu", "i_gelu.py:41")):
-        entries.append(dict(
-            name=kernel, route="cuda",
-            source=f"src/repro_torch/kernels/csrc/{kernel}.cu",
-            replaces=f"src/repro/kernels/{replaces}",
-            launches=encoded[kernel], **ibert_main[kernel]))
+    entries = [dict(name=kernel, route="cuda",
+                    source=f"src/repro_torch/kernels/csrc/{kernel}.cu",
+                    replaces=f"src/repro/kernels/{replaces}",
+                    launches=launches[kernel], **main_shape[kernel])
+               for kernel, replaces in (
+                   ("paged_flash_decode", "flash_decode.py:250"),
+                   ("paged_flash_decode_q", "flash_decode.py:193"),
+                   ("flash_decode", "flash_decode.py:308"),
+                   ("int8_matmul", "int8_matmul.py:60"),
+                   ("i_softmax", "i_softmax.py:49"),
+                   ("i_layernorm", "i_layernorm.py:50"),
+                   ("i_gelu", "i_gelu.py:41"))]
     log(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""Symmetric integer quantization arithmetic, the I-BERT subset.
+"""Symmetric integer quantization arithmetic: the I-BERT subset and the
+int8 KV-cache rows.
 
 The port's copy of `repro.core.quant`: INT8 operands, INT32 accumulators
 and a float32 *scale* per tensor; the "Quant" module turns an INT32
@@ -71,3 +72,31 @@ def requantize(acc: torch.Tensor, scale_in, scale_out) -> torch.Tensor:
     ratio = fdiv(f32(scale_in), scale_out)
     q = _round_half_away(acc.float() * ratio)
     return torch.clamp(q, INT8_MIN, INT8_MAX).to(torch.int8)
+
+
+# float32(1/127): the per-row KV scale is amax times this constant.  Under
+# jit, XLA turns the reference's `amax / 127` into exactly this product, and
+# the reference quantizes KV rows only inside jitted programs, so its
+# arenas hold these scales (they differ from IEEE division by one ulp in ~5%
+# of rows).  PyTorch's `t / 127.0` would not match either way: it divides on
+# the CPU and multiplies by a reciprocal on the card.  A tensor/tensor
+# multiply is the same IEEE operation on both devices.
+RECIP_127 = float(torch.tensor(1.0 / 127.0, dtype=torch.float32))
+
+
+def kv_quantize(x: torch.Tensor):
+    """Per-row symmetric int8 over the last axis, for KV-cache storage.
+
+    x: (..., hd) float; returns (int8 values of x.shape, float32 scales of
+    x.shape[:-1]).  Round half away from zero, so |x - dequant| <= scale/2.
+    """
+    xf = x.float()
+    amax = torch.clamp(xf.abs().amax(dim=-1), min=1e-8)
+    s = amax * torch.tensor(RECIP_127, dtype=torch.float32, device=x.device)
+    q = torch.clamp(_round_half_away(xf / s[..., None]), INT8_MIN, INT8_MAX)
+    return q.to(torch.int8), s
+
+
+def kv_dequantize(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Inverse of `kv_quantize`: (..., hd) int8 + (...,) f32 -> f32."""
+    return q.float() * s[..., None]

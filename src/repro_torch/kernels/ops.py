@@ -20,11 +20,12 @@ import torch
 from repro_torch.core.ibert_ops import LNParams
 from repro_torch.kernels import ref as _ref
 
-launches = {"paged_flash_decode": 0, "int8_matmul": 0, "i_softmax": 0,
+launches = {"paged_flash_decode": 0, "paged_flash_decode_q": 0,
+            "flash_decode": 0, "int8_matmul": 0, "i_softmax": 0,
             "i_layernorm": 0, "i_gelu": 0}
 
-HEAD_DIMS = (16, 64, 128)  # the kernel's compiled head_dim instances
-MAX_GROUP = 8  # query heads per kv head the kernel takes
+HEAD_DIMS = (16, 64, 128)  # the decode kernels' compiled head_dim instances
+MAX_GROUP = 8  # query heads per kv head the decode kernels take
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: library -> (symbol, argtypes); pointers and the stream as
@@ -32,6 +33,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "paged_flash_decode": ("paged_flash_decode_bf16", [_P] * 8 + [_I] * 6
                            + [_P]),
+    "paged_flash_decode_q": ("paged_flash_decode_q_int8", [_P] * 10
+                             + [_I] * 6 + [_P]),
+    "flash_decode": ("flash_decode_bf16", [_P] * 7 + [_I] * 6 + [_P]),
     "int8_matmul": ("int8_matmul", [_P] * 4 + [_I] * 3 + [_F] * 3
                     + [_I, _P]),
     "i_softmax": ("i_softmax", [_P, _P, _I, _I, _F, _P]),
@@ -72,7 +76,7 @@ def _launch(name: str, device: torch.device, *args) -> None:
     launches[name] += 1
 
 
-def _check(cond: bool, msg: str, kernel: str = "paged_flash_decode") -> None:
+def _check(cond: bool, msg: str, kernel: str) -> None:
     if not cond:
         raise ValueError(f"{kernel}: {msg}")
 
@@ -86,13 +90,55 @@ def _check_cuda(kernel: str, dtypes: dict, **tensors) -> None:
         _check(t.device == first.device, f"{name} on {t.device}, not "
                f"{first.device}", kernel)
         _check(t.is_contiguous(), f"{name} is not contiguous", kernel)
+        want = str(dtypes[name]).replace("torch.", "").replace(
+            "bfloat16", "bf16")
         _check(t.dtype == dtypes[name], f"{name} is {t.dtype}, the kernel "
-               f"takes {dtypes[name]}", kernel)
+               f"takes {want}", kernel)
 
 
 def _scale(s) -> float:
     """A float32 scale as the float the kernel takes by value."""
     return float(torch.as_tensor(s, dtype=torch.float32))
+
+
+def _decode_shapes(kernel: str, q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor, qpos: torch.Tensor,
+                   active: Optional[torch.Tensor]):
+    """Shape checks the decode wrappers share; returns (B, KVH, active)."""
+    b, h, hd = q.shape
+    _check(k.dim() == 4 and k.shape == v.shape, f"k/v shapes "
+           f"{tuple(k.shape)} {tuple(v.shape)}: want equal 4-d caches",
+           kernel)
+    kvh = k.shape[2]
+    _check(k.shape[3] == hd and h % kvh == 0, f"q {tuple(q.shape)} vs k "
+           f"{tuple(k.shape)}: head_dim or head groups disagree", kernel)
+    _check(tuple(qpos.shape) == (b,), f"qpos {tuple(qpos.shape)}", kernel)
+    if active is None:
+        active = torch.ones((b,), dtype=torch.bool, device=q.device)
+    _check(tuple(active.shape) == (b,), f"active {tuple(active.shape)}",
+           kernel)
+    return b, kvh, active
+
+
+def _check_decode_cuda(kernel: str, kv_dtype: torch.dtype,
+                       **tensors) -> None:
+    """The decode kernels' contract on the card: bf16 q, k/v in kv_dtype,
+    f32 scales, int32 positions and tables, a bool lane gate, all
+    contiguous on one device; hd in HEAD_DIMS, at most MAX_GROUP query
+    heads per kv head, q/k/v 16-byte aligned."""
+    dtypes = dict(q=torch.bfloat16, k=kv_dtype, v=kv_dtype,
+                  k_scale=torch.float32, v_scale=torch.float32,
+                  kpos=torch.int32, page_table=torch.int32,
+                  qpos=torch.int32, active=torch.bool)
+    _check_cuda(kernel, dtypes, **tensors)
+    q, k = tensors["q"], tensors["k"]
+    hd, kvh = q.shape[2], k.shape[2]
+    _check(hd in HEAD_DIMS, f"head_dim {hd} not in {HEAD_DIMS}", kernel)
+    _check(q.shape[1] // kvh <= MAX_GROUP,
+           f"group {q.shape[1] // kvh} > {MAX_GROUP}", kernel)
+    for name in ("q", "k", "v"):
+        _check(tensors[name].data_ptr() % 16 == 0,
+               f"{name} is not 16-byte aligned", kernel)
 
 
 def paged_flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -111,45 +157,100 @@ def paged_flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     On the card the kernel takes bf16 q/k/v, int32 kpos/page_table/qpos,
     contiguous, and hd in HEAD_DIMS; anything else raises.
     """
-    b, h, hd = q.shape
-    _check(k.dim() == 4 and k.shape == v.shape, f"k/v shapes {tuple(k.shape)}"
-           f" {tuple(v.shape)}: want equal (P, ps, KVH, hd)")
-    n_pages, ps, kvh, khd = k.shape
-    _check(khd == hd and h % kvh == 0, f"q {tuple(q.shape)} vs k "
-           f"{tuple(k.shape)}: head_dim or head groups disagree")
-    _check(tuple(kpos.shape) == (n_pages, ps), f"kpos {tuple(kpos.shape)}")
+    name = "paged_flash_decode"
+    b, kvh, active = _decode_shapes(name, q, k, v, qpos, active)
+    n_pages, ps = k.shape[:2]
+    _check(tuple(kpos.shape) == (n_pages, ps), f"kpos {tuple(kpos.shape)}",
+           name)
     _check(page_table.dim() == 2 and page_table.shape[0] == b,
-           f"page_table {tuple(page_table.shape)}")
-    _check(tuple(qpos.shape) == (b,), f"qpos {tuple(qpos.shape)}")
-    if active is None:
-        active = torch.ones((b,), dtype=torch.bool, device=q.device)
-    _check(tuple(active.shape) == (b,), f"active {tuple(active.shape)}")
+           f"page_table {tuple(page_table.shape)}", name)
     if q.device.type == "cpu":
         return _ref.paged_flash_decode(q, k, v, kpos, page_table, qpos,
                                        active=active)
-    _check(q.is_cuda, f"no kernel for device {q.device}")
-    tensors = dict(q=q, k=k, v=v, kpos=kpos, page_table=page_table,
-                   qpos=qpos, active=active)
-    for name, t in tensors.items():
-        _check(t.device == q.device, f"{name} on {t.device}, q on {q.device}")
-        _check(t.is_contiguous(), f"{name} is not contiguous")
-    for name in ("q", "k", "v"):
-        _check(tensors[name].dtype == torch.bfloat16,
-               f"{name} is {tensors[name].dtype}, the kernel takes bf16")
-    for name in ("kpos", "page_table", "qpos"):
-        _check(tensors[name].dtype == torch.int32,
-               f"{name} is {tensors[name].dtype}, the kernel takes int32")
-    _check(active.dtype == torch.bool, f"active is {active.dtype}")
-    _check(hd in HEAD_DIMS, f"head_dim {hd} not in {HEAD_DIMS}")
-    _check(h // kvh <= MAX_GROUP, f"group {h // kvh} > {MAX_GROUP}")
-    for name in ("q", "k", "v"):
-        _check(tensors[name].data_ptr() % 16 == 0,
-               f"{name} is not 16-byte aligned")
+    _check_decode_cuda(name, torch.bfloat16, q=q, k=k, v=v, kpos=kpos,
+                       page_table=page_table, qpos=qpos, active=active)
     out = torch.empty_like(q)
-    _launch("paged_flash_decode", q.device, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), kpos.data_ptr(), page_table.data_ptr(),
-            qpos.data_ptr(), active.data_ptr(), out.data_ptr(), b, kvh,
-            h // kvh, hd, ps, page_table.shape[1])
+    _launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            kpos.data_ptr(), page_table.data_ptr(), qpos.data_ptr(),
+            active.data_ptr(), out.data_ptr(), b, kvh, q.shape[1] // kvh,
+            q.shape[2], ps, page_table.shape[1])
+    return out
+
+
+def paged_flash_decode_q(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         k_scale: torch.Tensor, v_scale: torch.Tensor,
+                         kpos: torch.Tensor, page_table: torch.Tensor,
+                         qpos: torch.Tensor,
+                         active: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Single-query decode attention over an int8 paged KV arena.
+
+    As `paged_flash_decode`, with k/v (P, ps, KVH, hd) int8 and
+    k_scale/v_scale (P, ps, KVH) f32 per-row per-kv-head scales
+    (core/quant.kv_quantize).  Keys are dequantized as float(int8) *
+    scale; scores, softmax and the PV product are f32 (p is not rounded).
+    Returns (B, H, hd) in q.dtype; an inactive lane is exact zeros.
+
+    On the card: bf16 q, int8 k/v, f32 scales, int32 kpos/page_table/qpos,
+    contiguous, hd in HEAD_DIMS; anything else raises.
+    """
+    name = "paged_flash_decode_q"
+    b, kvh, active = _decode_shapes(name, q, k, v, qpos, active)
+    n_pages, ps = k.shape[:2]
+    for sname, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+        _check(tuple(sc.shape) == (n_pages, ps, kvh),
+               f"{sname} {tuple(sc.shape)}: want {(n_pages, ps, kvh)}", name)
+    _check(tuple(kpos.shape) == (n_pages, ps), f"kpos {tuple(kpos.shape)}",
+           name)
+    _check(page_table.dim() == 2 and page_table.shape[0] == b,
+           f"page_table {tuple(page_table.shape)}", name)
+    if q.device.type == "cpu":
+        return _ref.paged_flash_decode_q(q, k, v, k_scale, v_scale, kpos,
+                                         page_table, qpos, active=active)
+    _check_decode_cuda(name, torch.int8, q=q, k=k, v=v, k_scale=k_scale,
+                       v_scale=v_scale, kpos=kpos, page_table=page_table,
+                       qpos=qpos, active=active)
+    out = torch.empty_like(q)
+    _launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            k_scale.data_ptr(), v_scale.data_ptr(), kpos.data_ptr(),
+            page_table.data_ptr(), qpos.data_ptr(), active.data_ptr(),
+            out.data_ptr(), b, kvh, q.shape[1] // kvh, q.shape[2], ps,
+            page_table.shape[1])
+    return out
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 kpos: torch.Tensor, qpos: torch.Tensor,
+                 active: Optional[torch.Tensor] = None,
+                 window: int = 0) -> torch.Tensor:
+    """Single-query decode attention over a dense per-lane slot cache.
+
+    q: (B, H, hd) pre-scaled, heads kv-head-major; k/v: (B, Sk, KVH, hd);
+    kpos: (B, Sk) int32 absolute positions (2^30 = never written); qpos:
+    (B,) int32; active: optional (B,) bool lane gate; window: sliding
+    window width (0 = none; a key counts iff ``qpos - kpos < window``).
+    Returns (B, H, hd) in q.dtype; an inactive lane is exact zeros.
+
+    On the card: bf16 q/k/v, int32 kpos/qpos, contiguous, hd in
+    HEAD_DIMS, any Sk >= 1 (the kernel masks the ragged last tile).
+    """
+    name = "flash_decode"
+    b, kvh, active = _decode_shapes(name, q, k, v, qpos, active)
+    sk = k.shape[1]
+    _check(k.shape[0] == b and tuple(kpos.shape) == (b, sk),
+           f"k {tuple(k.shape)}, kpos {tuple(kpos.shape)}: want (B, Sk, "
+           "KVH, hd) and (B, Sk)", name)
+    _check(int(window) >= 0, f"window {window}", name)
+    if q.device.type == "cpu":
+        return _ref.flash_decode(q, k, v, kpos, qpos, active=active,
+                                 window=int(window))
+    _check_decode_cuda(name, torch.bfloat16, q=q, k=k, v=v, kpos=kpos,
+                       qpos=qpos, active=active)
+    out = torch.empty_like(q)
+    _launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            kpos.data_ptr(), qpos.data_ptr(), active.data_ptr(),
+            out.data_ptr(), b, kvh, q.shape[1] // kvh, q.shape[2], sk,
+            int(window))
     return out
 
 

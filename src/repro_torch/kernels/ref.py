@@ -12,10 +12,12 @@ in float64, which is exact (|acc| <= K * 127^2 < 2^53) and runs on the
 CPU and on the card alike (PyTorch has no int32 matmul on CUDA).
 
 The decode functions follow the JAX oracles (`repro/kernels/ref.py`
-flash_decode / paged_flash_decode) with the kernel's numerics: masked
+flash_decode / paged_flash_decode / paged_flash_decode_q) with the
+kernels' numerics: masked
 scores become ``NEG_INF = -1e30`` (never ``-inf``), p is taken from the
 mask rather than from the scores, p is cast to the value dtype before the
-PV product while its sum stays f32, and the result is divided by
+PV product (bf16 for the bf16 caches, f32 for the dequantized int8 ones)
+while its sum stays f32, and the result is divided by
 ``max(l, 1e-30)`` — so a fully masked (inactive) lane gives exact zeros,
 never NaN.
 """
@@ -27,6 +29,7 @@ import torch
 
 from repro_torch.core import ibert_ops as _io
 from repro_torch.core.quant import f32 as _f32
+from repro_torch.core.quant import kv_dequantize as _kv_dequantize
 from repro_torch.core.quant import requantize as _requantize
 
 NEG_INF = -1e30
@@ -35,20 +38,25 @@ KPOS_SENTINEL = 2 ** 30  # never-written cache slot
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  kpos: torch.Tensor, qpos: torch.Tensor,
-                 active: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 active: Optional[torch.Tensor] = None,
+                 window: int = 0) -> torch.Tensor:
     """Single-query (decode) attention over a dense per-lane cache.
 
     q: (B, H, hd) pre-scaled by 1/sqrt(hd); k/v: (B, Sk, KVH, hd) with
     H = G * KVH (GQA: KV is never expanded); kpos: (B, Sk) absolute key
     positions, 2^30 = never written; qpos: (B,); active: optional (B,)
-    bool lane gate.  A key counts iff ``kpos <= qpos`` and the lane is
-    active.  Returns (B, H, hd) in q.dtype.
+    bool lane gate; window: sliding-window width (0 = none).  A key counts
+    iff ``kpos <= qpos``, ``qpos - kpos < window`` when ``window > 0``,
+    and the lane is active.  Returns (B, H, hd) in q.dtype.
     """
     b, h, hd = q.shape
     kvh = k.shape[2]
     q5 = q.reshape(b, kvh, h // kvh, hd).float()
     s = torch.einsum("bngd,bknd->bngk", q5, k.float())  # (B, KVH, G, Sk)
-    msk = kpos[:, None, None, :] <= qpos.reshape(b, 1, 1, 1)
+    qp = qpos.reshape(b, 1, 1, 1)
+    msk = kpos[:, None, None, :] <= qp
+    if window:
+        msk = msk & (qp - kpos[:, None, None, :] < window)
     if active is not None:
         msk = msk & active.reshape(b, 1, 1, 1).bool()
     s = torch.where(msk, s, torch.full_like(s, NEG_INF))
@@ -79,6 +87,26 @@ def paged_flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vg = v[pt].reshape(b, -1, kvh, hd)
     kpg = kpos[pt].reshape(b, -1)
     return flash_decode(q, kg, vg, kpg, qpos, active=active)
+
+
+def paged_flash_decode_q(q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor, k_scale: torch.Tensor,
+                         v_scale: torch.Tensor, kpos: torch.Tensor,
+                         page_table: torch.Tensor, qpos: torch.Tensor,
+                         active: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Paged decode over an int8 arena: gather the int8 pages and their
+    per-row per-kv-head f32 scales (P, ps, KVH) through the table,
+    dequantize (`kv_dequantize`), and decode with q promoted to f32, so p
+    stays f32 for the PV product.  Returns (B, H, hd) in q.dtype."""
+    b = q.shape[0]
+    kvh, hd = k.shape[2], k.shape[3]
+    pt = page_table.long()
+    kg = _kv_dequantize(k[pt], k_scale[pt]).reshape(b, -1, kvh, hd)
+    vg = _kv_dequantize(v[pt], v_scale[pt]).reshape(b, -1, kvh, hd)
+    kpg = kpos[pt].reshape(b, -1)
+    out = flash_decode(q.float(), kg, vg, kpg, qpos, active=active)
+    return out.to(q.dtype)
 
 
 def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,16 @@
-"""Serving CLI of the PyTorch port: the paged continuous-batching engine
-on one device, fed a synthetic request stream.
+"""Serving CLI of the PyTorch port: one engine on one device, fed a
+synthetic request stream.  The continuous-batching engine (`--engine cb`,
+the default) serves from a paged KV arena, bf16 or `--kv-dtype int8` (or,
+through `serve(args, paged=False)`, from dense slot rows); `--engine wave`
+is the batch-synchronous baseline on dense slot rows.
 
 Runs on the CUDA device unless ``--device cpu`` is given; without a card
 it stops with an error instead of falling back to the CPU.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
       --requests 16 --stream shared-prefix
+  PYTHONPATH=src python -m repro_torch.launch.serve --kv-dtype int8
+  PYTHONPATH=src python -m repro_torch.launch.serve --engine wave
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
 """
 from __future__ import annotations
@@ -20,6 +25,8 @@ from repro_torch.configs import get_config
 from repro_torch.models.transformer import init_params, make_model
 from repro_torch.runtime.stragglers import StragglerMonitor
 from repro_torch.serving.engine import ContinuousBatchingEngine
+from repro_torch.serving.kv_manager import paged_eligible
+from repro_torch.serving.wave import WaveEngine
 from repro_torch.serving.stream import (poisson_requests,
                                         shared_prefix_requests)
 
@@ -29,6 +36,12 @@ BUCKETS = (16, 32, 64, 128)
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(prog="repro_torch.launch.serve")
     ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--engine", choices=["cb", "wave"], default="cb",
+                    help="cb: continuous batching; wave: the batch-"
+                         "synchronous baseline (dense slot rows)")
+    ap.add_argument("--kv-dtype", choices=["bf16", "int8"], default="bf16",
+                    help="int8: quantized KV pages (per-row f32 scales), "
+                         "~half the HBM per token; needs the paged pool")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--max-batch", type=int, default=4)
@@ -55,9 +68,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def serve(args: argparse.Namespace):
+def serve(args: argparse.Namespace, paged="auto"):
     """Build the model and engine, serve the stream; returns (engine,
-    finished requests, wall seconds of the measured pass)."""
+    finished requests, wall seconds of the measured pass).  `paged`
+    goes to the cb engine (False: dense slot rows)."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("serve: no CUDA device is available; pass "
@@ -65,13 +79,26 @@ def serve(args: argparse.Namespace):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.kv_dtype == "int8" and args.engine != "cb":
+        raise SystemExit(
+            "serve: --kv-dtype int8 needs the continuous-batching engine "
+            "(the wave baseline decodes dense slot rows); drop --engine wave")
+    if args.kv_dtype == "int8" and not (paged_eligible(cfg) and paged):
+        raise SystemExit(
+            "serve: --kv-dtype int8 needs the paged pool (an all-attention, "
+            "unwindowed, causal model)")
     model = make_model(cfg, device=device)
     params = init_params(cfg, seed=args.seed, device=device)
-    kw = {"num_pages": args.num_pages} if args.num_pages else {}
-    engine = ContinuousBatchingEngine(
-        model, params, max_batch=args.max_batch, buckets=BUCKETS,
-        monitor=StragglerMonitor(), decode_horizon=args.decode_horizon,
-        page_size=args.page_size, **kw)
+    kw = {}
+    if args.engine == "cb":
+        kw = dict(paged=paged, page_size=args.page_size,
+                  kv_dtype=args.kv_dtype)
+        if args.num_pages:
+            kw["num_pages"] = args.num_pages
+    cls = ContinuousBatchingEngine if args.engine == "cb" else WaveEngine
+    engine = cls(model, params, max_batch=args.max_batch, buckets=BUCKETS,
+                 monitor=StragglerMonitor(),
+                 decode_horizon=args.decode_horizon, **kw)
     if args.warmup:  # another seed: the measured prompts stay uncached
         for r in make_stream(args, cfg.vocab_size, args.seed + 1):
             engine.submit(r)
@@ -100,7 +127,8 @@ def main(argv=None):
     toks = sum(len(r.tokens_out) for r in done)
     lat = sorted((r.t_done - r.t_enqueue) * 1e3 for r in done)
     ttft = sorted((r.t_first_token - r.t_enqueue) * 1e3 for r in done)
-    print(f"serve[cb]: arch={engine.model.cfg.name} device={args.device} "
+    print(f"serve[{args.engine}]: arch={engine.model.cfg.name} "
+          f"device={args.device} kv_dtype={args.kv_dtype} "
           f"requests={len(done)} tokens={toks} wall={wall*1e3:.0f}ms "
           f"throughput={toks/wall:.1f}tok/s "
           f"ttft_p50={ttft[len(ttft)//2]:.0f}ms "

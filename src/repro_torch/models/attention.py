@@ -3,8 +3,10 @@ of `repro/models/attention.py`).
 
 Prefill attends densely up to `DENSE_ATTN_MAX_KV` keys and through a
 KV-chunked online softmax above that.  Decode attends one query row per
-lane against the paged KV arena through the `paged_flash_decode` kernel
-(kernels/ops.py), once per layer per step.
+lane, once per layer per step, through one of three kernels
+(kernels/ops.py): `paged_flash_decode` over a bf16 page arena,
+`paged_flash_decode_q` over an int8 one, `flash_decode` over dense slot
+rows.
 
 The JAX code builds new cache arrays with ``.at[].set`` and relies on
 buffer donation; this port updates the cache tensors in place
@@ -12,9 +14,8 @@ buffer donation; this port updates the cache tensors in place
 
 Not ported yet — each raises NotImplementedError naming its slice: the
 paged multi-query verify branch (speculative decoding), sliding windows
-and the dense slot decode branch (the dense slot path and the other
-families), int8 arenas, and the flash-attention route for long prefill
-at contiguous positions (`forward_logits` / `loss`).
+(the other families), and the flash-attention route for long prefill at
+contiguous positions (`forward_logits` / `loss`).
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core.quant import kv_quantize
 from repro_torch.models.layers import COMPUTE_DTYPE, apply_rope, dense
 
 Params = Dict[str, Any]
@@ -125,16 +127,19 @@ def attention(x: torch.Tensor, p: Params, cfg, positions: torch.Tensor,
     Paged decode: page_table (B, MAXP) marks `cache` as a paged arena
     (`k`/`v`: (P, ps, KVH, hd), `kpos`: (P, ps)); lane b's position q
     lives at arena page page_table[b, q // ps], offset q % ps.  The new
-    row is scattered through the table in place; inactive lanes write to
-    the trash page 0 with sentinel kpos, so a parked lane never touches a
-    live page.  Returns (output (B, S, d_model), the same cache dict).
+    row is scattered through the table in place (quantized first when the
+    arena holds `k_scale`/`v_scale`); inactive lanes write to the trash
+    page 0 with sentinel kpos, so a parked lane never touches a live page.
+    Dense slot decode: cache={'k','v','kpos'} with rows (B, slots, ...)
+    and no page table; the new row goes to slot min(q, slots - 1) of each
+    active lane.  Returns (output (B, S, d_model), the same cache dict).
     """
     from repro_torch.kernels import ops as kops
 
     if cfg.local_window:
         raise NotImplementedError(
-            "sliding-window attention arrives with the dense slot path / "
-            "other-families slice")
+            "sliding-window attention arrives with the other-families "
+            "slice")
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = _split_heads(dense(x, p["wq"]), nh)
     k = _split_heads(dense(x, p["wk"]), nkv)
@@ -168,9 +173,6 @@ def attention(x: torch.Tensor, p: Params, cfg, positions: torch.Tensor,
             cache["v"][:, :take] = v[:, -take:].to(cache["v"].dtype)
             cache["kpos"][:, :take] = positions[:, -take:].to(torch.int32)
     elif page_table is not None:
-        if "k_scale" in cache:
-            raise NotImplementedError(
-                "int8 KV arenas arrive with the int8 slice")
         b = x.shape[0]
         ck, cv, ckpos = cache["k"], cache["v"], cache["kpos"]
         ps = ck.shape[1]
@@ -187,32 +189,76 @@ def attention(x: torch.Tensor, p: Params, cfg, positions: torch.Tensor,
         wr_off = torch.where(act, cpos % ps, zero).long()
         kpos_val = torch.where(act, cpos,
                                torch.full_like(cpos, KPOS_SENTINEL))
-        ck.index_put_((wr_page, wr_off), k[:, 0].to(ck.dtype))
-        cv.index_put_((wr_page, wr_off), v[:, 0].to(cv.dtype))
         ckpos.index_put_((wr_page, wr_off), kpos_val)
-        out = kops.paged_flash_decode(
-            qs[:, 0].contiguous(), ck, cv, ckpos, page_table, cpos,
-            active=act)[:, None]
+        q0 = qs[:, 0].contiguous()
+        if "k_scale" in cache:
+            # int8 arena: the new row is quantized on the way in, one int8
+            # row and one f32 scale per kv head at the same (page, offset)
+            kq, ksc = kv_quantize(k[:, 0])
+            vq, vsc = kv_quantize(v[:, 0])
+            ck.index_put_((wr_page, wr_off), kq)
+            cv.index_put_((wr_page, wr_off), vq)
+            cache["k_scale"].index_put_((wr_page, wr_off), ksc)
+            cache["v_scale"].index_put_((wr_page, wr_off), vsc)
+            out = kops.paged_flash_decode_q(
+                q0, ck, cv, cache["k_scale"], cache["v_scale"], ckpos,
+                page_table, cpos, active=act)[:, None]
+        else:
+            ck.index_put_((wr_page, wr_off), k[:, 0].to(ck.dtype))
+            cv.index_put_((wr_page, wr_off), v[:, 0].to(cv.dtype))
+            out = kops.paged_flash_decode(q0, ck, cv, ckpos, page_table,
+                                          cpos, active=act)[:, None]
     else:
-        raise NotImplementedError(
-            "dense slot-cache decode (flash_decode) arrives with the dense "
-            "slot path slice")
+        # dense slot decode: lane b's row for position q is slot
+        # min(q, slots - 1) (ring buffers, q % slots, arrive with the
+        # windowed families).  The reference writes every lane and
+        # where-masks the cache tree afterwards; here an inactive lane
+        # writes its slot's old contents back, so its rows and kpos are
+        # untouched in place.
+        b = x.shape[0]
+        ck, cv, ckpos = cache["k"], cache["v"], cache["kpos"]
+        slots = ck.shape[1]
+        cpos = positions[:, 0].to(torch.int32)
+        slot = torch.clamp(cpos, max=slots - 1).long()
+        lane = torch.arange(b, device=x.device)
+        act = (torch.ones((b,), dtype=torch.bool, device=x.device)
+               if active is None else active.bool())
+        a3 = act[:, None, None]
+        ck[lane, slot] = torch.where(a3, k[:, 0].to(ck.dtype),
+                                     ck[lane, slot])
+        cv[lane, slot] = torch.where(a3, v[:, 0].to(cv.dtype),
+                                     cv[lane, slot])
+        ckpos[lane, slot] = torch.where(act, cpos, ckpos[lane, slot])
+        out = kops.flash_decode(qs[:, 0].contiguous(), ck, cv, ckpos, cpos,
+                                active=act)[:, None]
 
     out = out.reshape(x.shape[0], x.shape[1], nh * hd)
     return dense(out, p["wo"]), cache
 
 
 def init_paged_attn_cache(cfg, num_pages: int, page_size: int,
-                          dtype=COMPUTE_DTYPE, device=None):
+                          dtype=COMPUTE_DTYPE, device=None,
+                          quantized: bool = False):
     """Paged KV arena: a global page pool, no batch axis.  kpos starts at
-    the never-written sentinel everywhere, the trash page 0 included."""
+    the never-written sentinel everywhere, the trash page 0 included.
+
+    quantized=True stores int8 k/v plus per-row per-kv-head f32 scale
+    planes `k_scale`/`v_scale` (P, ps, KVH) (core/quant.kv_quantize); the
+    scales live in the arena, so a shared prefix page carries its scales
+    to every lane that reads it."""
     kv_shape = (num_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
-    return {
-        "k": torch.zeros(kv_shape, dtype=dtype, device=device),
-        "v": torch.zeros(kv_shape, dtype=dtype, device=device),
+    kv_dtype = torch.int8 if quantized else dtype
+    cache = {
+        "k": torch.zeros(kv_shape, dtype=kv_dtype, device=device),
+        "v": torch.zeros(kv_shape, dtype=kv_dtype, device=device),
         "kpos": torch.full((num_pages, page_size), KPOS_SENTINEL,
                            dtype=torch.int32, device=device),
     }
+    if quantized:
+        for name in ("k_scale", "v_scale"):
+            cache[name] = torch.zeros(kv_shape[:3], dtype=torch.float32,
+                                      device=device)
+    return cache
 
 
 def init_attn_cache(cfg, batch: int, seq_len: int, dtype=COMPUTE_DTYPE,

@@ -14,6 +14,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.quant import kv_quantize
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import (
     COMPUTE_DTYPE, embed, lm_head, mlp, norm,
@@ -151,6 +152,50 @@ def _index(tree, i: int):
 
 
 # ---------------------------------------------------------------------------
+# cache trees
+# ---------------------------------------------------------------------------
+
+
+def cache_map(fn, *trees):
+    """Map ``fn(batch_axis, *leaves)`` over cache trees ``{"scan": ...,
+    "tail": ..., "pos": ...}``: leaves under "scan" carry the stacked
+    period axis first, so their batch axis is 1; every other leaf has it
+    at 0."""
+
+    def go(axis, *subs):
+        if isinstance(subs[0], dict):
+            return {k: go(axis, *[s[k] for s in subs]) for k in subs[0]}
+        return fn(axis, *subs)
+
+    return {k: go(1 if k == "scan" else 0, *[t[k] for t in trees])
+            for k in trees[0]}
+
+
+def cache_is_quantized(tree) -> bool:
+    """Does this (sub)tree hold int8 KV arenas (k_scale planes present)?"""
+    if isinstance(tree, dict):
+        return "k_scale" in tree or any(cache_is_quantized(v)
+                                        for v in tree.values())
+    return False
+
+
+def quantize_kv_tree(tree):
+    """A dense bf16 cache tree with its attention leaves ({"k", "v",
+    "kpos"}) in the int8 arena's layout ({"k", "v": int8, "k_scale",
+    "v_scale": f32, "kpos"}): `kv_quantize` per cache row per kv head, the
+    rule the decode scatter applies row by row, so a prefix hit's suffix
+    ingest stays bit-identical to a cold prefill under int8 KV too."""
+    if not isinstance(tree, dict):
+        return tree
+    if "k" in tree and "kpos" in tree and "k_scale" not in tree:
+        kq, ks = kv_quantize(tree["k"])
+        vq, vs = kv_quantize(tree["v"])
+        return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs,
+                "kpos": tree["kpos"]}
+    return {k: quantize_kv_tree(v) for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
 # full model
 # ---------------------------------------------------------------------------
 
@@ -210,24 +255,26 @@ class Model:
                          max_pages: int, kv_dtype: str = "bf16"):
         """Paged serving cache: per-layer global KV page arenas (no batch
         axis) + per-lane position counters "pos" (B,) and page tables
-        "pt" (B, max_pages) (0 = the allocator's trash page)."""
-        if kv_dtype != "bf16":
-            raise NotImplementedError(
-                "int8 KV arenas arrive with the int8 slice")
+        "pt" (B, max_pages) (0 = the allocator's trash page).
+        kv_dtype="int8" stores int8 k/v plus f32 `k_scale`/`v_scale`
+        planes per arena."""
+        if kv_dtype not in ("bf16", "int8"):
+            raise ValueError(f"kv_dtype {kv_dtype!r}: want 'bf16' or 'int8'")
         cfg, dev = self.cfg, self.device
         n_rep, tail, kinds = layer_plan(cfg)
 
+        def arena():
+            return attn_mod.init_paged_attn_cache(
+                cfg, num_pages, page_size, device=dev,
+                quantized=kv_dtype == "int8")
+
         def stacked():
-            one = attn_mod.init_paged_attn_cache(cfg, num_pages, page_size,
-                                                 device=dev)
             return {k: v[None].repeat((n_rep,) + (1,) * v.dim())
-                    for k, v in one.items()}
+                    for k, v in arena().items()}
 
         return {"scan": ({f"b{i}": stacked() for i in range(len(kinds))}
                          if n_rep else {}),
-                "tail": {str(t): attn_mod.init_paged_attn_cache(
-                    cfg, num_pages, page_size, device=dev)
-                    for t in range(tail)},
+                "tail": {str(t): arena() for t in range(tail)},
                 "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
                 "pt": torch.zeros((batch, max_pages), dtype=torch.int32,
                                   device=dev)}
@@ -259,18 +306,17 @@ class Model:
 
     def decode_step(self, params, caches, token: torch.Tensor,
                     active: Optional[torch.Tensor] = None):
-        """token (B,) -> (logits (B, V) f32, caches) on a paged cache.
+        """token (B,) -> (logits (B, V) f32, caches) on a paged or a dense
+        slot cache.
 
-        Inactive lanes are computed (the batch shape is static) but write
-        only to the trash page and keep their position counters."""
-        if "pt" not in caches:
-            raise NotImplementedError(
-                "dense slot-cache decode arrives with the dense slot path "
-                "slice")
+        Inactive lanes are computed (the batch shape is static) but leave
+        their cache rows and position counters untouched: on a paged cache
+        they write only to the trash page, on a dense one they write their
+        slot's old contents back."""
         x = embed(token[:, None], params["embed"])
         positions = caches["pos"][:, None]
         h = self.backbone(params, x, positions, caches=caches,
-                          page_table=caches["pt"], active=active)
+                          page_table=caches.get("pt"), active=active)
         pos = caches["pos"]
         caches["pos"] = (pos + 1 if active is None
                          else torch.where(active, pos + 1, pos))
@@ -337,6 +383,28 @@ class Model:
             act = still
         return torch.stack(toks), cur, act, rem, fptr, caches
 
+    def insert_prefill_cache(self, big, small, slot: int):
+        """Write a batch-1 prefill cache `small` into lane `slot` of the
+        dense slot cache `big`, in place, "pos" included.  A shorter
+        bucket leaves a gap past its slots, refilled with zeros (k/v) and
+        the never-written sentinel (kpos), so the lane's previous
+        occupant can never be attended to."""
+
+        def leaf(axis, b, s):
+            s = s.to(b.dtype)
+            gap = b.dim() > 1 and s.shape[axis + 1] < b.shape[axis + 1]
+            if gap:
+                fill = KPOS_SENTINEL if b.dtype == torch.int32 else 0
+                pad_shape = list(s.shape)
+                pad_shape[axis + 1] = b.shape[axis + 1] - s.shape[axis + 1]
+                s = torch.cat([s, torch.full(pad_shape, fill, dtype=s.dtype,
+                                             device=s.device)], axis + 1)
+            b.narrow(axis, slot, 1).copy_(s)
+            return b
+
+        cache_map(leaf, big, small)
+        return big
+
     def admit_lane_cache(self, big, slot: int, pt_row, pos0: int,
                          reset_pages, small=None, write_pages=None):
         """Prepare lane `slot` of the paged cache `big` for a new occupant,
@@ -347,11 +415,14 @@ class Model:
         occupant's keys; padded with the trash page 0).  small /
         write_pages: optional batch-1 bucket cache from a dense prefill and
         the (W,) pages that receive it, positions [0, W*page_size) in
-        prompt order.  The lane's table row becomes `pt_row` and its
+        prompt order (quantized per cache row first when the arena is
+        int8).  The lane's table row becomes `pt_row` and its
         counter `pos0` (the prompt length; a prefix hit passes hit_len and
         no `small` — its suffix arrives through the forced queue).
         """
         dev = self.device
+        if small is not None and cache_is_quantized(big):
+            small = quantize_kv_tree(small)
         reset = torch.as_tensor(reset_pages, dtype=torch.long, device=dev)
         wp = (None if write_pages is None else
               torch.as_tensor(write_pages, dtype=torch.long, device=dev))

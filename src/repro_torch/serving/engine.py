@@ -1,13 +1,17 @@
-"""The paged continuous-batching engine: the composition root over the
-scheduler (host policy), the executor (device work) and the KV manager
-(page pool + radix prefix cache).  Port of `repro/serving/engine.py`,
-single device, paged path only.
+"""Serving engines: the composition root over the scheduler (host policy),
+the executor (device work) and the KV manager (page pool + radix prefix
+cache).  Port of `repro/serving/engine.py`, single device.
 
-Admission: a radix hit reuses the shared prefix pages and its suffix
-rides the decode loop's forced-token queue; a cold request is prefilled
-at its bucket and scattered into its own pages, and its full prompt pages
-are registered for later hits.  Decode: one fused n-step dispatch per
-loop turn, one (n, B) token fetch, host-side reconciliation.
+`ContinuousBatchingEngine` admits into freed lanes between fused decode
+dispatches, over a paged KV arena (bf16 or int8) or over dense slot rows
+(`paged=False`).  On the paged path a radix hit reuses the shared prefix
+pages and its suffix rides the decode loop's forced-token queue; a cold
+request is prefilled at its bucket and scattered into its own pages, and
+its full prompt pages are registered for later hits.  On dense slots each
+admission is a batch-1 prefill inserted into the lane's row.
+`WaveEngine` (serving/wave.py), the batch-synchronous baseline, shares
+`EngineBase`.  Decode: one fused n-step dispatch per loop turn, one (n, B)
+token fetch, host-side reconciliation.
 """
 from __future__ import annotations
 
@@ -21,74 +25,57 @@ from repro_torch.core.packing import bucket_len
 from repro_torch.models.transformer import Model
 from repro_torch.runtime.stragglers import StragglerMonitor
 from repro_torch.serving.executor import PAD_TOKEN, Executor
-from repro_torch.serving.kv_manager import KVManager, paged_eligible
+from repro_torch.serving.kv_manager import (KVManager, kv_page_bytes,
+                                            paged_eligible)
 from repro_torch.serving.scheduler import Request, Scheduler
 
-__all__ = ["ContinuousBatchingEngine", "Request", "PAD_TOKEN"]
+__all__ = ["ContinuousBatchingEngine", "WaveEngine", "EngineBase",
+           "Request", "PAD_TOKEN"]
 
 
-class ContinuousBatchingEngine:
-    """Slot-asynchronous serving over a paged KV arena: admit into freed
-    lanes between fused decode dispatches.
+def _unported(**options) -> None:
+    bad = [k for k, v in options.items() if v]
+    if bad:
+        raise NotImplementedError(
+            f"not ported yet: {', '.join(bad)} (see ROADMAP.md, port queue)")
 
-    Not ported yet (each raises): a ClusterPlan, speculative decoding
-    (`spec_config`), int8 KV pages, disaggregated pools, W8A8 weights, and
-    the dense slot path (`paged=False` or a config that is not
-    all-attention, unwindowed and causal).
-    """
+
+class EngineBase:
+    """Shared composition: scheduler + executor, stats, prefill plumbing.
+
+    Not ported yet (each raises NotImplementedError): a ClusterPlan, and
+    W8A8 weights (`quant_weights`), which for smollm the reference serves
+    as the bf16 path."""
 
     def __init__(self, model: Model, params, max_batch: int = 8,
                  buckets=(32, 64, 128, 256), deadline_s: float = 0.05,
                  plan=None, max_decode_len: int = 64,
                  decode_horizon: int = 8,
                  monitor: Optional[StragglerMonitor] = None,
-                 quant_weights: bool = False, paged="auto",
-                 page_size: int = 16, num_pages: Optional[int] = None,
-                 max_hit_suffix: Optional[int] = None,
-                 kv_dtype: str = "bf16",
-                 spec_config: Optional[dict] = None,
-                 disagg: Optional[Tuple[int, int]] = None):
-        unported = {"plan": plan is not None,
-                    "spec_config": bool(spec_config),
-                    "kv_dtype='int8'": kv_dtype != "bf16",
-                    "disagg": disagg is not None,
-                    "quant_weights": bool(quant_weights)}
-        bad = [k for k, v in unported.items() if v]
-        if bad:
+                 quant_weights: bool = False):
+        _unported(plan=plan is not None)
+        if quant_weights:
             raise NotImplementedError(
-                f"not ported yet: {', '.join(bad)} (see ROADMAP.md, port "
-                "queue)")
-        if paged is False or not paged_eligible(model.cfg):
-            raise NotImplementedError(
-                "the dense slot path (paged=False, or a recurrent / "
-                "windowed / non-causal config) arrives with a later slice")
+                "not ported: quant_weights (W8A8).  For smollm the "
+                "reference's quantize_params_for_serving quantizes only 2-d "
+                "leaves and every projection is stacked over layers (3-d), "
+                "so it serves the bf16 path and launches no int8_matmul "
+                "(ROADMAP.md §3)")
         self.model = model
         self.max_batch = max_batch
         self.buckets = tuple(sorted(buckets))
         self.monitor = monitor
-        self.page_size = page_size
-        # whole-page lane capacity: prompt bucket + decode headroom
-        cache_len = bucket_len(max(self.buckets), self.buckets,
-                               lane=8) + max_decode_len
-        self.cache_len = -(-cache_len // page_size) * page_size
-        self.max_pages = self.cache_len // page_size
-        if num_pages is None:  # default: dense table capacity + trash page
-            num_pages = max_batch * self.max_pages + 1
+        self.paged = False  # ContinuousBatchingEngine may flip this
+        # lane rows: prompt KV + decode headroom, fixed per engine
+        self.cache_len = bucket_len(max(self.buckets), self.buckets,
+                                    lane=8) + max_decode_len
         self.sched = Scheduler(self.buckets, deadline_s, decode_horizon,
                                max_batch)
         self.executor = Executor(model, params, max_batch=max_batch,
                                  cache_len=self.cache_len,
                                  buckets=self.buckets)
-        self.kv = KVManager(num_pages, page_size, max_batch, self.max_pages)
-        self.max_hit_suffix = (max(self.buckets) if max_hit_suffix is None
-                               else max_hit_suffix)
-        self._slot_caches = None
         self.stats = {"prefill_tokens": 0, "decode_steps": 0,
-                      "decode_dispatches": 0, "device_syncs": 0,
-                      "admitted": 0, "completed": 0, "prefills": 0,
-                      "active_lane_steps": 0, "prefix_hits": 0,
-                      "prefix_hit_tokens": 0, "preemptions": 0,
-                      "pages_in_use": 0, "pages_peak": 0}
+                      "decode_dispatches": 0, "device_syncs": 0}
 
     policy = property(lambda self: self.sched.policy)
 
@@ -98,19 +85,96 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 f"request {req.rid}: bucket+budget {need} exceeds lane "
                 f"cache_len {self.cache_len} (raise max_decode_len)")
-        if self.kv.pages_for(need) > self.kv.num_pages - 1:
+        if self.paged and self.kv.pages_for(need) > self.kv.num_pages - 1:
             raise ValueError(
                 f"request {req.rid}: needs {self.kv.pages_for(need)} pages,"
                 f" pool has {self.kv.num_pages - 1} (raise num_pages)")
         self.sched.enqueue(req)
 
+    def _prefill(self, prompts, batch: int, bucket_cache: bool = False):
+        self.stats["prefill_tokens"] += int(sum(len(p) for p in prompts))
+        return self.executor.prefill_prompts(prompts, batch,
+                                             bucket_cache=bucket_cache)
+
+    def _greedy_next(self, logits: torch.Tensor) -> np.ndarray:
+        self.stats["device_syncs"] += 1
+        return torch.argmax(logits, dim=-1).cpu().numpy()
+
+
+class ContinuousBatchingEngine(EngineBase):
+    """Slot-asynchronous serving: admit into freed lanes between fused
+    decode dispatches.
+
+    ``paged`` (default "auto") serves from the page arena + radix prefix
+    cache where the model allows it (all-attention, unwindowed, causal),
+    else from dense slot rows; ``kv_dtype="int8"`` quantizes the arena.
+    Not ported yet (each raises NotImplementedError): speculative decoding
+    (`spec_config`) and disaggregated pools, besides EngineBase's.
+    """
+
+    def __init__(self, *args, paged="auto", page_size: int = 16,
+                 num_pages: Optional[int] = None,
+                 max_hit_suffix: Optional[int] = None,
+                 kv_dtype: str = "bf16",
+                 spec_config: Optional[dict] = None,
+                 disagg: Optional[Tuple[int, int]] = None, **kw):
+        _unported(spec_config=bool(spec_config), disagg=disagg is not None)
+        super().__init__(*args, **kw)
+        self.stats.update(admitted=0, completed=0, prefills=0,
+                          active_lane_steps=0)
+        self._slot_caches = None
+        eligible = paged_eligible(self.model.cfg)
+        if paged == "auto":
+            paged = eligible
+        elif paged and not eligible:
+            raise ValueError(
+                "paged KV needs an all-attention, unwindowed, causal model "
+                "(recurrent state and ring buffers have no paged analogue)")
+        self.paged = bool(paged)
+        if kv_dtype not in ("bf16", "int8"):
+            raise ValueError(f"kv_dtype {kv_dtype!r}: want 'bf16' or 'int8'")
+        if kv_dtype == "int8" and not self.paged:
+            raise ValueError(
+                "kv_dtype='int8' needs the paged KV pool (quantized dense "
+                "slot rows are not implemented); this model/config fell "
+                "back to dense slots")
+        self.kv_dtype = kv_dtype
+        self.kv: Optional[KVManager] = None
+        if self.paged:
+            self.page_size = page_size
+            # whole-page capacity: gathered paged layout == dense slot row
+            self.cache_len = -(-self.cache_len // page_size) * page_size
+            self.executor.cache_len = self.cache_len
+            self.max_pages = self.cache_len // page_size
+            if num_pages is None:  # default: dense table capacity + trash
+                num_pages = self.max_batch * self.max_pages + 1
+            self.kv = KVManager(num_pages, page_size, self.max_batch,
+                                self.max_pages)
+            self.max_hit_suffix = (max(self.buckets)
+                                   if max_hit_suffix is None
+                                   else max_hit_suffix)
+            self.stats.update(prefix_hits=0, prefix_hit_tokens=0,
+                              preemptions=0, pages_in_use=0, pages_peak=0)
+
+    def kv_page_bytes(self) -> int:
+        """HBM bytes one arena page costs at this engine's kv_dtype."""
+        return kv_page_bytes(self.model.cfg, self.page_size, self.kv_dtype)
+
     # -- admission -----------------------------------------------------------
 
-    def _greedy_next(self, logits: torch.Tensor) -> int:
-        self.stats["device_syncs"] += 1
-        return int(torch.argmax(logits[0], dim=-1))
+    def _admit_dense(self, r: Request, sl: int, st) -> bool:
+        """Batch-1 prefill + insert into slot `sl`; TTFT paid here."""
+        logits, small = self._prefill([r.prompt], 1, bucket_cache=True)
+        st["caches"] = self.executor.insert(st["caches"], small, sl)
+        self.stats["prefills"] += 1
+        self.stats["admitted"] += 1
+        self._first_token(r, int(self._greedy_next(logits)[0]))
+        if not r.done:
+            self.executor.admit_lane(st, sl, r.tokens_out[-1], r.eos_id,
+                                     r.remaining())
+        return True
 
-    def _admit(self, r: Request, sl: int, st) -> bool:
+    def _admit_paged(self, r: Request, sl: int, st) -> bool:
         """Radix hit -> reuse shared pages, suffix rides the forced-token
         queue; cold -> bucket prefill scattered into owned pages + prompt
         registered.  False = the pool can't cover it (nothing held)."""
@@ -130,8 +194,7 @@ class ContinuousBatchingEngine:
             self.stats["prefix_hit_tokens"] += int(grant.hit_len)
             r.t_admitted = time.perf_counter()
         else:
-            self.stats["prefill_tokens"] += len(prompt)
-            logits, small = ex.prefill_prompts([prompt], 1)
+            logits, small = self._prefill([prompt], 1, bucket_cache=True)
             bucket = bucket_len(len(prompt), self.buckets, lane=8)
             n_wp = min(self.kv.pages_for(bucket), len(grant.pages))
             ex.admit_cold(st, sl, small, grant.pt_row, len(prompt),
@@ -139,9 +202,7 @@ class ContinuousBatchingEngine:
                                                   np.int32))
             self.stats["prefills"] += 1
             self.kv.register_prefix(prompt, grant.pages)
-            t_now = time.perf_counter()
-            r.t_admitted = t_now
-            r.append_token(self._greedy_next(logits), t_now)
+            self._first_token(r, int(self._greedy_next(logits)[0]))
             self.sched.lane_forced[sl] = 0
             if not r.done:
                 ex.admit_lane_paged(st, sl, r.tokens_out[-1], r.eos_id,
@@ -152,6 +213,12 @@ class ContinuousBatchingEngine:
         self.stats["pages_peak"] = max(self.stats["pages_peak"],
                                        self.kv.pages_in_use)
         return True
+
+    @staticmethod
+    def _first_token(r: Request, tok: int) -> None:
+        t_now = time.perf_counter()
+        r.t_admitted = t_now
+        r.append_token(tok, t_now)
 
     def _release(self, sl: int) -> None:
         self.kv.release(sl)
@@ -179,11 +246,14 @@ class ContinuousBatchingEngine:
         Admission honours `Request.t_arrival` (seconds after this call)."""
         if self._slot_caches is None:
             self._slot_caches = self.executor.init_caches(
-                self.page_size, self.kv.num_pages, self.max_pages)
-        st = self.executor.fresh_state(self._slot_caches)
+                self.paged, *((self.page_size, self.kv.num_pages,
+                               self.max_pages, self.kv_dtype)
+                              if self.paged else ()))
+        st = self.executor.fresh_state(self._slot_caches, self.paged)
         done: List[Request] = []
         pending = self.sched.take_queue()
         slots: List[Optional[Request]] = [None] * self.max_batch
+        admit = self._admit_paged if self.paged else self._admit_dense
         t0 = time.perf_counter()
         for r in pending:  # latency clocks start at simulated arrival
             r.t_enqueue = max(r.t_enqueue, t0 + r.t_arrival)
@@ -194,12 +264,13 @@ class ContinuousBatchingEngine:
                 [i for i, r in enumerate(slots) if r is None], slots)
             admitted, starved = self.sched.admission_cycle(
                 pending, free, now, self.executor.warm_buckets,
-                lambda r, sl: self._admit(r, sl, st))
+                lambda r, sl: admit(r, sl, st))
             for r, sl in admitted:
                 pending.remove(r)
                 if r.done:  # budget of 1 / instant EOS at admission
                     done.append(r)
-                    self._release(sl)
+                    if self.paged:
+                        self._release(sl)
                     free.insert(0, sl)
                     self.stats["completed"] += 1
                 else:
@@ -214,15 +285,23 @@ class ContinuousBatchingEngine:
             n = self.sched.pick_horizon(bool(pending),
                                         self.sched.lane_remaining(slots))
             t_step = time.perf_counter()
-            toks = self.executor.decode(st, n)
+            toks = self.executor.decode(st, n, self.paged)
             block = toks.cpu().numpy()  # the only per-dispatch device sync
             if self.monitor is not None:
                 self.monitor.observe(self.stats["decode_steps"] + n,
                                      (time.perf_counter() - t_step) / n)
             self.sched.reconcile(block, slots, done, n, self.stats,
-                                 time.perf_counter(), True, self._release)
+                                 time.perf_counter(), self.paged,
+                                 self._release if self.paged else None)
 
-        self.kv.assert_drained()
+        if self.paged:
+            self.kv.assert_drained()
         self._slot_caches = st["caches"]
         return sorted(done, key=lambda r: r.rid)
 
+
+def __getattr__(name):  # PEP 562: WaveEngine (serving/wave.py) subclasses
+    if name == "WaveEngine":  # EngineBase — lazy both ways, no import cycle
+        from repro_torch.serving.wave import WaveEngine
+        return WaveEngine
+    raise AttributeError(name)

@@ -1,5 +1,5 @@
 """Device-side serving execution for one device (port of
-`repro/serving/executor.py`, paged path).
+`repro/serving/executor.py`: the paged and the dense slot paths).
 
 The executor owns the params and the device decode state: bucketed
 prefill, the fused n-step decode loop (`Model.decode_steps`), and the lane
@@ -22,7 +22,7 @@ PAD_TOKEN = 0  # fed for finished/free lanes; their logits are never read
 
 
 class Executor:
-    """Device programs + decode state for one paged serving engine."""
+    """Device programs + decode state for one serving engine."""
 
     def __init__(self, model: Model, params, max_batch: int = 8,
                  cache_len: int = 0, buckets=()):
@@ -30,7 +30,7 @@ class Executor:
         self.params = params
         self.device = model.device
         self.max_batch = max_batch
-        self.cache_len = cache_len  # the engine re-rounds it to pages
+        self.cache_len = cache_len  # a paged engine re-rounds it to pages
         self.buckets = tuple(sorted(buckets))
         self._warm = []  # buckets prefilled at batch 1, first-use order
 
@@ -39,31 +39,43 @@ class Executor:
 
     # -- cache / state -------------------------------------------------------
 
-    def init_caches(self, page_size: int, num_pages: int, max_pages: int):
-        return self.model.init_paged_cache(self.max_batch, num_pages,
-                                           page_size, max_pages)
+    def init_caches(self, paged: bool, page_size: int = 0,
+                    num_pages: int = 0, max_pages: int = 0,
+                    kv_dtype: str = "bf16"):
+        """The persistent serving cache: a paged arena, or dense slot rows
+        (max_batch x cache_len)."""
+        if paged:
+            return self.model.init_paged_cache(self.max_batch, num_pages,
+                                               page_size, max_pages,
+                                               kv_dtype=kv_dtype)
+        return self.model.init_cache(self.max_batch, self.cache_len)
 
-    def fresh_state(self, caches) -> Dict[str, Any]:
-        """Device decode state, mutated only by the methods below."""
+    def fresh_state(self, caches, paged: bool) -> Dict[str, Any]:
+        """Device decode state, mutated only by the methods below; the
+        paged one carries the forced-token (suffix-ingest) queues."""
         b, dev = self.max_batch, self.device
 
         def full(shape, val, dtype=torch.int32):
             return torch.full(shape, val, dtype=dtype, device=dev)
 
-        return {"caches": caches,
-                "cur": full((b,), PAD_TOKEN),
-                "active": full((b,), False, torch.bool),
-                "eos": full((b,), -1),
-                "budget": full((b,), 0),
-                "forced": full((b, self.cache_len), 0),
-                "flen": full((b,), 0),
-                "fptr": full((b,), 0)}
+        st = {"caches": caches,
+              "cur": full((b,), PAD_TOKEN),
+              "active": full((b,), False, torch.bool),
+              "eos": full((b,), -1),
+              "budget": full((b,), 0)}
+        if paged:
+            st.update(forced=full((b, self.cache_len), 0),
+                      flen=full((b,), 0), fptr=full((b,), 0))
+        return st
 
     # -- prefill -------------------------------------------------------------
 
-    def prefill_prompts(self, prompts, batch: int):
-        """Bucketed left-aligned batched prefill into a bucket-sized dense
-        cache; returns (logits (batch, V), caches)."""
+    def prefill_prompts(self, prompts, batch: int,
+                        bucket_cache: bool = False):
+        """Bucketed left-aligned batched prefill; returns (logits (batch,
+        V), caches).  bucket_cache=True writes a bucket-sized cache (an
+        admission then scatters or inserts it); otherwise the cache spans
+        cache_len and is decoded into directly (waves)."""
         maxlen = max(len(p) for p in prompts)
         bucket = bucket_len(maxlen, self.buckets, lane=8)
         toks = np.zeros((batch, bucket), np.int32)
@@ -77,7 +89,8 @@ class Executor:
             lengths[i] = n
         if batch == 1 and bucket not in self._warm:
             self._warm.append(bucket)
-        caches = self.model.init_cache(batch, bucket)
+        caches = self.model.init_cache(
+            batch, bucket if bucket_cache else self.cache_len)
         with torch.no_grad():
             return self.model.prefill(
                 self.params, caches, self._tensor(toks),
@@ -93,20 +106,36 @@ class Executor:
 
     # -- fused decode ----------------------------------------------------------
 
-    def decode(self, st: Dict[str, Any], n: int) -> torch.Tensor:
+    def decode(self, st: Dict[str, Any], n: int, paged: bool) -> torch.Tensor:
         """One fused n-step dispatch; returns the (n, B) token tensor (on
-        the device), st updated in place."""
+        the device), st updated in place.  The paged loop threads the
+        forced-token queues."""
+        kw = (dict(forced=st["forced"], forced_len=st["flen"],
+                   forced_ptr=st["fptr"]) if paged else {})
         with torch.no_grad():
-            toks, cur, active, budget, fptr, caches = self.model.decode_steps(
+            out = self.model.decode_steps(
                 self.params, st["caches"], st["cur"], st["active"], n,
                 eos_id=st["eos"], budget=st["budget"], pad_token=PAD_TOKEN,
-                forced=st["forced"], forced_len=st["flen"],
-                forced_ptr=st["fptr"])
-        st.update(caches=caches, cur=cur, active=active, budget=budget,
-                  fptr=fptr)
+                **kw)
+        toks, cur, active, budget = out[:4]
+        st.update(caches=out[-1], cur=cur, active=active, budget=budget)
+        if paged:
+            st["fptr"] = out[4]
         return toks
 
     # -- lane updates ----------------------------------------------------------
+
+    def insert(self, big, small, slot: int):
+        """Write a batch-1 prefill cache into a dense slot row."""
+        return self.model.insert_prefill_cache(big, small, slot)
+
+    def admit_lane(self, st, sl: int, tok: int, eos_id: int,
+                   bud: int) -> None:
+        """Lane decode state for a dense-slot admission."""
+        st["cur"][sl] = tok
+        st["active"][sl] = True
+        st["eos"][sl] = eos_id
+        st["budget"][sl] = bud
 
     def admit_hit(self, st, slot: int, pt_row, pos0: int, reset) -> None:
         """Point a lane at its (shared prefix + own) pages; the suffix
@@ -124,10 +153,7 @@ class Executor:
         """Lane decode state plus its forced-token (suffix-ingest) row."""
         frow = np.zeros((self.cache_len,), np.int32)
         frow[:len(forced_rest)] = forced_rest
-        st["cur"][sl] = tok
-        st["active"][sl] = True
-        st["eos"][sl] = eos_id
-        st["budget"][sl] = bud
+        self.admit_lane(st, sl, tok, eos_id, bud)
         st["forced"][sl] = self._tensor(frow)
         st["flen"][sl] = flen
         st["fptr"][sl] = 0

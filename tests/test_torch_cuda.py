@@ -4,8 +4,9 @@ a machine with one (and nvcc) with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerance: bf16 outputs in (-1, 1) agree to 1e-2 (a few ulps: the kernel
-and the plain version sum scores and p @ V in different orders).
+Tolerance: the decode kernels' bf16 outputs in (-1, 1) agree to 1e-2 (a
+few ulps: the kernel and the plain version sum scores and p @ V in
+different orders); `kv_quantize` on the card equals the CPU bit for bit.
 Inactive lanes are exact zeros on both.  The I-BERT integer kernels have
 no tolerance: each equals its plain version bit for bit, on the card and
 on the CPU.
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import quant
 from repro_torch.kernels import ops, ref
 
 SENTINEL = 2 ** 30
@@ -81,6 +83,94 @@ def test_kernel_wrapper_refuses_what_it_cannot_run(dev):
                                k[..., :32].contiguous(),
                                v[..., :32].contiguous(), kpos, pt, qpos,
                                active=act)
+
+
+def _dense_inputs(seed, b, kvh, g, hd, sk, dev):
+    """A dense slot cache: lane i's slots hold positions 0..n_i-1, the
+    rest never written (sentinel); qpos is the lane's last position."""
+    rng = np.random.default_rng(seed)
+    n = rng.integers(1, sk + 1, b)
+    kpos = np.where(np.arange(sk)[None] < n[:, None], np.arange(sk)[None],
+                    SENTINEL).astype(np.int32)
+    active = rng.random(b) < 0.7
+    active[0] = False
+    q = torch.tensor(rng.normal(0, 1, (b, kvh * g, hd)) * hd ** -0.5)
+    k = torch.tensor(rng.uniform(-1, 1, (b, sk, kvh, hd)))
+    v = torch.tensor(rng.uniform(-1, 1, (b, sk, kvh, hd)))
+    return (q.bfloat16().to(dev), k.bfloat16().to(dev), v.bfloat16().to(dev),
+            torch.tensor(kpos, device=dev),
+            torch.tensor((n - 1).astype(np.int32), device=dev),
+            torch.tensor(active, device=dev))
+
+
+@pytest.mark.parametrize("hd", [16, 64, 128])
+@pytest.mark.parametrize("g,sk,window", [(1, 33, 0), (3, 192, 0),
+                                         (3, 192, 40), (8, 300, 0),
+                                         (2, 2048, 100)])
+def test_flash_decode_kernel_matches_plain(dev, g, sk, window, hd):
+    *args, act = _dense_inputs(g * 1000 + sk + hd, 6, 2, g, hd, sk, dev)
+    n0 = ops.launches["flash_decode"]
+    out = ops.flash_decode(*args, active=act, window=window)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_decode"] == n0 + 1
+    want = ref.flash_decode(*args, active=act, window=window)
+    assert out.dtype == torch.bfloat16 and out.shape == want.shape
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= 1e-2, err
+    assert (out[~act] == 0).all()
+
+
+def _quantized(args):
+    """The paged inputs with k/v quantized into an int8 arena on the card."""
+    q, k, v, *rest = args
+    k8, ks = quant.kv_quantize(k)
+    v8, vs = quant.kv_quantize(v)
+    return (q, k8, v8, ks, vs, *rest)
+
+
+@pytest.mark.parametrize("hd", [16, 64, 128])
+@pytest.mark.parametrize("g,ps,maxp", [(1, 16, 3), (2, 4, 9), (3, 16, 12),
+                                       (3, 16, 128), (8, 32, 5)])
+def test_paged_flash_decode_q_kernel_matches_plain(dev, g, ps, maxp, hd):
+    *args, act = _quantized(_inputs(g * 100 + hd + maxp, 6, 2, g, hd, ps,
+                                    maxp, dev))
+    n0 = ops.launches["paged_flash_decode_q"]
+    out = ops.paged_flash_decode_q(*args, active=act)
+    torch.cuda.synchronize()
+    assert ops.launches["paged_flash_decode_q"] == n0 + 1
+    want = ref.paged_flash_decode_q(*args, active=act)
+    assert out.dtype == torch.bfloat16 and out.shape == want.shape
+    err = (out.float() - want.float()).abs().max().item()
+    assert err <= 1e-2, err
+    assert (out[~act] == 0).all()
+
+
+def test_kv_quantize_card_equals_cpu(dev):
+    rng = np.random.default_rng(0)
+    x = torch.tensor(rng.normal(0, 1, (4096, 64)), dtype=torch.float32)
+    x[:3] = 0
+    for t in (x, x.bfloat16()):
+        q, s = quant.kv_quantize(t.to(dev))
+        q_cpu, s_cpu = quant.kv_quantize(t)
+        assert torch.equal(q.cpu(), q_cpu) and torch.equal(s.cpu(), s_cpu)
+
+
+def test_new_decode_wrappers_refuse_what_they_cannot_run(dev):
+    *args, act = _dense_inputs(2, 2, 1, 2, 64, 40, dev)
+    q, k, v, kpos, qpos = args
+    with pytest.raises(ValueError, match="int32"):
+        ops.flash_decode(q, k, v, kpos.long(), qpos, active=act)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_decode(q, k.transpose(0, 1).contiguous().transpose(0, 1),
+                         v, kpos, qpos, active=act)
+    pq = _inputs(1, 2, 1, 2, 64, 16, 2, dev)
+    with pytest.raises(ValueError, match="int8"):
+        ops.paged_flash_decode_q(pq[0], pq[1], pq[2],
+                                 *_quantized(pq)[3:7], pq[5], active=pq[6])
+    with pytest.raises(ValueError, match="float32"):
+        qd = _quantized(pq)
+        ops.paged_flash_decode_q(*qd[:3], qd[3].bfloat16(), *qd[4:8],
+                                 active=qd[8])
 
 
 # ---------------------------------------------------------------------------

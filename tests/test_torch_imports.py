@@ -48,7 +48,8 @@ def test_every_port_module_is_walked():
                  "repro_torch.serving.engine", "repro_torch.launch.serve",
                  "repro_torch.models.convert", "repro_torch.models.ibert",
                  "repro_torch.core.ibert_ops",
-                 "repro_torch.launch.ibert_encoder"):
+                 "repro_torch.launch.ibert_encoder",
+                 "repro_torch.serving.wave", "repro_torch.core.quant"):
         assert want in names
 
 
@@ -71,3 +72,19 @@ def test_cli_serves_on_cpu_when_asked(capsys):
                        "--max-new", "5", "--stream", "shared-prefix"])
     assert len(done) == 4 and all(len(r.tokens_out) == 5 for r in done)
     assert "prefix_hits" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("route", [["--engine", "wave"],
+                                   ["--kv-dtype", "int8"]])
+def test_cli_serves_wave_and_int8_on_cpu(capsys, route):
+    done = serve.main(["--reduced", "--device", "cpu", "--requests", "3",
+                       "--max-new", "4"] + route)
+    assert len(done) == 3 and all(len(r.tokens_out) == 4 for r in done)
+    out = capsys.readouterr().out
+    assert ("waves" in out) == (route[0] == "--engine")
+
+
+def test_cli_refuses_int8_on_the_wave_engine():
+    with pytest.raises(SystemExit, match="drop --engine wave"):
+        serve.main(["--reduced", "--device", "cpu", "--engine", "wave",
+                    "--kv-dtype", "int8"])

@@ -100,8 +100,9 @@ def test_engine_matches_jax_engine(models, kind, num_pages):
 
 def test_engine_refuses_unported_options(models):
     _, _, tm, tp = models
-    for kw in ({"spec_config": {"spec_k": 2}}, {"kv_dtype": "int8"},
-               {"quant_weights": True}, {"disagg": (1, 1)},
-               {"plan": object()}, {"paged": False}):
+    # int8 KV pages and dense slots (paged=False) are ported since; their
+    # refusals left this list (tests/test_torch_dense_serving.py)
+    for kw in ({"spec_config": {"spec_k": 2}}, {"quant_weights": True},
+               {"disagg": (1, 1)}, {"plan": object()}):
         with pytest.raises(NotImplementedError):
             TorchEngine(tm, tp, max_batch=2, buckets=(16,), **kw)
