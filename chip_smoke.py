@@ -10,27 +10,42 @@ the JAX package.  Phases, in order — any fault exits non-zero:
 2. build: every CUDA kernel of the port, from the sources in the checkout,
    one nvcc per source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main paths' shapes (and long-context ones for the decode kernels),
+   the main paths' shapes (and long-context ones for the decode kernels;
+   flash_attention at smollm-135m's and phi3-medium-14b's heads, S=4096,
+   timed in bf16 and checked once more in f32, and at a ragged
+   non-causal f32 shape),
    with the error, the kernel's time, the plain version's time, a library
    yardstick's time where one PyTorch call computes the same function, and
    the least time the card could take (bytes over the HBM rate, or
    operations over the peak rate of their type, whichever is larger); the
    three decode kernels give exact zeros on inactive lanes, and the four
    I-BERT integer kernels must equal their plain versions bit for bit;
-4. serve: smollm-135m at full width (random weights from a seed) through
+4. long forward: smollm-135m at full width (30 layers, random weights
+   from seed 0) through `Model.forward_logits` at B=2, S=4096, `loss` on
+   the same tokens and `prefill` without positions at S=1536 into 1,600
+   dense slots followed by 8 fused decode steps: each forward and the
+   prefill must launch flash_attention once per layer and no decode
+   kernel, each decode step flash_decode once per layer and
+   flash_attention never; the forward once more under torch.profiler;
+   then card vs CPU (plain versions) at B=1, S=2048, logits within
+   LOGIT_TOL and loss within LOSS_TOL.  Then phi3-medium-14b at full
+   width (40 layers, seed 0): one forward_logits at B=1, S=4096, 40
+   flash_attention launches, finite logits;
+5. serve: smollm-135m at full width (random weights from a seed) through
    the serve entry point: a Poisson and a shared-prefix stream on the
    paged bf16 arena, then a Poisson stream each through the wave engine,
    the continuous-batching engine on dense slot rows and on an int8 page
    arena; every request must finish its budget, the shared prefix must
    hit the radix cache, and the route's decode kernel (paged_flash_decode,
    flash_decode, paged_flash_decode_q) must have launched once per layer
-   per fused decode step and the other two never; then one more stream
-   per route under torch.profiler says where its time goes;
-5. model: the same weights run prefill and 8 decode steps on the card and
+   per fused decode step and the other two never; serving never
+   launches flash_attention; then one more paged bf16 stream under
+   torch.profiler says where the main route's time goes;
+6. model: the same weights run prefill and 8 decode steps on the card and
    on the CPU (plain versions), on a bf16 page arena, dense slot rows and
    an int8 page arena; logits must agree within a stated bound, and
    kv_quantize of the card's K/V rows must equal the CPU's bit for bit;
-6. encode: the integer I-BERT encoder (ibert-base at full width, 12
+7. encode: the integer I-BERT encoder (ibert-base at full width, 12
    layers, random float weights from seed 0, calibrated at batch 1, seq
    128) through `repro_torch.launch.ibert_encoder`: one forward must
    launch exactly 72 / 12 / 24 / 12 int8_matmul / i_softmax / i_layernorm
@@ -39,14 +54,15 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    tests/test_ibert_model.py's bounds, 12 within the reference's own
    12-layer error on these weights); then one forward under
    torch.profiler, and the entry point's time at seq 1, 8, 32, 64, 128;
-7. summary: a JSON line of the kernels, then the device line.
+8. summary: a JSON line of the kernels, then the device line.
+
+Each phase logs its wall seconds ("phase ...").
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import os
-import re
 import subprocess
 import sys
 import time
@@ -67,7 +83,6 @@ from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models import ibert as ib  # noqa: E402
 from repro_torch.models.transformer import init_params, make_model  # noqa: E402
 from repro_torch.serving.engine import ContinuousBatchingEngine  # noqa: E402
-from repro_torch.serving.wave import WaveEngine  # noqa: E402
 
 SENTINEL = 2 ** 30
 # published peaks of one H100 SXM at 700 W (NVIDIA data sheet, dense): HBM
@@ -75,6 +90,7 @@ SENTINEL = 2 ** 30
 # int32 ALU ops are bounded by the f32 rate (the card has no more int32
 # lanes than f32 lanes), which keeps their bound a lower bound.
 HBM_BYTES_S, F32_FLOP_S, INT8_OPS_S = 3.35e12, 67e12, 1979e12
+BF16_FLOP_S = 989e12  # the dense bf16 tensor-core rate
 # int32 operations per element of the I-BERT nonlinearities (the max and
 # sum reductions included), for their operations bound
 IBERT_OPS_PER_ELEM = {"i_softmax": 16, "i_layernorm": 10, "i_gelu": 12}
@@ -91,7 +107,15 @@ REF_ERR_MARGIN = {"max": 0.10, "mean": 0.02}
 KERNEL_TOL = 1e-2  # bf16 outputs in (-1, 1): ~2 ulps of summation order
 DECODE_KERNELS = ("paged_flash_decode", "paged_flash_decode_q",
                   "flash_decode")
+ATTN_KERNELS = DECODE_KERNELS + ("flash_attention",)
 LOGIT_TOL = 0.1    # 30 bf16 layers, CPU vs card summation order
+LOSS_TOL = 1e-2    # mean cross-entropy of those logits, card vs CPU
+# flash_attention vs its plain version, (atol, rtol) as |out - want| <=
+# atol + rtol * |want|: 2e-5 in f32 (tests/test_flash_attention.py's); in
+# bf16 two ulps of the output plus 4e-3, well under the ~0.03 of a
+# typical output at S=4096, which a key tile left out or counted twice
+# moves by more
+FA_TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (4e-3, 2 ** -7)}
 
 
 def log(msg: str) -> None:
@@ -292,6 +316,64 @@ def paged_q_phase(dev, flush, maxp: int) -> dict:
         4 * b * maxp * ps * kvh * g * hd)
 
 
+def flash_attention_phase(dev, flush, b: int, s: int, h: int, kvh: int,
+                          hd: int, dtype, causal: bool,
+                          timing: bool = True) -> dict:
+    """The prefill kernel at one shape: q, k, v ~ N(0, 1) from a seed,
+    against its plain version on the card (FA_TOL), then (with `timing`)
+    timed beside it and beside SDPA.  Bound: Q, K, V and O once over the
+    HBM rate, or the flops these masks need (4 per query-key pair per
+    head dim) over the dtype's peak (bf16 tensor cores, or f32)."""
+    name = "flash_attention"
+    rng = np.random.default_rng(s + h + hd)
+    q, k, v = (torch.tensor(rng.normal(0, 1, (b, s, n, hd)),
+                            dtype=torch.float32).to(dtype).to(dev)
+               for n in (h, kvh, kvh))
+    label = (f"B={b} S={s} H={h} KVH={kvh} hd={hd} "
+             f"{str(dtype).replace('torch.', '')} causal={causal}")
+    out = ops.flash_attention(q, k, v, causal=causal)
+    want = ref.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    require(out.dtype == want.dtype and out.shape == want.shape,
+            f"{name} {label}: {out.dtype} {tuple(out.shape)} vs plain "
+            f"{want.dtype} {tuple(want.shape)}")
+    require(bool(torch.isfinite(out).all()), f"{name} {label}: not finite")
+    atol, rtol = FA_TOL[dtype]
+    diff, mag = (out.float() - want.float()).abs(), want.float().abs()
+    err = diff.max().item()
+    # the worst element's share of its limit: at most 1
+    worst = (diff / (atol + rtol * mag)).max().item()
+    check = (f"max_abs_err={err:.3g} (limit {atol:g} + {rtol:g} |want|, "
+             f"worst {worst:.3f} of it; mean |want| {mag.mean().item():.4g})")
+    require(worst <= 1.0, f"{name} {label}: kernel vs plain {check}")
+    del out, want, diff, mag
+    if not timing:
+        log(f"kernel {name} {label}: {check}")
+        return dict(max_abs_err=err)
+    ms = time_ms(lambda: ops.flash_attention(q, k, v, causal=causal), flush)
+    plain_ms = time_ms(lambda: ref.flash_attention(q, k, v, causal=causal),
+                       flush, iters=5)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    library_ms = None
+    try:  # a yardstick only, never part of the port
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True), flush)
+    except RuntimeError as exc:
+        log(f"kernel {name} {label}: SDPA yardstick refused: {exc}")
+    pairs = s * (s + 1) // 2 if causal else s * s
+    nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
+    nflop = 4 * b * h * hd * pairs
+    bound_ms, bound_by = _bound(nbytes, nflop, BF16_FLOP_S
+                                if dtype == torch.bfloat16 else F32_FLOP_S)
+    lib = "none" if library_ms is None else f"{library_ms:.5f}"
+    log(f"kernel {name} {label}: {check} "
+        f"ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms={lib} (SDPA) "
+        f"bound_ms={bound_ms:.6f} ({bound_by}; {nbytes:.0f} bytes, "
+        f"{nflop:.4g} flop) achieved_tflop_s={nflop / ms / 1e9:.2f}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
 def _bound(nbytes: float, nops: float, ops_rate: float):
     t_bytes, t_ops = nbytes / HBM_BYTES_S, nops / ops_rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -397,7 +479,7 @@ def serve_phase(stream: str, n: int, engine: str = "cb",
     ops.reset_launches()
     eng, done, wall = serve_cli.serve(args, paged=paged)
     launches = ops.launches[kernel]
-    others = {k: ops.launches[k] for k in DECODE_KERNELS if k != kernel}
+    others = {k: ops.launches[k] for k in ATTN_KERNELS if k != kernel}
     steps = eng.stats["decode_steps"]  # warm-up pass included
     n_layers = eng.model.cfg.n_layers
     require(len(done) == n, f"{route}: {len(done)} of {n} requests finished")
@@ -408,7 +490,7 @@ def serve_phase(stream: str, n: int, engine: str = "cb",
     require(launches == n_layers * steps,
             f"{route}: {launches} {kernel} launches != {n_layers} x {steps} "
             "steps")
-    require(not any(others.values()), f"{route}: other decode kernels "
+    require(not any(others.values()), f"{route}: other attention kernels "
             f"launched: {others}")
     toks = sum(len(r.tokens_out) for r in done)
     ttft = sorted((r.t_first_token - r.t_enqueue) * 1e3 for r in done)
@@ -452,39 +534,34 @@ def _busy_us(spans) -> float:
     return busy
 
 
-def profile_phase(dev, route: str) -> None:
-    """Where a serve route's time goes: one Poisson stream served under
-    torch.profiler, through the route's engine ("cb paged bf16", "cb
-    paged int8", "cb dense", "wave").  Prints the device's busy share of
-    the window (union of kernel and copy intervals over the host clock),
-    the route's decode kernel's share of device time, and device ops per
-    decode step.  The profiler's own host cost lowers the busy share
-    somewhat."""
+def profile_phase(dev) -> None:
+    """Where the main serve route's time goes: one Poisson stream served
+    under torch.profiler by the continuous-batching engine on a paged
+    bf16 arena.  Prints the device's busy share of the window (union of
+    kernel and copy intervals over the host clock), paged_flash_decode's
+    share of device time, and device ops per decode step.  The
+    profiler's own host cost lowers the busy share somewhat, and its
+    handling of the window's events takes far longer than the stream,
+    so only the main route is profiled here."""
     args = serve_cli.parse_args(["--requests", "16", "--max-batch", "8",
                                  "--max-new", "32", "--seed", "3"])
     cfg = get_config(args.arch)
-    kw = {"cb paged int8": {"kv_dtype": "int8"},
-          "cb dense": {"paged": False}}.get(route, {})
-    cls = WaveEngine if route == "wave" else ContinuousBatchingEngine
-    kernel = ("paged_flash_decode_q" if "int8" in route else
-              "paged_flash_decode" if "paged" in route else "flash_decode")
-    engine = cls(make_model(cfg, device=dev),
-                 init_params(cfg, seed=0, device=dev),
-                 max_batch=args.max_batch, buckets=serve_cli.BUCKETS, **kw)
+    kernel = "paged_flash_decode"
+    engine = ContinuousBatchingEngine(make_model(cfg, device=dev),
+                                      init_params(cfg, seed=0, device=dev),
+                                      max_batch=args.max_batch,
+                                      buckets=serve_cli.BUCKETS)
     for r in serve_cli.make_stream(args, cfg.vocab_size, args.seed):
         engine.submit(r)
     spans, wall_us = _device_spans(engine.run)
     if not spans:
-        log(f"profile {route}: the profiler recorded no device time (not "
-            "measured)")
+        log("profile cb paged bf16: the profiler recorded no device time "
+            "(not measured)")
         return
-    # "(?<!paged_)": flash_decode_kernel is a substring of
-    # paged_flash_decode_kernel
-    kern = [e - s for s, e, name in spans
-            if re.search(f"(?<!paged_){kernel}_kernel", name)]
+    kern = [e - s for s, e, name in spans if f"{kernel}_kernel" in name]
     dev_total = sum(e - s for s, e, _ in spans)
     steps = engine.stats["decode_steps"]
-    log(f"profile {route} poisson x16 (B=8, max_new 32): "
+    log(f"profile cb paged bf16 poisson x16 (B=8, max_new 32): "
         f"wall_ms={wall_us / 1e3:.2f} "
         f"device_busy_share={_busy_us(spans) / wall_us:.4f} "
         f"device_kernel_ms={dev_total / 1e3:.2f} {kernel}_share_of_device="
@@ -493,6 +570,170 @@ def profile_phase(dev, route: str) -> None:
         f"device_ops_per_decode_step={len(spans) / max(steps, 1):.1f} "
         f"decode_steps={steps} wall_ms_per_decode_step="
         f"{wall_us / 1e3 / max(steps, 1):.3f}")
+
+
+def _counted(fn, want: dict, what: str):
+    """fn() with the launch counts set to 0 just before and read just
+    after: each attention kernel must have launched want.get(name, 0)
+    times.  Returns (fn's result, wall seconds to a synchronize, the
+    counts read)."""
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {k: ops.launches[k] for k in ATTN_KERNELS}
+    need = {k: want.get(k, 0) for k in ATTN_KERNELS}
+    require(got == need, f"{what}: launches {got} != {need}")
+    return out, wall, got
+
+
+def _forward_profile(what: str, fn) -> None:
+    """One forward under torch.profiler: the device's busy share of the
+    window and flash_attention's share of device time."""
+    spans, wall_us = _device_spans(fn)
+    if not spans:
+        log(f"profile {what}: the profiler recorded no device time (not "
+            "measured)")
+        return
+    dev_total = sum(e - s for s, e, _ in spans)
+    fa = [e - s for s, e, name in spans if "flash_attention_kernel" in name]
+    log(f"profile {what}: wall_ms={wall_us / 1e3:.2f} "
+        f"device_busy_share={_busy_us(spans) / wall_us:.4f} "
+        f"device_kernel_ms={dev_total / 1e3:.2f} flash_attention_ms="
+        f"{sum(fa) / 1e3:.2f} ({len(fa)} launches) "
+        f"flash_attention_share_of_device={sum(fa) / dev_total:.4f} "
+        f"device_ops={len(spans)}")
+
+
+def long_forward_phase(dev) -> int:
+    """smollm-135m's long-context entry points at full width (30 layers,
+    random weights from seed 0), counted; then card vs CPU.  Returns the
+    flash_attention launches the counted runs read."""
+    cfg = get_config("smollm-135m")
+    n, vocab = cfg.n_layers, cfg.vocab_size
+    fa = {"flash_attention": n}
+    model = make_model(cfg, device=dev)
+    params = init_params(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(5)
+    toks = torch.tensor(rng.integers(0, vocab, (2, 4096)), dtype=torch.int32,
+                        device=dev)
+    labels = torch.roll(toks, -1, 1)
+    labels[:, -1] = -1
+    batch = {"tokens": toks, "labels": labels}
+    counts = []
+
+    def counted(fn, want, what):
+        out, wall, got = _counted(fn, want, what)
+        counts.append(got["flash_attention"])
+        return out, wall
+
+    with torch.no_grad():
+        # warm-up: GEMM heuristics and first loads of the loss's kernels
+        model.forward_logits(params, toks)
+        model.loss(params, batch)
+        logits, wall = counted(lambda: model.forward_logits(params, toks),
+                               fa, "smollm forward_logits")
+        require(tuple(logits.shape) == (2, 4096, vocab)
+                and bool(torch.isfinite(logits).all()),
+                f"forward_logits: {tuple(logits.shape)}, finite "
+                f"{bool(torch.isfinite(logits).all())}")
+        del logits
+        loss, wall_loss = counted(lambda: model.loss(params, batch), fa,
+                                  "smollm loss")
+        require(bool(torch.isfinite(loss)), f"loss {loss}")
+        log(f"long forward smollm-135m x{n} B=2 S=4096: forward_logits "
+            f"wall_ms={wall * 1e3:.2f} "
+            f"tok_s={2 * 4096 / wall:.0f}; loss={float(loss):.5f} "
+            f"wall_ms={wall_loss * 1e3:.2f}; flash_attention launches "
+            f"{n} per call, decode kernels 0")
+        _forward_profile("smollm-135m forward_logits B=2 S=4096",
+                         lambda: model.forward_logits(params, toks))
+
+        # prefill at contiguous positions into dense slots, then decode
+        caches = model.init_cache(1, 1600)
+        (lg, caches), wall_pf = counted(lambda: model.prefill(
+            params, caches, toks[:1, :1536]), fa, "smollm prefill S=1536")
+        active = torch.ones((1,), dtype=torch.bool, device=dev)
+        out, wall_dec = counted(lambda: model.decode_steps(
+            params, caches, lg.argmax(-1).to(torch.int32), active, 8),
+            {"flash_decode": 8 * n}, "smollm 8 decode steps after prefill")
+        block = out[0]
+        require(tuple(block.shape) == (8, 1) and bool((block >= 0).all())
+                and bool((block < vocab).all())
+                and int(caches["pos"][0]) == 1536 + 8,
+                f"decode after long prefill: tokens {block.flatten()}, pos "
+                f"{caches['pos']}")
+        log(f"long prefill smollm-135m S=1536 into 1600 dense slots: "
+            f"wall_ms={wall_pf * 1e3:.2f} ({n} flash_attention); 8 fused "
+            f"decode steps wall_ms={wall_dec * 1e3:.2f} ({8 * n} "
+            f"flash_decode, 0 flash_attention)")
+        del caches
+
+        # card vs CPU (plain versions) on the same weights and tokens
+        t1, l1 = toks[:1, :2048], labels[:1, :2048]
+        card_lg, _ = counted(lambda: model.forward_logits(params, t1), fa,
+                             "smollm forward_logits S=2048")
+        card_loss, _ = counted(lambda: model.loss(
+            params, {"tokens": t1, "labels": l1}), fa, "smollm loss S=2048")
+        cpu_model = make_model(cfg, device="cpu")
+        cpu_params = _to(params, "cpu")
+        t0 = time.perf_counter()
+        cpu_lg = cpu_model.forward_logits(cpu_params, t1.cpu())
+        cpu_loss = cpu_model.loss(cpu_params, {"tokens": t1.cpu(),
+                                               "labels": l1.cpu()})
+        cpu_s = time.perf_counter() - t0
+    card_lg = card_lg.cpu()
+    err_last = (card_lg[0, -1] - cpu_lg[0, -1]).abs().max().item()
+    err_all = (card_lg - cpu_lg).abs().max().item()
+    loss_err = abs(float(card_loss) - float(cpu_loss))
+    log(f"long forward smollm-135m B=1 S=2048, card vs CPU: last-position "
+        f"max_abs_logit_err={err_last:.4g} (tol {LOGIT_TOL}), all positions "
+        f"{err_all:.4g} (|logit| max {cpu_lg.abs().max().item():.3g}); loss "
+        f"card {float(card_loss):.6f} CPU {float(cpu_loss):.6f} err "
+        f"{loss_err:.3g} (tol {LOSS_TOL}); CPU forward+loss {cpu_s:.1f} s")
+    require(err_last <= LOGIT_TOL, f"card vs CPU last logits {err_last}")
+    require(loss_err <= LOSS_TOL, f"card vs CPU loss {loss_err}")
+    return sum(counts)
+
+
+def phi3_forward_phase(dev) -> int:
+    """phi3-medium-14b at full width (40 layers, random weights from seed
+    0): one counted, timed forward_logits at B=1, S=4096, then one under
+    torch.profiler.  Returns the flash_attention launches the counted run
+    read."""
+    cfg = get_config("phi3-medium-14b")
+    n = cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s, init_gib = (time.perf_counter() - t0,
+                        torch.cuda.max_memory_allocated() / 2 ** 30)
+    model = make_model(cfg, device=dev)
+    toks = torch.tensor(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (1, 4096)), dtype=torch.int32, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        logits, wall, got = _counted(
+            lambda: model.forward_logits(params, toks),
+            {"flash_attention": n}, "phi3 forward_logits")
+        finite = bool(torch.isfinite(logits).all())
+        require(tuple(logits.shape) == (1, 4096, cfg.vocab_size) and finite,
+                f"phi3 forward_logits: {tuple(logits.shape)}, finite "
+                f"{finite}")
+        del logits
+        log(f"long forward phi3-medium-14b x{n} B=1 S=4096: init "
+            f"{init_s:.1f} s (peak {init_gib:.1f} GiB); forward_logits "
+            f"wall_ms={wall * 1e3:.2f} tok_s={4096 / wall:.0f} (first call, "
+            f"peak {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB), "
+            f"{n} flash_attention launches, finite logits")
+        _forward_profile("phi3-medium-14b forward_logits B=1 S=4096",
+                         lambda: model.forward_logits(params, toks))
+    del params
+    torch.cuda.empty_cache()
+    return got["flash_attention"]
 
 
 def model_phase(kind: str) -> None:
@@ -705,6 +946,42 @@ def ibert_profile(qp, cfg, toks) -> None:
         + " ".join(f"{k}_ms={v / 1e3:.4f}" for k, v in by.items()))
 
 
+def timed(name: str, fn):
+    """fn(), then a log line of the phase's wall seconds."""
+    t0 = time.perf_counter()
+    out = fn()
+    log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def kernels_phase(dev) -> dict:
+    """Every kernel against its plain version, timed.  Returns {kernel:
+    metrics at its main shape}."""
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.int32, device=dev)
+    main_shape = {"paged_flash_decode": kernel_phase(dev, flush, maxp=12)}
+    kernel_phase(dev, flush, maxp=128)
+    main_shape["paged_flash_decode_q"] = paged_q_phase(dev, flush, maxp=12)
+    paged_q_phase(dev, flush, maxp=128)
+    main_shape["flash_decode"] = flash_decode_phase(dev, flush, sk=192)
+    flash_decode_phase(dev, flush, sk=192, window=48)
+    flash_decode_phase(dev, flush, sk=2048)
+    main_shape.update(ibert_kernel_phase(dev, flush))
+    bf, f32 = torch.bfloat16, torch.float32
+    main_shape["flash_attention"] = flash_attention_phase(
+        dev, flush, 2, 4096, 9, 3, 64, bf, True)  # smollm's forward_logits
+    flash_attention_phase(dev, flush, 1, 4096, 40, 10, 128, bf, True)
+    flash_attention_phase(dev, flush, 1, 1100, 9, 3, 64, f32, False)
+    # the causal mask and the GQA walk at both configs' heads, held to
+    # the f32 limit
+    flash_attention_phase(dev, flush, 1, 4096, 9, 3, 64, f32, True,
+                          timing=False)
+    flash_attention_phase(dev, flush, 1, 4096, 40, 10, 128, f32, True,
+                          timing=False)
+    del flush
+    torch.cuda.empty_cache()
+    return main_shape
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
@@ -716,7 +993,7 @@ def main() -> None:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)}; bounds use H100 SXM peaks: "
         f"{HBM_BYTES_S:.3g} B/s, {F32_FLOP_S:.3g} flop/s (f32), "
-        f"{INT8_OPS_S:.3g} int8 op/s")
+        f"{BF16_FLOP_S:.3g} flop/s (bf16), {INT8_OPS_S:.3g} int8 op/s")
 
     t0 = time.perf_counter()
     reports = build.build_all()
@@ -728,29 +1005,22 @@ def main() -> None:
                 log(f"  {src}: {line.strip()}")
 
     dev = torch.device("cuda")
-    flush = torch.empty(256 * 2 ** 20, dtype=torch.int32, device=dev)
-    main_shape = {"paged_flash_decode": kernel_phase(dev, flush, maxp=12)}
-    kernel_phase(dev, flush, maxp=128)
-    main_shape["paged_flash_decode_q"] = paged_q_phase(dev, flush, maxp=12)
-    paged_q_phase(dev, flush, maxp=128)
-    main_shape["flash_decode"] = flash_decode_phase(dev, flush, sk=192)
-    flash_decode_phase(dev, flush, sk=192, window=48)
-    flash_decode_phase(dev, flush, sk=2048)
-    main_shape.update(ibert_kernel_phase(dev, flush))
-    del flush
-    torch.cuda.empty_cache()
+    main_shape = timed("kernels", lambda: kernels_phase(dev))
 
-    served = [serve_phase("poisson", 16), serve_phase("shared-prefix", 8),
-              serve_phase("poisson", 16, engine="wave"),
-              serve_phase("poisson", 16, paged=False),
-              serve_phase("poisson", 16, kv_dtype="int8")]
-    for route in ("cb paged bf16", "cb paged int8", "cb dense", "wave"):
-        profile_phase(dev, route)
-    for kind in ("paged", "dense", "int8"):
-        model_phase(kind)
+    fa_launches = timed("long forward", lambda: long_forward_phase(dev)
+                        + phi3_forward_phase(dev))
+    served = timed("serve", lambda: [
+        serve_phase("poisson", 16), serve_phase("shared-prefix", 8),
+        serve_phase("poisson", 16, engine="wave"),
+        serve_phase("poisson", 16, paged=False),
+        serve_phase("poisson", 16, kv_dtype="int8")])
+    timed("profile", lambda: profile_phase(dev))
+    timed("model", lambda: [model_phase(k) for k in ("paged", "dense",
+                                                     "int8")])
     launches = {k: sum(s["launches"] for s in served if s["kernel"] == k)
                 for k in DECODE_KERNELS}
-    launches.update(encode_phase())
+    launches.update(timed("encode", encode_phase))
+    launches["flash_attention"] = fa_launches
 
     entries = [dict(name=kernel, route="cuda",
                     source=f"src/repro_torch/kernels/csrc/{kernel}.cu",
@@ -760,6 +1030,7 @@ def main() -> None:
                    ("paged_flash_decode", "flash_decode.py:250"),
                    ("paged_flash_decode_q", "flash_decode.py:193"),
                    ("flash_decode", "flash_decode.py:308"),
+                   ("flash_attention", "flash_attention.py:77"),
                    ("int8_matmul", "int8_matmul.py:60"),
                    ("i_softmax", "i_softmax.py:49"),
                    ("i_layernorm", "i_layernorm.py:50"),

@@ -256,7 +256,9 @@ def _load_all():
         return
     # only the families whose model code the port has; the others arrive
     # with their blocks (ROADMAP.md, port queue)
-    from repro_torch.configs import ibert_base, smollm_135m  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        ibert_base, phi3_medium_14b, smollm_135m,
+    )
 
     _LOADED = True
 

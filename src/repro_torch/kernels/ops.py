@@ -21,11 +21,12 @@ from repro_torch.core.ibert_ops import LNParams
 from repro_torch.kernels import ref as _ref
 
 launches = {"paged_flash_decode": 0, "paged_flash_decode_q": 0,
-            "flash_decode": 0, "int8_matmul": 0, "i_softmax": 0,
-            "i_layernorm": 0, "i_gelu": 0}
+            "flash_decode": 0, "flash_attention": 0, "int8_matmul": 0,
+            "i_softmax": 0, "i_layernorm": 0, "i_gelu": 0}
 
 HEAD_DIMS = (16, 64, 128)  # the decode kernels' compiled head_dim instances
 MAX_GROUP = 8  # query heads per kv head the decode kernels take
+FA_HEAD_DIMS = (16, 32, 64, 128)  # flash_attention's compiled instances
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: library -> (symbol, argtypes); pointers and the stream as
@@ -36,6 +37,7 @@ _SIGNATURES = {
     "paged_flash_decode_q": ("paged_flash_decode_q_int8", [_P] * 10
                              + [_I] * 6 + [_P]),
     "flash_decode": ("flash_decode_bf16", [_P] * 7 + [_I] * 6 + [_P]),
+    "flash_attention": ("flash_attention", [_P] * 4 + [_I] * 7 + [_P]),
     "int8_matmul": ("int8_matmul", [_P] * 4 + [_I] * 3 + [_F] * 3
                     + [_I, _P]),
     "i_softmax": ("i_softmax", [_P, _P, _I, _I, _F, _P]),
@@ -251,6 +253,62 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             kpos.data_ptr(), qpos.data_ptr(), active.data_ptr(),
             out.data_ptr(), b, kvh, q.shape[1] // kvh, q.shape[2], sk,
             int(window))
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """Prefill self-attention over contiguous positions 0..S-1.
+
+    q: (B, S, H, hd) *unscaled* (the kernel multiplies the f32 score by
+    1/sqrt(hd)); k/v: (B, S, KVH, hd), heads kv-head-major (query head h
+    reads kv head h // (H / KVH)); causal: key j counts for query i iff
+    j <= i.  Returns (B, S, H, hd) in q.dtype (`kernels/ref.py`
+    flash_attention is the function).
+
+    Forward only, on both devices: an input that requires grad raises
+    while autograd records (torch.no_grad() turns recording off).
+    The reference cannot differentiate through its Pallas kernel either
+    (`jax.grad` fails in pallas_call's JVP rule), so a backward kernel
+    belongs to the training slice, which keeps sequences <= 1024 on the
+    dense route until then.
+
+    On the card: q/k/v all bf16 or all f32, contiguous, 16-byte aligned,
+    hd in FA_HEAD_DIMS; any S >= 1 (the kernel masks the ragged tile).
+    """
+    name = "flash_attention"
+    _check(q.dim() == 4 and k.dim() == 4 and k.shape == v.shape,
+           f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}: "
+           "want (B, S, H, hd) and two equal (B, S, KVH, hd)", name)
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    _check(k.shape[0] == b and k.shape[1] == s and k.shape[3] == hd
+           and h % kvh == 0, f"q {tuple(q.shape)} vs k {tuple(k.shape)}: "
+           "batch, length, head_dim or head groups disagree", name)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention is forward-only: no backward kernel exists "
+            "until the training slice, and the JAX reference cannot "
+            "differentiate through its Pallas kernel either (jax.grad "
+            "fails in pallas_call's JVP rule); call it under "
+            "torch.no_grad(), or train at S <= 1024 on the dense route")
+    if q.device.type == "cpu":
+        return _ref.flash_attention(q, k, v, causal=causal)
+    dt = q.dtype
+    _check(dt in (torch.bfloat16, torch.float32), f"q is {dt}, the kernel "
+           "takes bf16 or float32", name)
+    _check_cuda(name, dict(q=dt, k=dt, v=dt), q=q, k=k, v=v)
+    _check(hd in FA_HEAD_DIMS, f"head_dim {hd} not in {FA_HEAD_DIMS}", name)
+    for tname, t in (("q", q), ("k", k), ("v", v)):
+        _check(t.data_ptr() % 16 == 0, f"{tname} is not 16-byte aligned",
+               name)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    _launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), b, s, h, kvh, hd, int(dt == torch.bfloat16),
+            int(bool(causal)))
     return out
 
 

@@ -19,7 +19,8 @@ mask rather than from the scores, p is cast to the value dtype before the
 PV product (bf16 for the bf16 caches, f32 for the dequantized int8 ones)
 while its sum stays f32, and the result is divided by
 ``max(l, 1e-30)`` — so a fully masked (inactive) lane gives exact zeros,
-never NaN.
+never NaN.  `flash_attention` is the prefill kernel's function (see its
+docstring): unscaled q, the scale applied to the f32 score.
 """
 from __future__ import annotations
 
@@ -107,6 +108,36 @@ def paged_flash_decode_q(q: torch.Tensor, k: torch.Tensor,
     kpg = kpos[pt].reshape(b, -1)
     out = flash_decode(q.float(), kg, vg, kpg, qpos, active=active)
     return out.to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """Self-attention over contiguous positions 0..S-1, the function of the
+    Pallas body `repro/kernels/flash_attention.py::_kernel`.
+
+    q: (B, S, H, hd) *unscaled*; k/v: (B, S, KVH, hd), H = G * KVH (query
+    head h reads kv head h // G).  Scores are q . k summed in f32, then
+    multiplied by 1/sqrt(hd) in f32; under `causal` key j counts for
+    query i iff j <= i.  Softmax in f32, p rounded to v's dtype before
+    the PV product (summed in f32), the result divided by max(l, 1e-30)
+    and returned in q.dtype.  (The JAX oracle `repro/kernels/ref.py
+    ::flash_attention` differs: it takes pre-scaled q and rounds bf16
+    scores to bf16.)
+    """
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    q5 = q.reshape(b, s, kvh, h // kvh, hd).float()
+    sc = torch.einsum("bqngd,bknd->bngqk", q5, k.float()) * (1.0 / hd ** 0.5)
+    keep = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        keep = torch.tril(keep)
+    sc = torch.where(keep, sc, torch.full_like(sc, NEG_INF))
+    m = sc.amax(dim=-1, keepdim=True)
+    p = torch.where(keep, torch.exp(sc - m), torch.zeros_like(sc))
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bngqk,bknd->bngqd", p.to(v.dtype).float(), v.float())
+    out = acc / torch.clamp(l, min=1e-30)  # (B, KVH, G, S, hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd).to(q.dtype)
 
 
 def int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,13 @@
 """Attention: GQA, RoPE, dense and KV-chunked prefill, paged decode (port
 of `repro/models/attention.py`).
 
-Prefill attends densely up to `DENSE_ATTN_MAX_KV` keys and through a
-KV-chunked online softmax above that.  Decode attends one query row per
-lane, once per layer per step, through one of three kernels
+Prefill attends densely up to `DENSE_ATTN_MAX_KV` keys.  Above that, a
+prompt at contiguous positions 0..S-1 without segment ids (the
+`forward_logits` / `loss` entry points, and `prefill` called without
+positions) goes through the `flash_attention` kernel, once per layer;
+explicit positions (the serving engine's padded buckets) or packed
+segment ids take a KV-chunked online softmax.  Decode attends one query
+row per lane, once per layer per step, through one of three kernels
 (kernels/ops.py): `paged_flash_decode` over a bf16 page arena,
 `paged_flash_decode_q` over an int8 one, `flash_decode` over dense slot
 rows.
@@ -13,9 +17,8 @@ buffer donation; this port updates the cache tensors in place
 (``index_put_`` and slice assignment) and returns the same dict.
 
 Not ported yet — each raises NotImplementedError naming its slice: the
-paged multi-query verify branch (speculative decoding), sliding windows
-(the other families), and the flash-attention route for long prefill at
-contiguous positions (`forward_logits` / `loss`).
+paged multi-query verify branch (speculative decoding) and sliding
+windows (the other families).
 """
 from __future__ import annotations
 
@@ -146,7 +149,9 @@ def attention(x: torch.Tensor, p: Params, cfg, positions: torch.Tensor,
     v = _split_heads(dense(x, p["wv"]), nkv)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    qs = q * (1.0 / math.sqrt(hd))  # bf16, as the reference scales it
+    # bf16, as the reference scales it (the flash_attention route alone
+    # takes q unscaled: its kernel scales the f32 score)
+    qs = q * (1.0 / math.sqrt(hd))
 
     if cache is not None and page_table is not None and x.shape[1] > 1:
         raise NotImplementedError(
@@ -159,10 +164,7 @@ def attention(x: torch.Tensor, p: Params, cfg, positions: torch.Tensor,
                         segment_ids, segment_ids)
             out = _dense_attention(qs, k, v, msk)
         elif pos_contiguous and segment_ids is None:
-            raise NotImplementedError(
-                "long prefill at contiguous positions routes to the "
-                "flash_attention kernel, which arrives with the "
-                "forward_logits/loss slice")
+            out = kops.flash_attention(q, k, v, causal=cfg.causal)
         else:
             out = _chunked_attention(qs, k, v, positions, positions,
                                      cfg.causal, 0, segment_ids, segment_ids)

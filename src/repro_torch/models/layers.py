@@ -4,6 +4,8 @@
 Parameters are plain nested dicts of tensors in the JAX package's layout
 (`dense` weights are (d_in, d_out)).  Compute dtype is bf16; norms and
 RoPE compute in f32 and cast back, matmuls round their result to bf16.
+`cross_entropy_chunked` is the evaluation loss (f32 logsumexp over
+sequence chunks).
 """
 from __future__ import annotations
 
@@ -97,3 +99,32 @@ def lm_head(h: torch.Tensor, p: Params) -> torch.Tensor:
     if w is None:
         w = p["tok"].t()
     return torch.matmul(h, w).float()
+
+
+# -- loss -------------------------------------------------------------------
+
+
+def cross_entropy_chunked(h: torch.Tensor, labels: torch.Tensor,
+                          embed_p: Params, chunk: int = 512) -> torch.Tensor:
+    """Mean next-token cross-entropy without materializing (B, S, V)
+    logits: sequence chunks of `chunk` rows, the last one padded with
+    label -1; f32 logsumexp per chunk.  Labels < 0 are ignored; returns a
+    0-d f32 tensor (0 when no label counts)."""
+    b, s, _ = h.shape
+    chunk = min(chunk, s)
+    pad = (-s) % chunk
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.int32, device=h.device)
+    for c0 in range(0, h.shape[1], chunk):
+        lx = labels[:, c0:c0 + chunk].long()
+        logits = lm_head(h[:, c0:c0 + chunk], embed_p)  # (B, chunk, V) f32
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lx.clamp(min=0)[..., None])[..., 0]
+        valid = lx >= 0
+        nll = torch.where(valid, logz - gold, torch.zeros_like(logz))
+        tot = tot + nll.sum()
+        cnt = cnt + valid.sum().to(torch.int32)
+    return tot / torch.clamp(cnt, min=1)

@@ -17,7 +17,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.quant import kv_quantize
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import (
-    COMPUTE_DTYPE, embed, lm_head, mlp, norm,
+    COMPUTE_DTYPE, cross_entropy_chunked, embed, lm_head, mlp, norm,
 )
 
 Params = Dict[str, Any]
@@ -279,20 +279,58 @@ class Model:
                 "pt": torch.zeros((batch, max_pages), dtype=torch.int32,
                                   device=dev)}
 
+    def embed_inputs(self, params, tokens=None, embeds=None):
+        """Token ids (B, S) -> embeddings, or given embeddings in the
+        compute dtype."""
+        if embeds is not None:
+            return embeds.to(COMPUTE_DTYPE)
+        return embed(tokens, params["embed"])
+
     # -- entry points ------------------------------------------------------
+
+    def _positions(self, x, positions):
+        """(positions, contiguous): the plain arange when none are given,
+        which marks the long-prefill route through flash_attention."""
+        if positions is not None:
+            return positions, False
+        b, s = x.shape[:2]
+        return torch.arange(s, dtype=torch.int32,
+                            device=x.device).expand(b, s), True
+
+    def loss(self, params, batch) -> torch.Tensor:
+        """Mean next-token cross-entropy (0-d f32) of a batch dict:
+        "tokens" (B, S) or "embeds" (B, S, D), "labels" (B, S) (< 0 =
+        ignored), optional "positions" and "segment_ids".  Without
+        positions, S > 1024 runs flash_attention, which is forward-only:
+        call this under torch.no_grad() there.  Attention-only families
+        have no auxiliary loss (the reference adds 0.01 x its MoE aux)."""
+        x = self.embed_inputs(params, batch.get("tokens"),
+                              batch.get("embeds"))
+        positions, contiguous = self._positions(x, batch.get("positions"))
+        h = self.backbone(params, x, positions, batch.get("segment_ids"),
+                          pos_contiguous=contiguous)
+        return cross_entropy_chunked(h, batch["labels"], params["embed"])
+
+    def forward_logits(self, params, tokens=None, embeds=None,
+                       positions=None) -> torch.Tensor:
+        """(B, S, V) f32 logits of every position; without positions,
+        S > 1024 runs flash_attention once per layer."""
+        x = self.embed_inputs(params, tokens, embeds)
+        positions, contiguous = self._positions(x, positions)
+        h = self.backbone(params, x, positions, pos_contiguous=contiguous)
+        return lm_head(h, params["embed"])
 
     def prefill(self, params, caches, tokens, positions=None, last_idx=None):
         """Fill `caches` (in place) from a left-aligned prompt batch.
 
         last_idx: (B,) index of each request's final prompt token;
-        defaults to S-1.  Returns (logits at last_idx (B, V) f32, caches).
+        defaults to S-1.  Without positions the prompt sits at 0..S-1 and,
+        past 1024 tokens, attends through flash_attention.  Returns
+        (logits at last_idx (B, V) f32, caches).
         """
         x = embed(tokens, params["embed"])
         b, s = x.shape[:2]
-        contiguous = positions is None
-        if positions is None:
-            positions = torch.arange(s, dtype=torch.int32,
-                                     device=x.device).expand(b, s)
+        positions, contiguous = self._positions(x, positions)
         if last_idx is None:
             last_idx = torch.full((b,), s - 1, dtype=torch.long,
                                   device=x.device)

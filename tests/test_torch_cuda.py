@@ -283,3 +283,68 @@ def test_ibert_wrappers_refuse_what_they_cannot_run(dev):
                        torch.zeros(8, dtype=torch.int32), torch.tensor(1.0))
     with pytest.raises(ValueError, match="cpu"):
         ops.i_layernorm(q, prep)  # gamma/beta left on the CPU
+
+
+# ---------------------------------------------------------------------------
+# flash_attention: the prefill kernel against its plain version, at
+# chip_smoke.py's shapes (smollm-135m and phi3-medium-14b heads at S=4096,
+# in bf16 and in f32, a ragged non-causal f32 case) and at small ragged
+# shapes for every compiled head_dim.  Limits, as |out - want| <= atol +
+# rtol * |want|: 2e-5 in f32; in bf16 4e-3 plus 2^-7 of |want| (two bf16
+# ulps), well under a typical output (~0.03 at S=4096), which a key tile
+# left out or counted twice moves by more.
+# ---------------------------------------------------------------------------
+
+FA_TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (4e-3, 2 ** -7)}
+
+
+def _fa_inputs(b, s, h, kvh, hd, dtype, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.normal(0, 1, (b, s, n, hd)),
+                         dtype=torch.float32).to(dtype).to(dev)
+            for n in (h, kvh, kvh)]
+
+
+@pytest.mark.parametrize("b,s,h,kvh,hd,dtype,causal", [
+    (2, 4096, 9, 3, 64, torch.bfloat16, True),     # smollm-135m
+    (1, 4096, 40, 10, 128, torch.bfloat16, True),  # phi3-medium-14b
+    (1, 4096, 9, 3, 64, torch.float32, True),
+    (1, 4096, 40, 10, 128, torch.float32, True),
+    (1, 1100, 9, 3, 64, torch.float32, False),     # ragged, f32
+    (2, 1100, 4, 2, 16, torch.bfloat16, True),
+    (2, 77, 4, 2, 16, torch.float32, False),
+    (1, 300, 8, 2, 32, torch.bfloat16, False),
+    (3, 130, 4, 1, 32, torch.float32, True),
+    (1, 1, 2, 1, 128, torch.float32, True),
+    (2, 65, 6, 3, 128, torch.float32, False),
+])
+def test_flash_attention_kernel_matches_plain(dev, b, s, h, kvh, hd, dtype,
+                                              causal):
+    q, k, v = _fa_inputs(b, s, h, kvh, hd, dtype, dev, seed=s + hd)
+    n0 = ops.launches["flash_attention"]
+    out = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention"] == n0 + 1
+    want = ref.flash_attention(q, k, v, causal=causal)
+    assert out.dtype == dtype and out.shape == want.shape
+    atol, rtol = FA_TOL[dtype]
+    err = (out.float() - want.float()).abs()
+    assert bool((err <= atol + rtol * want.float().abs()).all()), (
+        err.max().item())
+
+
+def test_flash_attention_wrapper_refuses_what_it_cannot_run(dev):
+    q, k, v = _fa_inputs(1, 64, 4, 2, 64, torch.bfloat16, dev)
+    with pytest.raises(ValueError, match="bf16"):
+        ops.flash_attention(q, k.float(), v)
+    with pytest.raises(ValueError, match="bf16 or float32"):
+        ops.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                            k, v)
+    q48, k48, v48 = _fa_inputs(1, 64, 4, 2, 48, torch.bfloat16, dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.flash_attention(q48, k48, v48)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        ops.flash_attention(q.float().requires_grad_(True), k.float(),
+                            v.float())

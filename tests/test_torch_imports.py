@@ -49,7 +49,8 @@ def test_every_port_module_is_walked():
                  "repro_torch.models.convert", "repro_torch.models.ibert",
                  "repro_torch.core.ibert_ops",
                  "repro_torch.launch.ibert_encoder",
-                 "repro_torch.serving.wave", "repro_torch.core.quant"):
+                 "repro_torch.serving.wave", "repro_torch.core.quant",
+                 "repro_torch.configs.phi3_medium_14b"):
         assert want in names
 
 
