@@ -289,7 +289,8 @@ def test_ibert_wrappers_refuse_what_they_cannot_run(dev):
 # flash_attention: the prefill kernel against its plain version, at
 # chip_smoke.py's shapes (smollm-135m and phi3-medium-14b heads at S=4096,
 # in bf16 and in f32, a ragged non-causal f32 case) and at small ragged
-# shapes for every compiled head_dim.  Limits, as |out - want| <= atol +
+# shapes for every compiled head_dim; bf16 runs on the tensor-core
+# kernel, f32 on the FMA kernel.  Limits, as |out - want| <= atol +
 # rtol * |want|: 2e-5 in f32; in bf16 4e-3 plus 2^-7 of |want| (two bf16
 # ulps), well under a typical output (~0.03 at S=4096), which a key tile
 # left out or counted twice moves by more.
@@ -317,6 +318,18 @@ def _fa_inputs(b, s, h, kvh, hd, dtype, dev, seed=0):
     (3, 130, 4, 1, 32, torch.float32, True),
     (1, 1, 2, 1, 128, torch.float32, True),
     (2, 65, 6, 3, 128, torch.float32, False),
+    # the tensor-core kernel at every head_dim, causal and not, at S no
+    # multiple of its 128-row query or 128-key tiles, G = 1 and G = 8
+    (1, 1, 4, 4, 16, torch.bfloat16, True),
+    (1, 4097, 8, 1, 16, torch.bfloat16, False),
+    (2, 63, 8, 1, 32, torch.bfloat16, False),
+    (2, 127, 4, 2, 32, torch.bfloat16, True),
+    (1, 127, 4, 4, 64, torch.bfloat16, True),
+    (1, 1100, 8, 1, 64, torch.bfloat16, False),
+    (1, 1, 8, 1, 64, torch.bfloat16, False),
+    (2, 129, 16, 2, 128, torch.bfloat16, False),
+    (1, 4097, 4, 4, 128, torch.bfloat16, True),
+    (1, 63, 8, 1, 128, torch.bfloat16, True),
 ])
 def test_flash_attention_kernel_matches_plain(dev, b, s, h, kvh, hd, dtype,
                                               causal):
@@ -328,6 +341,28 @@ def test_flash_attention_kernel_matches_plain(dev, b, s, h, kvh, hd, dtype,
     want = ref.flash_attention(q, k, v, causal=causal)
     assert out.dtype == dtype and out.shape == want.shape
     atol, rtol = FA_TOL[dtype]
+    err = (out.float() - want.float()).abs()
+    assert bool((err <= atol + rtol * want.float().abs()).all()), (
+        err.max().item())
+
+
+@pytest.mark.parametrize("hd,causal", [(64, True), (128, False)])
+def test_flash_attention_reads_no_row_past_s(dev, hd, causal):
+    """q, k, v are B=1 leading-row views of buffers whose rows past S hold
+    inf.  The kernel must read none of them: a row past S that reached a
+    product would give inf or NaN (0 x inf) where the plain version,
+    which sees only the view, is finite."""
+    b, s, h, kvh, pad = 1, 1100, 8, 2, 100
+    bufs = _fa_inputs(b, s + pad, h, kvh, hd, torch.bfloat16, dev, seed=7)
+    for x in bufs:
+        x[:, s:] = float("inf")
+    q, k, v = (x[:, :s] for x in bufs)
+    assert all(x.is_contiguous() for x in (q, k, v))
+    out = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    want = ref.flash_attention(q, k, v, causal=causal)
+    assert bool(torch.isfinite(want).all()) and bool(torch.isfinite(out).all())
+    atol, rtol = FA_TOL[torch.bfloat16]
     err = (out.float() - want.float()).abs()
     assert bool((err <= atol + rtol * want.float().abs()).all()), (
         err.max().item())
