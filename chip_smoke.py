@@ -18,15 +18,18 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    yardstick's time where one PyTorch call computes the same function, and
    the least time the card could take (bytes over the HBM rate, or
    operations over the peak rate of their type, whichever is larger); the
-   three decode kernels give exact zeros on inactive lanes, and the four
-   I-BERT integer kernels must equal their plain versions bit for bit;
+   three decode kernels agree within DECODE_ATOL + 2^-7 |want| + 2^-8 W
+   (W: the plain version over |v|) and give exact zeros on
+   inactive lanes, and the four I-BERT integer kernels must equal their
+   plain versions bit for bit;
 4. long forward: smollm-135m at full width (30 layers, random weights
    from seed 0) through `Model.forward_logits` at B=2, S=4096, `loss` on
    the same tokens and `prefill` without positions at S=1536 into 1,600
    dense slots followed by 8 fused decode steps: each forward and the
    prefill must launch flash_attention once per layer and no decode
    kernel, each decode step flash_decode once per layer and
-   flash_attention never; the forward once more under torch.profiler;
+   flash_attention never; the forward and (warm) the 8 decode steps
+   once more under torch.profiler;
    then card vs CPU (plain versions) at B=1, S=2048, logits within
    LOGIT_TOL and loss within LOSS_TOL.  Each profiled forward must show
    one flash_attention kernel span per layer.  Then phi3-medium-14b at full
@@ -46,6 +49,8 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    on the CPU (plain versions), on a bf16 page arena, dense slot rows and
    an int8 page arena; logits must agree within a stated bound, and
    kv_quantize of the card's K/V rows must equal the CPU's bit for bit;
+   where 8 fused greedy steps part, the CPU's top-2 logit gap is logged
+   beside the card's logit error at that step;
 7. encode: the integer I-BERT encoder (ibert-base at full width, 12
    layers, random float weights from seed 0, calibrated at batch 1, seq
    128) through `repro_torch.launch.ibert_encoder`: one forward must
@@ -105,10 +110,21 @@ IBERT_LAUNCHES = {"int8_matmul": 72, "i_softmax": 12, "i_layernorm": 24,
 # port's on one CPU thread and on eight) gave max 3.59-3.80 (6% apart)
 # and mean 0.7543-0.7566 (0.3% apart)
 REF_ERR_MARGIN = {"max": 0.10, "mean": 0.02}
-KERNEL_TOL = 1e-2  # bf16 outputs in (-1, 1): ~2 ulps of summation order
+# the decode kernels vs their plain versions: |out - want| <= DECODE_ATOL
+# + 2^-7 |want| + 2^-8 W, W = sum p |v| / l (the plain version over |v|).
+# The bf16 kernels and the plain version round p to bf16 against
+# different maxima (the kernel's running one, the lane's): each p is off
+# by at most 2^-9 of itself on each side, so the f32 outputs part by at
+# most 2^-8 W; rounding both to bf16 adds at most 2^-7 |want|; DECODE_ATOL
+# covers the f32 summation order.  The int8 kernel keeps p in f32 on
+# both sides: W = 0.  At 2,048 keys W is ~0.5 and the limit ~0.0022,
+# where a 32-key tile left out moves the largest output by ~0.01
+DECODE_ATOL = 1e-4
 DECODE_KERNELS = ("paged_flash_decode", "paged_flash_decode_q",
                   "flash_decode")
 ATTN_KERNELS = DECODE_KERNELS + ("flash_attention",)
+# kernels whose every compiled instance must report 0 spill bytes
+SPILL_FREE = ("paged_flash_decode", "flash_decode")
 LOGIT_TOL = 0.1    # 30 bf16 layers, CPU vs card summation order
 LOSS_TOL = 1e-2    # mean cross-entropy of those logits, card vs CPU
 # flash_attention vs its plain version, (atol, rtol) as |out - want| <=
@@ -188,51 +204,82 @@ def paged_inputs(seed: int, b: int, kvh: int, g: int, hd: int, ps: int,
     return t
 
 
-def kernel_phase(dev, flush, maxp: int) -> dict:
-    """The bf16 paged kernel at the serve path's shape (paged_inputs)."""
-    b, kvh, g, hd, ps = 8, 3, 3, 64, 16
+def kernel_phase(dev, flush, maxp: int, kvh: int = 3, g: int = 3,
+                 hd: int = 64) -> dict:
+    """The bf16 paged kernel at the serve path's shape (paged_inputs), or
+    at other heads (phi3-medium-14b's: KVH=10, G=4, hd=128)."""
+    b, ps = 8, 16
     t = paged_inputs(maxp, b, kvh, g, hd, ps, maxp, dev)
     args = (t["q"], t["k"], t["v"], t["kpos"], t["page_table"], t["qpos"])
     pt = t["page_table"].long()
     kg, vg = (x[pt].reshape(b, -1, kvh, hd) for x in (t["k"], t["v"]))
     mask = ((t["kpos"][pt].reshape(b, -1) <= t["qpos"][:, None])
             & t["active"][:, None])
-    # least bytes: the pages the tables name (each once), kpos of those
-    # pages, q, out, the table, qpos, active
-    pages = torch.unique(t["page_table"]).numel()
-    nbytes = (pages * ps * kvh * hd * 2 * 2 + pages * ps * 4
-              + 2 * t["q"].numel() * 2 + t["page_table"].numel() * 4
-              + b * 4 + b)
+    nbytes, pairs = _paged_need(t, ps, kvh * hd * 2 * 2)
+    w = ref.paged_flash_decode(t["q"], t["k"], t["v"].abs(), *args[3:],
+                               active=t["active"])
     return _decode_case(
         "paged_flash_decode", f"B={b} KVH={kvh} G={g} hd={hd} ps={ps} "
         f"MAXP={maxp}",
         lambda: ops.paged_flash_decode(*args, active=t["active"]),
         lambda: ref.paged_flash_decode(*args, active=t["active"]),
         _sdpa(t["q"], kg, vg, mask, g), flush, t["active"], nbytes,
-        4 * b * maxp * ps * kvh * g * hd)
+        4 * pairs * kvh * g * hd, w)
+
+
+def _paged_need(t: dict, ps: int, row_bytes: int) -> tuple:
+    """The least bytes a paged decode kernel moves, and the (lane, key)
+    pairs it attends.  Bytes: K/V of each (page, row) an active lane
+    keeps, once (`row_bytes` per row, all kv heads, scales included),
+    the kpos of each page the active lanes' tables name, once, those
+    lanes' q and table rows, out, qpos and active.  Inactive lanes read
+    nothing."""
+    act = t["active"]
+    pt = t["page_table"][act].long()  # (A, MAXP)
+    keep = t["kpos"][pt] <= t["qpos"][act][:, None, None]  # (A, MAXP, ps)
+    rows = (pt[..., None] * ps + torch.arange(ps, device=pt.device))[keep]
+    n_act, h_hd = pt.shape[0], t["q"][0].numel()
+    nbytes = (torch.unique(rows).numel() * row_bytes
+              + torch.unique(pt).numel() * ps * 4
+              + n_act * h_hd * 2 + t["q"].numel() * 2 + pt.numel() * 4
+              + act.numel() * 4 + act.numel())
+    return nbytes, int(keep.sum())
 
 
 def _decode_case(name: str, label: str, kernel, plain, library, flush,
-                 active: torch.Tensor, nbytes: float, nflop: float) -> dict:
+                 active: torch.Tensor, nbytes: float, nflop: float,
+                 w=None) -> dict:
     """One decode kernel at one shape: against its plain version on the
-    same card inputs (bf16 tolerance, exact zeros on inactive lanes),
-    then timed beside it and beside a library yardstick."""
+    same card inputs (within DECODE_ATOL + 2^-7 |want| + 2^-8 w, w the
+    plain version over |v| or None where p stays f32; exact zeros on
+    inactive lanes), then timed beside it and beside a library
+    yardstick."""
     out, want = kernel(), plain()
     torch.cuda.synchronize()
     require(out.dtype == want.dtype and out.shape == want.shape,
             f"{name} {label}: {out.dtype} {tuple(out.shape)} vs plain "
             f"{want.dtype} {tuple(want.shape)}")
-    err = (out.float() - want.float()).abs().max().item()
     require(bool(torch.isfinite(out).all()), f"{name} {label}: not finite")
     require(bool((out[~active] == 0).all()),
             f"{name} {label}: inactive lanes must be exact zeros")
-    require(err <= KERNEL_TOL, f"{name} {label}: kernel vs plain {err} > "
-            f"{KERNEL_TOL}")
+    diff, mag = (out.float() - want.float()).abs(), want.float().abs()
+    err = diff.max().item()
+    limit = DECODE_ATOL + 2 ** -7 * mag
+    if w is not None:
+        limit = limit + 2 ** -8 * w.float()
+    # the worst element's share of its limit (at most 1); the mean |want|
+    # and mean limit of the active lanes, a typical output and its limit
+    worst = (diff / limit).max().item()
+    check = (f"max_abs_err={err:.3g} (limit {DECODE_ATOL:g} + 2^-7 |want|"
+             f"{' + 2^-8 W' if w is not None else ''}, worst {worst:.3f} "
+             f"of it; mean |want| {mag[active].mean().item():.4g}, mean "
+             f"limit {limit[active].mean().item():.4g})")
+    require(worst <= 1.0, f"{name} {label}: kernel vs plain {check}")
     ms = time_ms(kernel, flush)
     plain_ms = time_ms(plain, flush)
     library_ms = time_ms(library, flush)
     bound_ms, bound_by = _bound(nbytes, nflop, F32_FLOP_S)
-    log(f"kernel {name} {label}: max_abs_err={err:.3g} (tol {KERNEL_TOL}) "
+    log(f"kernel {name} {label}: {check} "
         f"ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
         f"bound_ms={bound_ms:.6f} ({bound_by}; {nbytes:.0f} bytes, "
         f"{nflop:.4g} flop)")
@@ -251,11 +298,12 @@ def _sdpa(q, k, v, mask, g):
                                                   scale=1.0)
 
 
-def flash_decode_phase(dev, flush, sk: int, window: int = 0) -> dict:
-    """The dense slot-cache kernel at the serve path's shape: B=8 lanes of
-    Sk slots, lane i holding positions 0..n_i-1 (the rest never written),
-    qpos = n_i - 1, lanes 5 and 7 inactive."""
-    b, kvh, g, hd = 8, 3, 3, 64
+def flash_decode_phase(dev, flush, sk: int, window: int = 0, kvh: int = 3,
+                       g: int = 3, hd: int = 64) -> dict:
+    """The dense slot-cache kernel at the serve path's shape (or at other
+    heads): B=8 lanes of Sk slots, lane i holding positions 0..n_i-1 (the
+    rest never written), qpos = n_i - 1, lanes 5 and 7 inactive."""
+    b = 8
     rng = np.random.default_rng(sk + window)
     n = rng.integers(sk // 4, sk + 1, b)
     slot = np.arange(sk)[None]
@@ -279,13 +327,15 @@ def flash_decode_phase(dev, flush, sk: int, window: int = 0) -> dict:
     attended = int(keep.sum())
     nbytes = (attended * kvh * hd * 2 * 2 + int(active.sum()) * sk * 4
               + 2 * q.numel() * 2 + b * 4 + b)
+    w = ref.flash_decode(q, k, v.abs(), kpos_t, qpos, active=act,
+                         window=window)
     return _decode_case(
         "flash_decode", f"B={b} Sk={sk} KVH={kvh} G={g} hd={hd} "
         f"window={window}",
         lambda: ops.flash_decode(*args, active=act, window=window),
         lambda: ref.flash_decode(*args, active=act, window=window),
         _sdpa(q, k, v, torch.tensor(keep, device=dev), g), flush, act,
-        nbytes, 4 * attended * kvh * g * hd)
+        nbytes, 4 * attended * kvh * g * hd, w)
 
 
 def paged_q_phase(dev, flush, maxp: int) -> dict:
@@ -301,20 +351,16 @@ def paged_q_phase(dev, flush, maxp: int) -> dict:
               for x, sc in ((k8, ks), (v8, vs)))
     mask = ((t["kpos"][pt].reshape(b, -1) <= t["qpos"][:, None])
             & t["active"][:, None])
-    # least bytes, as for paged_flash_decode: the pages the tables name
-    # (each once: int8 K and V, their f32 scales, kpos), q, out, the
-    # table, qpos, active
-    pages = torch.unique(t["page_table"]).numel()
-    nbytes = (pages * ps * (kvh * (2 * hd + 2 * 4) + 4)
-              + 2 * t["q"].numel() * 2 + t["page_table"].numel() * 4
-              + b * 4 + b)
+    # least bytes, as for paged_flash_decode: kept rows of int8 K and V
+    # with their f32 scales
+    nbytes, pairs = _paged_need(t, ps, kvh * (2 * hd + 2 * 4))
     return _decode_case(
         "paged_flash_decode_q", f"B={b} KVH={kvh} G={g} hd={hd} ps={ps} "
         f"MAXP={maxp}",
         lambda: ops.paged_flash_decode_q(*args, active=t["active"]),
         lambda: ref.paged_flash_decode_q(*args, active=t["active"]),
         _sdpa(t["q"].float(), kg, vg, mask, g), flush, t["active"], nbytes,
-        4 * b * maxp * ps * kvh * g * hd)
+        4 * pairs * kvh * g * hd)
 
 
 def flash_attention_phase(dev, flush, b: int, s: int, h: int, kvh: int,
@@ -592,27 +638,50 @@ def _counted(fn, want: dict, what: str):
     return out, wall, got
 
 
-def _forward_profile(what: str, fn, n_layers: int) -> None:
-    """One forward under torch.profiler: the device's busy share of the
-    window and flash_attention's share of device time.  Its kernels (the
-    bf16 flash_attention_kernel_wgmma, the f32 flash_attention_kernel)
-    must show one span per layer, so a renamed kernel cannot read as a
-    share of 0."""
+def _kernel_profile(what: str, fn, kernel: str, launches: int,
+                    note: str = "") -> None:
+    """fn() under torch.profiler: the device's busy share of the window
+    and `kernel`'s share of device time.  Its spans (every instance whose
+    name holds `{kernel}_kernel`) must number `launches`, so a renamed
+    kernel cannot read as a share of 0."""
     spans, wall_us = _device_spans(fn)
     if not spans:
-        log(f"profile {what}: the profiler recorded no device time (not "
-            "measured)")
+        log(f"profile {what}: {note}the profiler recorded no device time "
+            "(not measured)")
         return
     dev_total = sum(e - s for s, e, _ in spans)
-    fa = [e - s for s, e, name in spans if "flash_attention_kernel" in name]
-    require(len(fa) == n_layers, f"profile {what}: {len(fa)} "
-            f"flash_attention kernel spans, want one per layer ({n_layers})")
-    log(f"profile {what}: wall_ms={wall_us / 1e3:.2f} "
+    ks = [e - s for s, e, name in spans if f"{kernel}_kernel" in name]
+    require(len(ks) == launches, f"profile {what}: {len(ks)} {kernel} "
+            f"kernel spans, want {launches}")
+    log(f"profile {what}: {note}wall_ms={wall_us / 1e3:.2f} "
         f"device_busy_share={_busy_us(spans) / wall_us:.4f} "
-        f"device_kernel_ms={dev_total / 1e3:.2f} flash_attention_ms="
-        f"{sum(fa) / 1e3:.2f} ({len(fa)} launches) "
-        f"flash_attention_share_of_device={sum(fa) / dev_total:.4f} "
+        f"device_kernel_ms={dev_total / 1e3:.3f} {kernel}_ms="
+        f"{sum(ks) / 1e3:.3f} ({len(ks)} launches) "
+        f"{kernel}_share_of_device={sum(ks) / dev_total:.4f} "
         f"device_ops={len(spans)}")
+
+
+def _decode_profile(model, params, prompt, n_layers: int) -> None:
+    """The 8 fused decode steps after a prefill of `prompt` into 1,600
+    dense slots, warm: their wall time to a synchronize, then once more
+    under torch.profiler (one flash_decode span per layer per step)."""
+    act = torch.ones((1,), dtype=torch.bool, device=prompt.device)
+
+    def prefilled():
+        lg, caches = model.prefill(params, model.init_cache(1, 1600), prompt)
+        return caches, lg.argmax(-1).to(torch.int32)
+
+    caches, first = prefilled()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.decode_steps(params, caches, first, act, 8)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    caches, first = prefilled()
+    _kernel_profile("8 fused decode steps after prefill S=1536 (warm)",
+                    lambda: model.decode_steps(params, caches, first, act, 8),
+                    "flash_decode", 8 * n_layers,
+                    note=f"wall_ms={wall * 1e3:.2f}; profiled ")
 
 
 def long_forward_phase(dev) -> int:
@@ -656,8 +725,9 @@ def long_forward_phase(dev) -> int:
             f"tok_s={2 * 4096 / wall:.0f}; loss={float(loss):.5f} "
             f"wall_ms={wall_loss * 1e3:.2f}; flash_attention launches "
             f"{n} per call, decode kernels 0")
-        _forward_profile("smollm-135m forward_logits B=2 S=4096",
-                         lambda: model.forward_logits(params, toks), n)
+        _kernel_profile("smollm-135m forward_logits B=2 S=4096",
+                        lambda: model.forward_logits(params, toks),
+                        "flash_attention", n)
 
         # prefill at contiguous positions into dense slots, then decode
         caches = model.init_cache(1, 1600)
@@ -677,6 +747,7 @@ def long_forward_phase(dev) -> int:
             f"wall_ms={wall_pf * 1e3:.2f} ({n} flash_attention); 8 fused "
             f"decode steps wall_ms={wall_dec * 1e3:.2f} ({8 * n} "
             f"flash_decode, 0 flash_attention)")
+        _decode_profile(model, params, toks[:1, :1536], n)
         del caches
 
         # card vs CPU (plain versions) on the same weights and tokens
@@ -737,8 +808,9 @@ def phi3_forward_phase(dev) -> int:
             f"wall_ms={wall * 1e3:.2f} tok_s={4096 / wall:.0f} (first call, "
             f"peak {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB), "
             f"{n} flash_attention launches, finite logits")
-        _forward_profile("phi3-medium-14b forward_logits B=1 S=4096",
-                         lambda: model.forward_logits(params, toks), n)
+        _kernel_profile("phi3-medium-14b forward_logits B=1 S=4096",
+                        lambda: model.forward_logits(params, toks),
+                        "flash_attention", n)
     del params
     torch.cuda.empty_cache()
     return got["flash_attention"]
@@ -772,7 +844,8 @@ def model_phase(kind: str) -> None:
     log(f"model smollm-135m {kind} cache, prefill+{steps} decode steps, card "
         f"vs CPU: max_abs_logit_err={max(errs):.4g} (tol {LOGIT_TOL}, "
         f"|logit| max {scale:.3g}) per step={['%.3g' % e for e in errs]} "
-        f"fused {steps}-step token match={match:.3f}")
+        f"fused {steps}-step token match={match:.3f}; "
+        f"{_first_divergence(cpu, gpu)}")
     require(max(errs) <= LOGIT_TOL, f"{kind}: card vs CPU logits: {errs}")
     if kind == "int8":
         rows = gpu["kv_rows"]
@@ -782,6 +855,35 @@ def model_phase(kind: str) -> None:
         log(f"model: kv_quantize of {sum(x[..., 0].numel() for x in rows)} "
             f"K/V rows, card == CPU bit for bit: {all(same)}")
         require(all(same), "kv_quantize differs between card and CPU")
+
+
+def _first_divergence(cpu: dict, gpu: dict) -> str:
+    """Where the fused greedy chains of card and CPU first part, lane by
+    lane.  A chain is the prefill's argmax, then the fused block.  Up to
+    its first difference a lane saw the same inputs on both devices as
+    in the teacher-fed steps, so step t's logits there are the ones that
+    chose the differing token: the CPU's gap between its top two logits
+    is set beside the card's largest logit error at that step.  A gap
+    below that error is a tie the summation order may break either way."""
+    chain = {n: torch.cat([r["logits"][0].argmax(-1)[None].to(torch.int32),
+                           r["block"]]) for n, r in (("cpu", cpu),
+                                                     ("gpu", gpu))}
+    parts = []
+    for lane in range(chain["cpu"].shape[1]):
+        differ = (chain["cpu"][:, lane] != chain["gpu"][:, lane]).nonzero()
+        if not len(differ):
+            parts.append(f"lane {lane}: no divergence")
+            continue
+        t = int(differ[0])
+        c, g = cpu["logits"][t][lane], gpu["logits"][t][lane]
+        top2 = c.topk(2).values
+        parts.append(
+            f"lane {lane}: first differs at step {t} (CPU token "
+            f"{int(chain['cpu'][t, lane])}, card {int(chain['gpu'][t, lane])};"
+            f" CPU teacher-fed argmax {int(c.argmax())}, card "
+            f"{int(g.argmax())}): CPU top-2 gap {float(top2[0] - top2[1]):.4g}"
+            f", card logit err {float((g - c).abs().max()):.4g}")
+    return "; ".join(parts)
 
 
 def _to(tree, dev):
@@ -973,6 +1075,9 @@ def kernels_phase(dev) -> dict:
     main_shape["flash_decode"] = flash_decode_phase(dev, flush, sk=192)
     flash_decode_phase(dev, flush, sk=192, window=48)
     flash_decode_phase(dev, flush, sk=2048)
+    # kernels 1 and 3 at phi3-medium-14b's heads: the hd-128 instances
+    kernel_phase(dev, flush, maxp=128, kvh=10, g=4, hd=128)
+    flash_decode_phase(dev, flush, sk=2048, kvh=10, g=4, hd=128)
     main_shape.update(ibert_kernel_phase(dev, flush))
     bf, f32 = torch.bfloat16, torch.float32
     main_shape["flash_attention"] = flash_attention_phase(
@@ -1012,12 +1117,20 @@ def main() -> None:
     log(f"build: {len(reports)} kernel(s) in {time.perf_counter() - t0:.1f}"
         " s")
     for src, rep in reports.items():
-        kernel = ""
+        kernel, spills = "", []
         for line in rep.splitlines():
             if "Compiling entry function" in line:  # the mangled name
                 kernel = line.split("'")[1] if "'" in line else ""
             elif "registers" in line or "smem" in line or "spill" in line:
                 log(f"  {src} {kernel}: {line.strip()}")
+            if "spill stores" in line:
+                nums = [int(w) for w in line.replace(",", " ").split()
+                        if w.isdigit()]  # stack frame, stores, loads
+                spills.append(nums[1] + nums[2])
+        log(f"  {src}: {len(spills)} instance(s), spill bytes {spills}")
+        if src in SPILL_FREE:
+            require(spills and not any(spills), f"{src}: ptxas reports "
+                    f"spill bytes {spills}; want 0 at every instance")
 
     dev = torch.device("cuda")
     main_shape = timed("kernels", lambda: kernels_phase(dev))

@@ -79,20 +79,29 @@ def _start(name: str):
 
 
 def _finish(name: str, started) -> str:
-    """Wait for one nvcc; returns its compiler report (ptxas -v lines)."""
+    """Wait for one nvcc; returns its compiler report (ptxas -v lines),
+    kept beside the library so that a library built earlier still has
+    it."""
     if started is None:
-        return ""
+        report = lib_path(name) + ".log"
+        if not os.path.exists(report):
+            return ""
+        with open(report) as f:
+            return f.read()
     proc, tmp, out = started
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    with open(out + ".log", "w") as f:
+        f.write(log)
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     return log
 
 
 def build_all(names: Optional[List[str]] = None) -> Dict[str, str]:
     """Build every (or the named) kernel library, one nvcc per source, all
-    started together.  Returns {name: compiler report}."""
+    started together.  Returns {name: compiler report} (the report of the
+    build that made the library, also where it was built earlier)."""
     names = list(names or SOURCES)
     with _LOCK:
         started = {n: _start(n) for n in names}

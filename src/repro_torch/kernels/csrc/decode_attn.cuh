@@ -1,9 +1,12 @@
-// The body the three single-query decode kernels share (sm_90a):
-// paged_flash_decode.cu (bf16 page arena), paged_flash_decode_q.cu (int8
-// page arena with f32 row scales) and flash_decode.cu (dense slot cache).
+// The first decode body (sm_90a), now run only by paged_flash_decode_q.cu
+// (int8 page arena with f32 row scales).  The bf16 kernels,
+// paged_flash_decode.cu and flash_decode.cu, run decode_split.cuh (keys
+// split over a thread-block cluster, an exact tile skip by kpos,
+// warp-parallel softmax); the int8 kernel is to move onto that body with a
+// dequantizing loader.
 //
 // One block of kThreads threads computes one (lane, kv head): the G query
-// heads of that group attend over the lane's keys, walked as tiles.  Each
+// heads of that group attend over the lane's keys, walked as tiles.  The
 // kernel supplies only its tile loader; the online softmax is this file's:
 //
 //   * a key counts iff kpos <= qpos and, when window > 0, qpos - kpos <
@@ -19,7 +22,9 @@
 //
 // Layout: scores are one warp per (query head, key) reduced with shuffles;
 // the softmax step of query head g runs on thread g (m and l in its
-// registers); acc is spread over the block's registers.
+// registers); acc is spread over the block's registers.  Known limits:
+// B*KVH blocks underfill the 132 SMs, each tile is loaded synchronously
+// and walked with four block barriers, and every tile is walked (no skip).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -8,91 +8,113 @@
 //   * a key counts iff kpos[b, s] <= qpos[b], qpos[b] - kpos[b, s] < window
 //     when window > 0 (ring buffers test the same absolute positions), and
 //     active[b]; never-written slots carry the sentinel 2^30 and fail;
-//   * the online f32 softmax of decode_attn.cuh, p rounded to bf16 before
+//   * the online f32 softmax of decode_split.cuh, p rounded to bf16 before
 //     the PV product as the Pallas body casts it to v's dtype.
 //
-// What bounds it: device-memory bytes.  One call reads
-//   B*Sk*KVH*hd*2 (K) + the same for V + B*Sk*4 (kpos)
-// plus q and the output.  At the serve path's B=8, Sk=192, KVH=3, hd=64
-// that is 1.18 MB: 0.35 us at 3.35 TB/s.  The arithmetic is ~4*G flops per
+// What bounds it: device-memory bytes.  One call reads the K and V rows of
+// the kept keys plus the kpos of every slot of the active lanes; q and the
+// output are small.  At the serve path's B=8, Sk=192, KVH=3, hd=64 that is
+// at most 1.18 MB: 0.35 us at 3.35 TB/s.  The arithmetic is ~4*G flops per
 // K/V element, far below the card's flop-to-byte balance, so plain FMAs
-// suffice and G (3) is not padded to a tile of 8 as the TPU wrapper pads it.
+// suffice and G (3) is not padded to a tile of 8 as the TPU wrapper pads
+// it.
 //
-// Design (simple first): the Pallas grid's sequential Sk/bs axis becomes a
-// loop over tiles of kTile = 64 slots inside one block of 128 threads per
-// (b, h); each tile's K and V rows (kTile x hd bf16) are staged in shared
-// memory with coalesced 16-byte loads.  A ragged Sk is masked here (rows
-// past Sk get the sentinel and zero K/V), so the wrapper pads nothing.  An
-// inactive lane writes zeros and reads no keys.  Known limits, left to
-// later work: B*KVH blocks (24 at B=8) underfill the 132 SMs, loads are
-// not overlapped with compute, and no tile is skipped (slots past qpos
-// are read and masked).
-#include "decode_attn.cuh"
+// Design: decode_split.cuh's body (one cluster of 8 blocks per (b, h),
+// the Pallas grid's sequential Sk axis cut into 32-slot tiles over the
+// cluster's blocks and their warps, an exact skip by kpos of tiles with no
+// kept key (slots past qpos, outside the window, never written),
+// cp.async rings, warp-parallel scores and softmax, one combine through
+// distributed shared memory).  This file supplies the loader: slot s of
+// lane b is row b*Sk + s of the (B, Sk, KVH, hd) cache, read in place.  A
+// ragged Sk is masked here (slots past Sk hold no key), so the wrapper
+// pads nothing.
+//
+// Known limits: every slot's kpos up to Sk is read, also past qpos and
+// outside the window (the skip trusts no invariant of the caller); the
+// split is 8 whatever the lane's length, so a short lane leaves most of
+// its cluster idle; hd 128 keeps one tile in flight per warp (one ring
+// stage, for three blocks per SM).
+#include "decode_split.cuh"
 
 namespace {
 
-using decode_attn::kMaxG;
-using decode_attn::kSentinel;
-using decode_attn::kThreads;
-using decode_attn::Tiles;
-
-constexpr int kTile = 64;  // cache slots per tile
+using decode_split::kMaxG;
+using decode_split::kSentinel;
+using decode_split::kSplit;
+using decode_split::kThreads;
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
+struct DenseLoader {
+  static constexpr int kRowBytes = HD * 2;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  const int* kpos;  // the cache's kpos, (B, Sk)
+  int row0, h, kvh, sk;  // row0 = b * Sk
+
+  __device__ int slots() const { return sk; }
+  __device__ int row(int slot, int* kp) const {
+    if (slot >= sk) {
+      *kp = kSentinel;
+      return -1;
+    }
+    *kp = kpos[row0 + slot];
+    return row0 + slot;
+  }
+  __device__ const void* k_src(int r, int c) const {
+    return k + ((size_t)r * kvh + h) * HD + c * 8;
+  }
+  __device__ const void* v_src(int r, int c) const {
+    return v + ((size_t)r * kvh + h) * HD + c * 8;
+  }
+  __device__ static void unpack(const unsigned char* row, int c, float out[8]) {
+    decode_split::unpack_bf16x8(reinterpret_cast<const uint4*>(row)[c], out);
+  }
+};
+
+template <int HD, int GMAX>
+__global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kThreads, 1)
 flash_decode_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v, const int* __restrict__ kpos,
                     const int* __restrict__ qpos, const unsigned char* __restrict__ active,
                     __nv_bfloat16* __restrict__ out, int kvh, int g, int sk, int window) {
-  constexpr int kVec = 8;  // bf16 values per 16-byte load
-  constexpr int kRowVecs = HD / kVec;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Tiles<HD, __nv_bfloat16> t(smem, g, kTile);
-
-  const int b = blockIdx.x / kvh;
-  const int h = blockIdx.x % kvh;
+  const int item = blockIdx.x / kSplit;  // one cluster per (b, h)
+  const int b = item / kvh;
+  const int h = item % kvh;
   const size_t head0 = ((size_t)b * kvh + h) * g * HD;  // this group's q/out rows
   if (!active[b]) {
-    decode_attn::write_zeros<HD>(out + head0, g);
+    decode_split::write_zeros<HD>(out + head0, g);
     return;
   }
-  const size_t row_stride = (size_t)kvh * HD;  // elements between slot rows
-  const __nv_bfloat16* kb = k + (size_t)b * sk * row_stride + (size_t)h * HD;
-  const __nv_bfloat16* vb = v + (size_t)b * sk * row_stride + (size_t)h * HD;
-  const int* kpb = kpos + (size_t)b * sk;
-  auto load = [&](int j) {
-    const int r0 = j * kTile;
-    for (int i = threadIdx.x; i < kTile * kRowVecs; i += kThreads) {
-      const int row = r0 + i / kRowVecs;
-      uint4 kx = make_uint4(0u, 0u, 0u, 0u), vx = kx;
-      if (row < sk) {
-        const size_t off = row * row_stride + (i % kRowVecs) * kVec;
-        kx = *reinterpret_cast<const uint4*>(kb + off);
-        vx = *reinterpret_cast<const uint4*>(vb + off);
-      }
-      reinterpret_cast<uint4*>(t.k)[i] = kx;
-      reinterpret_cast<uint4*>(t.v)[i] = vx;
-    }
-    for (int r = threadIdx.x; r < kTile; r += kThreads)
-      t.kpos[r] = r0 + r < sk ? kpb[r0 + r] : kSentinel;
-  };
-  decode_attn::decode_group<HD, __nv_bfloat16, true>(q + head0, out + head0, g, kTile,
-                                                     (sk + kTile - 1) / kTile, qpos[b],
-                                                     window, t, load);
+  const DenseLoader<HD> ld{k, v, kpos, b * sk, h, kvh, sk};
+  decode_split::decode<HD, GMAX, true>(q + head0, out + head0, g, qpos[b], window, ld, smem);
 }
 
-template <int HD>
+template <int HD, int GMAX>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* kpos,
                    const void* qpos, const void* active, void* out, int b, int kvh, int g,
                    int sk, int window, cudaStream_t stream) {
-  const size_t smem = Tiles<HD, __nv_bfloat16>::bytes(g, kTile);
-  if (smem > 48 * 1024) return cudaErrorInvalidValue;
-  flash_decode_kernel<HD><<<b * kvh, kThreads, smem, stream>>>(
+  constexpr size_t smem = decode_split::Smem<HD, GMAX, DenseLoader<HD>>::kBytes;
+  auto kernel = flash_decode_kernel<HD, GMAX>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<kSplit * b * kvh, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(kpos),
       static_cast<const int*>(qpos), static_cast<const unsigned char*>(active),
       static_cast<__nv_bfloat16*>(out), kvh, g, sk, window);
   return cudaGetLastError();
+}
+
+// G rounds up to a compiled group width: 2, 4 or 8
+template <int HD>
+cudaError_t launch_hd(const void* q, const void* k, const void* v, const void* kpos,
+                      const void* qpos, const void* active, void* out, int b, int kvh, int g,
+                      int sk, int window, cudaStream_t stream) {
+  if (g <= 2) return launch<HD, 2>(q, k, v, kpos, qpos, active, out, b, kvh, g, sk, window, stream);
+  if (g <= 4) return launch<HD, 4>(q, k, v, kpos, qpos, active, out, b, kvh, g, sk, window, stream);
+  return launch<HD, 8>(q, k, v, kpos, qpos, active, out, b, kvh, g, sk, window, stream);
 }
 
 }  // namespace
@@ -105,16 +127,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* kpos
 extern "C" int flash_decode_bf16(const void* q, const void* k, const void* v, const void* kpos,
                                  const void* qpos, const void* active, void* out, int b,
                                  int kvh, int g, int hd, int sk, int window, void* stream) {
-  if (b < 1 || kvh < 1 || g < 1 || g > kMaxG || sk < 1 || window < 0)
+  if (b < 1 || kvh < 1 || g < 1 || g > kMaxG || sk < 1 || window < 0 ||
+      (long long)b * sk >= (1LL << 31) || (long long)b * kvh * kSplit >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 16:
-      return (int)launch<16>(q, k, v, kpos, qpos, active, out, b, kvh, g, sk, window, st);
+      return (int)launch_hd<16>(q, k, v, kpos, qpos, active, out, b, kvh, g, sk, window, st);
     case 64:
-      return (int)launch<64>(q, k, v, kpos, qpos, active, out, b, kvh, g, sk, window, st);
+      return (int)launch_hd<64>(q, k, v, kpos, qpos, active, out, b, kvh, g, sk, window, st);
     case 128:
-      return (int)launch<128>(q, k, v, kpos, qpos, active, out, b, kvh, g, sk, window, st);
+      return (int)launch_hd<128>(q, k, v, kpos, qpos, active, out, b, kvh, g, sk, window, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -26,6 +26,14 @@ launches = {"paged_flash_decode": 0, "paged_flash_decode_q": 0,
 
 HEAD_DIMS = (16, 64, 128)  # the decode kernels' compiled head_dim instances
 MAX_GROUP = 8  # query heads per kv head the decode kernels take
+# the bf16 decode kernels' schedule, as csrc/decode_split.cuh's kTile,
+# kSplit and kWarps (a CPU test holds them equal): a lane's key slots are
+# walked in tiles of DECODE_TILE slots, split over a cluster of
+# DECODE_SPLITS blocks of DECODE_WARPS warps; a tile with no kept key is
+# skipped unread
+DECODE_TILE = 32
+DECODE_SPLITS = 8
+DECODE_WARPS = 4
 FA_HEAD_DIMS = (16, 32, 64, 128)  # flash_attention's compiled instances
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float

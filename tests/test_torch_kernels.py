@@ -12,6 +12,12 @@ bf16 inputs agree to 2e-2: outputs lie in (-1, 1), where one bf16 ulp is
 at most 2^-8, and the oracle rounds its scores and normalised p to bf16
 where the kernel keeps f32 scores and rounds the unnormalised p.
 Inactive lanes must be exact zeros.
+
+The card kernel's schedule (tests/decode_schedule.py: the lane's slots
+in 32-slot tiles through the page table, split over a cluster of 8
+blocks and their warps, tiles without a kept key skipped, the cluster
+combine) is held against the plain version and the Pallas body at the
+same limits, at MAXP below, equal to and no multiple of the split count.
 """
 import numpy as np
 import pytest
@@ -19,6 +25,7 @@ import torch
 
 import jax.numpy as jnp
 
+from decode_schedule import paged_schedule
 from repro.kernels import ops as jops
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -135,3 +142,80 @@ def test_ref_gather_equals_dense_decode():
     paged = tref.paged_flash_decode(t["q"], t["k"], t["v"], t["kpos"],
                                     t["pt"], t["qpos"], active=t["active"])
     assert torch.equal(dense, paged)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("ps,maxp,hd,g", [
+    (32, 5, 64, 3),   # one page per tile; MAXP below the split count
+    (32, 8, 16, 8),   # ... equal to it
+    (32, 13, 64, 2),  # ... and no multiple of it
+    (4, 5, 16, 1),    # eight pages per tile
+    (16, 12, 128, 4),  # the serve path's page size, two pages per tile
+])
+def test_kernel_schedule_matches_plain_and_pallas_body(dtype, ps, maxp, hd,
+                                                       g):
+    inp = make_paged(seed=ps + maxp + hd, b=4, kvh=2, g=g, hd=hd, ps=ps,
+                     maxp=maxp)
+    tdt, jdt, atol = ((torch.float32, jnp.float32, 1e-5) if dtype == "f32"
+                      else (torch.bfloat16, jnp.bfloat16, 2e-2))
+    t = {n: torch.tensor(inp[n]).to(tdt) for n in ("q", "k", "v")}
+    got, counts = paged_schedule(
+        t["q"], t["k"], t["v"], torch.tensor(inp["kpos"]),
+        torch.tensor(inp["pt"]), torch.tensor(inp["qpos"]),
+        active=torch.tensor(inp["active"]), with_split_counts=True)
+    assert got.dtype == tdt
+    got = got.float().numpy()
+    plain = tref.paged_flash_decode(
+        t["q"], t["k"], t["v"], torch.tensor(inp["kpos"]),
+        torch.tensor(inp["pt"]), torch.tensor(inp["qpos"]),
+        active=torch.tensor(inp["active"]))
+    np.testing.assert_allclose(got, plain.float().numpy(), atol=atol,
+                               rtol=0, err_msg="plain")
+    np.testing.assert_allclose(got, _jax(inp, jdt, "interpret"), atol=atol,
+                               rtol=0, err_msg="pallas")
+    off = ~inp["active"]
+    assert (got[off] == 0).all(), "inactive lanes must be exact zeros"
+    assert np.isfinite(got).all()
+    # trash-page tiles and tiles past qpos hold no kept key, so some split
+    # of an active lane adds nothing
+    assert ((counts[inp["active"]] == 0).sum(1) > 0).any(), counts.tolist()
+
+
+def test_build_returns_the_report_of_a_library_built_earlier(tmp_path,
+                                                             monkeypatch):
+    """A library already built is not rebuilt, and build_all still returns
+    the ptxas report kept beside it (chip_smoke gates spills on it)."""
+    from repro_torch.kernels import build
+
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path))
+    lib = build.lib_path("flash_decode")
+    open(lib, "wb").close()
+    assert build.build_all(["flash_decode"]) == {"flash_decode": ""}
+    with open(lib + ".log", "w") as f:
+        f.write("ptxas info : 0 bytes spill stores, 0 bytes spill loads\n")
+    rep = build.build_all(["flash_decode"])
+    assert rep == {"flash_decode": "ptxas info : 0 bytes spill stores, "
+                   "0 bytes spill loads\n"}
+
+
+def test_decode_schedule_constants_match_the_cuda_body():
+    """ops' DECODE_TILE, DECODE_SPLITS and DECODE_WARPS (which the CPU
+    emulation and the card tests' tile placement read) equal the kTile,
+    kSplit and kWarps the CUDA body compiles with."""
+    import os
+    import re
+
+    src = os.path.join(os.path.dirname(tops.__file__), "csrc",
+                       "decode_split.cuh")
+    text = open(src).read()
+
+    def const(name):
+        found = re.findall(rf"constexpr int {name} = ([^;]+);", text)
+        assert len(found) == 1, (name, found)
+        return found[0].strip()
+
+    threads = int(const("kThreads"))
+    assert const("kWarps") == "kThreads / 32"
+    assert int(const("kTile")) == tops.DECODE_TILE
+    assert int(const("kSplit")) == tops.DECODE_SPLITS
+    assert threads // 32 == tops.DECODE_WARPS
