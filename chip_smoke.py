@@ -10,8 +10,11 @@ the JAX package.  Phases, in order — any fault exits non-zero:
 2. build: every CUDA kernel of the port, from the sources in the checkout,
    one nvcc per source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main paths' shapes (and long-context ones for the decode kernels;
-   flash_attention at smollm-135m's and phi3-medium-14b's heads, S=4096,
+   the main paths' shapes (and long-context ones for the decode kernels,
+   also at phi3-medium-14b's heads; int8_matmul with B column-major, the
+   encoder's layout, and its row-major path, one transposing copy, held
+   equal to it; flash_attention at smollm-135m's and phi3-medium-14b's
+   heads, S=4096,
    timed in bf16 and checked once more in f32, at a ragged non-causal
    f32 shape, and in bf16 at smollm's heads at S = 1100, 2048 and 8192),
    with the error, the kernel's time, the plain version's time, a library
@@ -43,8 +46,9 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    hit the radix cache, and the route's decode kernel (paged_flash_decode,
    flash_decode, paged_flash_decode_q) must have launched once per layer
    per fused decode step and the other two never; serving never
-   launches flash_attention; then one more paged bf16 stream under
-   torch.profiler says where the main route's time goes;
+   launches flash_attention; then one more paged bf16 stream and one
+   paged int8 stream under torch.profiler say where those routes' time
+   goes (the decode kernel's share of device time);
 6. model: the same weights run prefill and 8 decode steps on the card and
    on the CPU (plain versions), on a bf16 page arena, dense slot rows and
    an int8 page arena; logits must agree within a stated bound, and
@@ -124,7 +128,8 @@ DECODE_KERNELS = ("paged_flash_decode", "paged_flash_decode_q",
                   "flash_decode")
 ATTN_KERNELS = DECODE_KERNELS + ("flash_attention",)
 # kernels whose every compiled instance must report 0 spill bytes
-SPILL_FREE = ("paged_flash_decode", "flash_decode")
+SPILL_FREE = ("paged_flash_decode", "flash_decode", "paged_flash_decode_q",
+              "int8_matmul")
 LOGIT_TOL = 0.1    # 30 bf16 layers, CPU vs card summation order
 LOSS_TOL = 1e-2    # mean cross-entropy of those logits, card vs CPU
 # flash_attention vs its plain version, (atol, rtol) as |out - want| <=
@@ -338,10 +343,12 @@ def flash_decode_phase(dev, flush, sk: int, window: int = 0, kvh: int = 3,
         nbytes, 4 * attended * kvh * g * hd, w)
 
 
-def paged_q_phase(dev, flush, maxp: int) -> dict:
-    """The int8 paged kernel at the serve path's shape: paged_inputs'
-    tables and lanes, k/v quantized into an int8 arena on the card."""
-    b, kvh, g, hd, ps = 8, 3, 3, 64, 16
+def paged_q_phase(dev, flush, maxp: int, kvh: int = 3, g: int = 3,
+                  hd: int = 64) -> dict:
+    """The int8 paged kernel at the serve path's shape (or at other heads):
+    paged_inputs' tables and lanes, k/v quantized into an int8 arena on
+    the card."""
+    b, ps = 8, 16
     t = paged_inputs(maxp, b, kvh, g, hd, ps, maxp, dev)
     k8, ks = quant.kv_quantize(t["k"])
     v8, vs = quant.kv_quantize(t["v"])
@@ -356,7 +363,7 @@ def paged_q_phase(dev, flush, maxp: int) -> dict:
     nbytes, pairs = _paged_need(t, ps, kvh * (2 * hd + 2 * 4))
     return _decode_case(
         "paged_flash_decode_q", f"B={b} KVH={kvh} G={g} hd={hd} ps={ps} "
-        f"MAXP={maxp}",
+        f"MAXP={maxp} (f32 SDPA over keys dequantized beforehand)",
         lambda: ops.paged_flash_decode_q(*args, active=t["active"]),
         lambda: ref.paged_flash_decode_q(*args, active=t["active"]),
         _sdpa(t["q"].float(), kg, vg, mask, g), flush, t["active"], nbytes,
@@ -472,20 +479,36 @@ def ibert_kernel_phase(dev, flush) -> dict:
                             device=dev)
 
     res = {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for k, n, requant in ((d, d, True), (d, f, False), (f, d, True)):
         a, b = ints(-127, 128, (m, k), torch.int8), ints(-127, 128, (k, n),
                                                           torch.int8)
+        bc = b.t().contiguous().t()  # the encoder's layout: column-major
         bias = ints(-20000, 20000, (n,), torch.int32)
         sa, sb = torch.tensor(0.02), torch.tensor(0.004)
         so = torch.tensor(0.3) if requant else None
         out_bytes = m * n * (1 if requant else 4)
+        label = f"{m}x{k}x{n} {'requant' if requant else 'int32'}"
         r = _ibert_case(
-            "int8_matmul", f"{m}x{k}x{n} {'requant' if requant else 'int32'}",
-            lambda: ops.int8_matmul(a, b, sa, sb, s_out=so, bias=bias),
-            lambda: ref.int8_matmul(a, b, sa, sb, s_out=so, bias=bias), flush,
-            m * k + k * n + 4 * n + out_bytes, 2 * m * n * k, INT8_OPS_S,
-            library=lambda: torch._int_mm(a, b))
+            "int8_matmul", f"{label}, B column-major (split-K "
+            f"{ops.int8_matmul_split(m, n, k, sms)}; library "
+            "torch._int_mm on row-major B, the product only)",
+            lambda: ops.int8_matmul(a, bc, sa, sb, s_out=so, bias=bias),
+            lambda: ref.int8_matmul(a, bc, sa, sb, s_out=so, bias=bias),
+            flush, m * k + k * n + 4 * n + out_bytes, 2 * m * n * k,
+            INT8_OPS_S, library=lambda: torch._int_mm(a, b))
         res.setdefault("int8_matmul", r)
+        # a row-major B takes one transposing copy in the wrapper first
+        def row_major():
+            return ops.int8_matmul(a, b, sa, sb, s_out=so, bias=bias)
+
+        same = torch.equal(row_major(), ops.int8_matmul(
+            a, bc, sa, sb, s_out=so, bias=bias))
+        require(same, f"int8_matmul {label}: row-major B differs from "
+                "column-major B")
+        log(f"kernel int8_matmul {label}: B row-major (copy + kernel) equals"
+            f" B column-major bit for bit; ms="
+            f"{time_ms(row_major, flush):.5f}")
     rows, cols = 12 * m, m
     q = ints(-2047, 2048, (rows, cols), torch.int32)
     res["i_softmax"] = _ibert_case(
@@ -583,34 +606,40 @@ def _busy_us(spans) -> float:
     return busy
 
 
-def profile_phase(dev) -> None:
-    """Where the main serve route's time goes: one Poisson stream served
+def profile_phase(dev, kv_dtype: str = "bf16") -> None:
+    """Where a paged serve route's time goes: one Poisson stream served
     under torch.profiler by the continuous-batching engine on a paged
-    bf16 arena.  Prints the device's busy share of the window (union of
-    kernel and copy intervals over the host clock), paged_flash_decode's
-    share of device time, and device ops per decode step.  The
-    profiler's own host cost lowers the busy share somewhat, and its
-    handling of the window's events takes far longer than the stream,
-    so only the main route is profiled here."""
+    bf16 (the main route) or int8 arena.  Prints the device's busy share
+    of the window (union of kernel and copy intervals over the host
+    clock), the route's decode kernel's share of device time, and device
+    ops per decode step.  The profiler's own host cost lowers the busy
+    share somewhat, and its handling of the window's events takes far
+    longer than the stream, so only the two paged routes are profiled."""
     args = serve_cli.parse_args(["--requests", "16", "--max-batch", "8",
-                                 "--max-new", "32", "--seed", "3"])
+                                 "--max-new", "32", "--seed", "3",
+                                 "--kv-dtype", kv_dtype])
     cfg = get_config(args.arch)
-    kernel = "paged_flash_decode"
+    kernel = ("paged_flash_decode_q" if kv_dtype == "int8"
+              else "paged_flash_decode")
     engine = ContinuousBatchingEngine(make_model(cfg, device=dev),
                                       init_params(cfg, seed=0, device=dev),
                                       max_batch=args.max_batch,
-                                      buckets=serve_cli.BUCKETS)
+                                      buckets=serve_cli.BUCKETS,
+                                      kv_dtype=kv_dtype)
     for r in serve_cli.make_stream(args, cfg.vocab_size, args.seed):
         engine.submit(r)
     spans, wall_us = _device_spans(engine.run)
     if not spans:
-        log("profile cb paged bf16: the profiler recorded no device time "
-            "(not measured)")
+        log(f"profile cb paged {kv_dtype}: the profiler recorded no device "
+            "time (not measured)")
         return
     kern = [e - s for s, e, name in spans if f"{kernel}_kernel" in name]
     dev_total = sum(e - s for s, e, _ in spans)
     steps = engine.stats["decode_steps"]
-    log(f"profile cb paged bf16 poisson x16 (B=8, max_new 32): "
+    require(len(kern) == cfg.n_layers * steps, f"profile cb paged "
+            f"{kv_dtype}: {len(kern)} {kernel} spans, want {cfg.n_layers} x "
+            f"{steps}")
+    log(f"profile cb paged {kv_dtype} poisson x16 (B=8, max_new 32): "
         f"wall_ms={wall_us / 1e3:.2f} "
         f"device_busy_share={_busy_us(spans) / wall_us:.4f} "
         f"device_kernel_ms={dev_total / 1e3:.2f} {kernel}_share_of_device="
@@ -1075,8 +1104,9 @@ def kernels_phase(dev) -> dict:
     main_shape["flash_decode"] = flash_decode_phase(dev, flush, sk=192)
     flash_decode_phase(dev, flush, sk=192, window=48)
     flash_decode_phase(dev, flush, sk=2048)
-    # kernels 1 and 3 at phi3-medium-14b's heads: the hd-128 instances
+    # kernels 1-3 at phi3-medium-14b's heads: the hd-128 instances
     kernel_phase(dev, flush, maxp=128, kvh=10, g=4, hd=128)
+    paged_q_phase(dev, flush, maxp=128, kvh=10, g=4, hd=128)
     flash_decode_phase(dev, flush, sk=2048, kvh=10, g=4, hd=128)
     main_shape.update(ibert_kernel_phase(dev, flush))
     bf, f32 = torch.bfloat16, torch.float32
@@ -1142,7 +1172,8 @@ def main() -> None:
         serve_phase("poisson", 16, engine="wave"),
         serve_phase("poisson", 16, paged=False),
         serve_phase("poisson", 16, kv_dtype="int8")])
-    timed("profile", lambda: profile_phase(dev))
+    timed("profile", lambda: [profile_phase(dev, k) for k in ("bf16",
+                                                              "int8")])
     timed("model", lambda: [model_phase(k) for k in ("paged", "dense",
                                                      "int8")])
     launches = {k: sum(s["launches"] for s in served if s["kernel"] == k)

@@ -1,7 +1,9 @@
-// The body of the bf16 single-query decode kernels on Hopper (sm_90a):
-// paged_flash_decode.cu (page arena) and flash_decode.cu (dense slot
-// cache).  Each kernel supplies only a loader, which maps a lane's key
-// slot to its K/V row and kpos; the schedule and the softmax are here.
+// The body of the single-query decode kernels on Hopper (sm_90a):
+// paged_flash_decode.cu (bf16 page arena), flash_decode.cu (bf16 dense
+// slot cache) and paged_flash_decode_q.cu (int8 page arena with f32 row
+// scales).  Each kernel supplies only a loader, which maps a lane's key
+// slot to its K/V row and kpos and says how a staged row becomes f32;
+// the schedule and the softmax are here.
 //
 // The function (as the Pallas bodies and kernels/ref.py):
 //   * a key counts iff kpos <= qpos and, when window > 0, qpos - kpos <
@@ -9,14 +11,15 @@
 //   * f32 scores, an online f32 softmax with NEG_INF = -1e30, p taken from
 //     the mask and never from the scores, so keys that do not count add
 //     exact zeros and a split that holds none adds l = 0, acc = 0;
-//   * p is rounded to bf16 before the PV product when kRoundP; sums stay
-//     f32;
+//   * p is rounded to bf16 before the PV product when kRoundP (the bf16
+//     caches) and stays f32 otherwise (the int8 arena); sums stay f32;
 //   * out = acc / max(l, 1e-30) in bf16; an inactive lane writes exact
 //     zeros and reads no keys.
 //
-// What bounds it: device-memory bytes (the kept keys' K and V rows, and
-// the kpos of the walked slots); ~4*G flops per K/V element is far below
-// the card's flop-to-byte balance, so FMAs suffice and G is not padded.
+// What bounds it: device-memory bytes (the kept keys' K and V rows and
+// their scales, and the kpos of the walked slots); ~4*G flops per K/V
+// element is far below the card's flop-to-byte balance, so FMAs suffice
+// and G is not padded.
 //
 // Schedule:
 //   * One cluster of kSplit blocks per (lane, kv head).  The lane's key
@@ -26,11 +29,12 @@
 //   * Exact skip: before a tile's K/V are loaded, lane r of the warp reads
 //     row r's kpos (and, for a page arena, its page id), and a ballot
 //     gives the tile's keep mask.  A tile with no kept key loads nothing;
-//     in the others only kept rows are copied and the rest are
-//     zero-filled, so no row that does not count is ever read.
+//     in the others only kept rows (and their scales) are copied and the
+//     rest are zero-filled, so no row that does not count is ever read.
 //   * Loads: each warp keeps a ring of kStages tiles in shared memory,
-//     filled by 16-byte cp.async; the next tile's kpos and page id are
-//     read while the ring's other stage is still in flight.
+//     filled by cp.async (16 bytes a row chunk, 4 bytes a scale); the
+//     next tile's kpos and page id are read while the ring's other stage
+//     is still in flight.
 //   * Scores: hd/8 lanes hold one key row, 8 values each, so a warp pass
 //     scores 256/hd keys for all G heads against q in registers and
 //     reduces each score with log2(hd/8) shuffles.  Lanes that hold the
@@ -51,10 +55,18 @@
 //                                          no key
 //   const void* k_src(int row, int c) const;   16-byte chunk c of K row
 //   const void* v_src(int row, int c) const;   ... and of V row
-//   static constexpr int kRowBytes;        bytes of one staged row
+//   static constexpr int kRowBytes;        bytes of one staged row (a
+//                                          multiple of 16)
 //   static void unpack(const unsigned char* row, int c, float out[8]);
 //                                          the row's values 8c..8c+7
-// A dequantizing loader (int8 rows and their scales) fits the same hook.
+//   static constexpr bool kScaled;         rows carry one f32 scale each;
+//                                          then also
+//   const float* ks_src(int row) const;    the K row's scale
+//   const float* vs_src(int row) const;    ... and the V row's
+// A scaled row's values are unpack's times its scale, one f32 rounding
+// each (float(int8) * scale, as kv_dequantize); a row that does not count
+// gets the scale 0, so a NaN or inf scale that is never copied cannot
+// reach the sums.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -85,6 +97,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool on) 
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
                "r"(on ? 16 : 0));
 }
+// 4 bytes global -> shared, asynchronous; zero-filled when !on
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool on) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(on ? 4 : 0));
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -104,13 +122,16 @@ __device__ __forceinline__ void unpack_bf16x8(const uint4 u, float f[8]) {
 }
 
 // Shared memory of one block: per warp a ring of kStages tiles (K rows,
-// then V rows), then the warps' partials (m, l, acc) and the block's.
-// Rows of 256 bytes (hd 128) get one stage, so that three blocks (12
-// warps, 12 tiles in flight) fit on an SM rather than one.
+// then V rows, then for a scaled loader the K and V rows' scales), then
+// the warps' partials (m, l, acc) and the block's.  Rows of 256 bytes
+// (bf16 at hd 128) get one stage, so that three blocks (12 warps, 12
+// tiles in flight) fit on an SM rather than one.
 template <int HD, int GMAX, typename Loader>
 struct Smem {
   static constexpr int kStages = Loader::kRowBytes >= 256 ? 1 : 2;
-  static constexpr int kStageBytes = 2 * kTile * Loader::kRowBytes;
+  static constexpr int kRowsBytes = 2 * kTile * Loader::kRowBytes;
+  static constexpr int kStageBytes =
+      kRowsBytes + (Loader::kScaled ? 2 * kTile * (int)sizeof(float) : 0);
   static constexpr size_t kRing = (size_t)kWarps * kStages * kStageBytes;
   static constexpr size_t kPart = (size_t)GMAX * (HD + 2);  // floats
   static constexpr size_t kBytes = kRing + (kWarps + 1) * kPart * sizeof(float);
@@ -135,9 +156,12 @@ __device__ __forceinline__ void decode(const __nv_bfloat16* __restrict__ qb,
   constexpr int kKpp = 32 / kCpr;    // keys per warp pass
   constexpr int kPasses = kTile / kKpp;
   constexpr int kRowBytes = Loader::kRowBytes;
+  constexpr int kChunks = kRowBytes / 16;  // 16-byte copies per row
   constexpr int kStages = Smem<HD, GMAX, Loader>::kStages;
   constexpr int kStageBytes = Smem<HD, GMAX, Loader>::kStageBytes;
+  constexpr int kRowsBytes = Smem<HD, GMAX, Loader>::kRowsBytes;
   static_assert(HD % 8 == 0 && kCpr <= 32 && kKpp <= 16, "head_dim 16..256");
+  static_assert(kRowBytes % 16 == 0 && kChunks <= 32, "rows of 16..512 bytes");
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -176,20 +200,26 @@ __device__ __forceinline__ void decode(const __nv_bfloat16* __restrict__ qb,
     if (i < n_my) mt.row = ld.row((first + i * kWarps) * kTile + lane, &mt.kp);
     return mt;
   };
-  // the ballot gives tile i's keep mask (to *mask); its kept rows are
-  // copied into its stage and the others zero-filled
+  // the ballot gives tile i's keep mask (to *mask); its kept rows (and
+  // their scales) are copied into its stage and the others zero-filled
   auto issue = [&](int i, const Meta& mt, unsigned* mask) {
     *mask = __ballot_sync(0xffffffffu, mt.row >= 0 && keep(mt.kp, qpos, window));
     if (*mask) {
       unsigned char* st = ring + (i % kStages) * kStageBytes;
 #pragma unroll
-      for (int e = lane; e < kTile * kCpr; e += 32) {
-        const int r = e / kCpr;
-        const int cc = e % kCpr;
+      for (int e = lane; e < kTile * kChunks; e += 32) {
+        const int r = e / kChunks;
+        const int cc = e % kChunks;
         const int src = __shfl_sync(0xffffffffu, mt.row, r);
         const bool on = (*mask >> r) & 1u;
         cp_async16(st + r * kRowBytes + cc * 16, ld.k_src(on ? src : 0, cc), on);
         cp_async16(st + (kTile + r) * kRowBytes + cc * 16, ld.v_src(on ? src : 0, cc), on);
+      }
+      if constexpr (Loader::kScaled) {  // lane r: row r's two scales
+        const bool on = (*mask >> lane) & 1u;
+        float* sc = reinterpret_cast<float*>(st + kRowsBytes);
+        cp_async4(sc + lane, ld.ks_src(on ? mt.row : 0), on);
+        cp_async4(sc + kTile + lane, ld.vs_src(on ? mt.row : 0), on);
       }
     }
     cp_async_commit();  // one group per tile, empty or not
@@ -217,6 +247,16 @@ __device__ __forceinline__ void decode(const __nv_bfloat16* __restrict__ qb,
         float kf[8], vf[8];
         Loader::unpack(st + r * kRowBytes, c, kf);
         Loader::unpack(st + (kTile + r) * kRowBytes, c, vf);
+        if constexpr (Loader::kScaled) {  // dequantize: one rounding each
+          const float* sc = reinterpret_cast<const float*>(st + kRowsBytes);
+          const float sk = sc[r];
+          const float sv = sc[kTile + r];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            kf[j] = __fmul_rn(kf[j], sk);
+            vf[j] = __fmul_rn(vf[j], sv);
+          }
+        }
 #pragma unroll
         for (int gi = 0; gi < GMAX; ++gi) {
           float s0 = 0.f, s1 = 0.f;

@@ -46,6 +46,7 @@ using decode_split::kThreads;
 template <int HD>
 struct DenseLoader {
   static constexpr int kRowBytes = HD * 2;
+  static constexpr bool kScaled = false;
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   const int* kpos;  // the cache's kpos, (B, Sk)

@@ -26,14 +26,22 @@ launches = {"paged_flash_decode": 0, "paged_flash_decode_q": 0,
 
 HEAD_DIMS = (16, 64, 128)  # the decode kernels' compiled head_dim instances
 MAX_GROUP = 8  # query heads per kv head the decode kernels take
-# the bf16 decode kernels' schedule, as csrc/decode_split.cuh's kTile,
-# kSplit and kWarps (a CPU test holds them equal): a lane's key slots are
-# walked in tiles of DECODE_TILE slots, split over a cluster of
-# DECODE_SPLITS blocks of DECODE_WARPS warps; a tile with no kept key is
-# skipped unread
+# the decode kernels' schedule (the bf16 ones and the int8 one share it),
+# as csrc/decode_split.cuh's kTile, kSplit and kWarps (a CPU test holds
+# them equal): a lane's key slots are walked in tiles of DECODE_TILE
+# slots, split over a cluster of DECODE_SPLITS blocks of DECODE_WARPS
+# warps; a tile with no kept key is skipped unread
 DECODE_TILE = 32
 DECODE_SPLITS = 8
 DECODE_WARPS = 4
+# int8_matmul's tiling, as csrc/int8_matmul.cu's BM, BN, BK and kMaxSplit
+# (a CPU test holds them equal): INT8_MM_BM x INT8_MM_BN output tiles, K
+# in steps of INT8_MM_BK, each tile's steps split over a cluster of up to
+# INT8_MM_MAX_SPLIT blocks
+INT8_MM_BM = 64
+INT8_MM_BN = 64
+INT8_MM_BK = 64
+INT8_MM_MAX_SPLIT = 8
 FA_HEAD_DIMS = (16, 32, 64, 128)  # flash_attention's compiled instances
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -47,7 +55,7 @@ _SIGNATURES = {
     "flash_decode": ("flash_decode_bf16", [_P] * 7 + [_I] * 6 + [_P]),
     "flash_attention": ("flash_attention", [_P] * 4 + [_I] * 7 + [_P]),
     "int8_matmul": ("int8_matmul", [_P] * 4 + [_I] * 3 + [_F] * 3
-                    + [_I, _P]),
+                    + [_I, _I, _P]),
     "i_softmax": ("i_softmax", [_P, _P, _I, _I, _F, _P]),
     "i_layernorm": ("i_layernorm", [_P] * 4 + [_I, _I, _P]),
     "i_gelu": ("i_gelu", [_P, _P, ctypes.c_longlong, _F, _P]),
@@ -202,7 +210,10 @@ def paged_flash_decode_q(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns (B, H, hd) in q.dtype; an inactive lane is exact zeros.
 
     On the card: bf16 q, int8 k/v, f32 scales, int32 kpos/page_table/qpos,
-    contiguous, hd in HEAD_DIMS; anything else raises.
+    contiguous, hd in HEAD_DIMS; anything else raises.  The kernel runs
+    the bf16 kernels' schedule (DECODE_TILE-slot tiles skipped by kpos,
+    DECODE_SPLITS blocks of one cluster), reading only the kept rows and
+    their scales.
     """
     name = "paged_flash_decode_q"
     b, kvh, active = _decode_shapes(name, q, k, v, qpos, active)
@@ -320,14 +331,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def int8_matmul_split(m: int, n: int, k: int, sms: int) -> int:
+    """Blocks of one cluster that share each output tile's K steps: the
+    smallest power of two (at most INT8_MM_MAX_SPLIT) that gives `sms`
+    blocks or more, as long as every block keeps a K step."""
+    tiles = -(-m // INT8_MM_BM) * -(-n // INT8_MM_BN)
+    steps = -(-k // INT8_MM_BK)
+    split = 1
+    while (split < INT8_MM_MAX_SPLIT and tiles * split < sms
+           and 2 * split <= steps):
+        split *= 2
+    return split
+
+
 def int8_matmul(a: torch.Tensor, b: torch.Tensor, s_a, s_b, s_out=None,
                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """INT8 (M, K) @ INT8 (K, N) -> INT32 accumulators, plus an optional
     int32 bias (N,) at scale s_a*s_b; with `s_out`, requantized to INT8 at
     s_out (round half away from zero, clip to ±127).
 
-    On the card: a, b int8 and bias int32, contiguous; M, N, K of any size
-    (the kernel masks ragged edges).
+    On the card: a int8 row-major (contiguous), bias int32 contiguous; b
+    int8 of shape (K, N) stored column-major (``b.t()`` contiguous, as
+    `models/ibert.py` keeps its weights) goes to the kernel as it is, and
+    a row-major b takes one transposing copy first (the kernel reads both
+    operands K-major); M, N, K of any size (the kernel masks ragged
+    edges).
     """
     name = "int8_matmul"
     _check(a.dim() == 2 and b.dim() == 2 and a.shape[1] == b.shape[0],
@@ -340,8 +368,11 @@ def int8_matmul(a: torch.Tensor, b: torch.Tensor, s_a, s_b, s_out=None,
            name)
     if a.device.type == "cpu":
         return _ref.int8_matmul(a, b, s_a, s_b, bias=bias, s_out=s_out)
-    tensors, dtypes = {"a": a, "b": b}, {"a": torch.int8, "b": torch.int8,
-                                         "bias": torch.int32}
+    bt = b.t()  # (N, K): row-major when b is column-major
+    if not bt.is_contiguous() and b.is_contiguous():
+        bt = bt.contiguous()
+    tensors = {"a": a, "b": bt}
+    dtypes = {"a": torch.int8, "b": torch.int8, "bias": torch.int32}
     if bias is not None:
         tensors["bias"] = bias
     _check_cuda(name, dtypes, **tensors)
@@ -350,10 +381,12 @@ def int8_matmul(a: torch.Tensor, b: torch.Tensor, s_a, s_b, s_out=None,
                       device=a.device)
     if out.numel() == 0:
         return out
-    _launch(name, a.device, a.data_ptr(), b.data_ptr(),
+    _launch(name, a.device, a.data_ptr(), bt.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(), m,
             n, k, _scale(s_a), _scale(s_b),
-            _scale(s_out) if requant else 1.0, int(requant))
+            _scale(s_out) if requant else 1.0, int(requant),
+            int8_matmul_split(m, n, k, torch.cuda.get_device_properties(
+                a.device).multi_processor_count))
     return out
 
 

@@ -163,9 +163,14 @@ def _cpu_ln(prep: iops.LNParams) -> iops.LNParams:
 
 
 def _q_lin(lin: Params, s_in: torch.Tensor) -> Params:
+    """int8 weight (K, N) at its scale, and the int32 bias.  The weight
+    keeps the reference's shape and values but is stored column-major
+    (``w.t()`` contiguous): the int8_matmul kernel reads it K-major as it
+    is, so the encoder's path takes no transposing copy."""
     w = quantize(lin["w"])
     b_int = torch.round(fdiv(lin["b"], s_in.to(w.scale.device) * w.scale))
-    return {"w": w.values, "s_w": w.scale.cpu(), "b": b_int.to(torch.int32)}
+    return {"w": w.values.t().contiguous().t(), "s_w": w.scale.cpu(),
+            "b": b_int.to(torch.int32)}
 
 
 def quantize_ibert(params: Params, cfg: ModelConfig,

@@ -1,9 +1,10 @@
-"""The card's bf16 decode schedule, repeated in torch on the CPU.
+"""The card's decode schedule, repeated in torch on the CPU.
 
-The CUDA body of `paged_flash_decode` and `flash_decode`
-(`src/repro_torch/kernels/csrc/decode_split.cuh`) cannot run here, so
-`decode_schedule` repeats its arithmetic, and the CPU tests hold it
-against the plain version and the JAX package's Pallas body:
+The CUDA body of `paged_flash_decode`, `flash_decode` and
+`paged_flash_decode_q` (`src/repro_torch/kernels/csrc/decode_split.cuh`)
+cannot run here, so `decode_schedule` repeats its arithmetic, and the CPU
+tests hold it against the plain versions and the JAX package's Pallas
+bodies:
 
 * a lane's key slots are cut into tiles of `ops.DECODE_TILE` slots;
   split s of `ops.DECODE_SPLITS` takes tiles [n*s/S, n*(s+1)/S), dealt to
@@ -23,6 +24,11 @@ against the plain version and the JAX package's Pallas body:
 
 `paged_schedule` maps slot j of a lane to row j % ps of page
 page_table[b, j // ps], as the paged kernel's loader does.
+`paged_q_schedule` does the same over an int8 arena, as the int8
+kernel's loader does: each row is dequantized as float(int8) * its f32
+scale (one rounding, `kv_dequantize`), q is promoted to f32, and p stays
+f32 for the PV product (V is f32, so rounding p to V's dtype is none);
+the result is rounded to q's dtype once, at the end.
 
 `decode_limit` is the card tests' bound on |kernel - plain|.
 """
@@ -31,6 +37,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.quant import kv_dequantize
 from repro_torch.kernels import ops, ref
 
 
@@ -147,3 +154,20 @@ def paged_schedule(q, k, v, kpos, page_table, qpos, active=None,
         q, k[pt].reshape(b, -1, kvh, hd), v[pt].reshape(b, -1, kvh, hd),
         kpos[pt].reshape(b, -1), qpos, active=active,
         with_split_counts=with_split_counts)
+
+
+def paged_q_schedule(q, k, v, k_scale, v_scale, kpos, page_table, qpos,
+                     active=None, with_split_counts=False):
+    """Paged decode over an int8 arena by the card's schedule: k/v (P, ps,
+    KVH, hd) int8, k_scale/v_scale (P, ps, KVH) f32.  Returns (B, H, hd)
+    in q.dtype (and the split counts, as `decode_schedule`)."""
+    b = q.shape[0]
+    kvh, hd = k.shape[2], k.shape[3]
+    pt = page_table.long()
+    kd, vd = (kv_dequantize(x[pt], sc[pt]).reshape(b, -1, kvh, hd)
+              for x, sc in ((k, k_scale), (v, v_scale)))
+    got = decode_schedule(q.float(), kd, vd, kpos[pt].reshape(b, -1), qpos,
+                          active=active, with_split_counts=with_split_counts)
+    if with_split_counts:
+        return got[0].to(q.dtype), got[1]
+    return got.to(q.dtype)

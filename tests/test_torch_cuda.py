@@ -286,6 +286,52 @@ def test_paged_flash_decode_q_kernel_matches_plain(dev, g, ps, maxp, hd):
     assert (out[~act] == 0).all()
 
 
+@pytest.mark.parametrize("hd,g", [(16, 8), (64, 3), (128, 4)])
+def test_paged_decode_q_skip_reads_no_skipped_tile(dev, hd, g):
+    """The int8 twin of the test above: rows of tiles with no kept key,
+    and rows that no active lane counts (stale, never written, an
+    inactive lane's), hold garbage int8 values and NaN / inf scales; the
+    kernel reads none of them, so the output does not change by one
+    bit."""
+    tile = ops.DECODE_TILE
+    b, kvh, ps, maxp = 5, 2, tile, 8  # one page per tile
+    q, k, v, kpos, pt, qpos, act = _inputs(hd * 3 + g, b, kvh, g, hd, ps,
+                                           maxp, dev)
+    act[:] = True
+    act[3] = False
+    n0 = k.shape[0]
+    k, v = (torch.cat([x, x[1:maxp + 1]]) for x in (k, v))
+    kpos = torch.cat([kpos, torch.full((maxp, ps), SENTINEL, dtype=torch.int32,
+                                       device=dev)])
+    qpos[1] = 2 * tile + 5
+    for j in range(int(qpos[1]) // ps + 1, maxp):  # stale pages, as above
+        pt[1, j] = n0 + j
+        kpos[n0 + j] = j * ps + torch.arange(ps, dtype=torch.int32,
+                                             device=dev)
+    q8, k8, v8, ks, vs, *_ = _quantized((q, k, v))
+    # (page, row) pairs some active lane counts; every other row is junk
+    counted = torch.zeros(kpos.shape, dtype=torch.bool)
+    kp, ptc = kpos.cpu(), pt.cpu().long()
+    for lane in range(b):
+        if act[lane]:
+            counted[ptc[lane]] |= kp[ptc[lane]] <= int(qpos[lane])
+    junk = (~counted).to(dev)
+    assert bool(junk[0].all()) and bool(junk[n0 + maxp - 1].all())
+    assert 0 < int(junk[1:n0].sum()) < junk[1:n0].numel()  # in kept tiles
+    args = (kpos, pt, qpos)
+    clean = ops.paged_flash_decode_q(q8, k8, v8, ks, vs, *args, active=act)
+    k8d, v8d, ksd, vsd = (x.clone() for x in (k8, v8, ks, vs))
+    k8d[junk], v8d[junk] = 127, -128
+    ksd[junk], vsd[junk] = float("nan"), float("inf")
+    dirty = ops.paged_flash_decode_q(q8, k8d, v8d, ksd, vsd, *args,
+                                     active=act)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(dirty), _bits(clean))
+    want = ref.paged_flash_decode_q(q8, k8, v8, ks, vs, *args, active=act)
+    _assert_decode_close(clean, want)
+    assert (clean[~act] == 0).all()
+
+
 def test_kv_quantize_card_equals_cpu(dev):
     rng = np.random.default_rng(0)
     x = torch.tensor(rng.normal(0, 1, (4096, 64)), dtype=torch.float32)
@@ -355,6 +401,81 @@ def test_int8_matmul_kernel_matches_plain(dev, m, k, n, requant, with_bias):
                                                 bias=bias))
 
 
+def _colmajor(b):
+    """(K, N) with the same values, stored column-major."""
+    return b.t().contiguous().t()
+
+
+# the kernel reads b K-major: a column-major b goes in as it is, a
+# row-major one through one copy; every K below 16 bytes' multiple takes
+# the narrow load path, and K = 770 and 3072 split each tile's K steps
+# over a cluster (ops.int8_matmul_split)
+@pytest.mark.parametrize("m,k,n", [(1, 3, 5), (33, 65, 77), (7, 1, 1000),
+                                   (130, 770, 3072), (128, 768, 768),
+                                   (128, 3072, 768), (100, 770, 200),
+                                   (64, 3072, 96)])
+@pytest.mark.parametrize("requant", [False, True])
+def test_int8_matmul_kernel_column_major_b(dev, m, k, n, requant):
+    rng = np.random.default_rng(m * 5 + k * 11 + n)
+    a = torch.tensor(rng.integers(-127, 128, (m, k)), dtype=torch.int8)
+    b = torch.tensor(rng.integers(-127, 128, (k, n)), dtype=torch.int8)
+    bias = torch.tensor(rng.integers(-5000, 5000, (n,)), dtype=torch.int32)
+    sa, sb = torch.tensor(0.013), torch.tensor(0.021)
+    so = torch.tensor(0.9) if requant else None
+    ad, bd, biasd = a.to(dev), _colmajor(b).to(dev), bias.to(dev)
+    assert bd.t().is_contiguous()
+    n0 = ops.launches["int8_matmul"]
+    out = ops.int8_matmul(ad, bd, sa, sb, s_out=so, bias=biasd)
+    assert ops.launches["int8_matmul"] == n0 + 1
+    row = ops.int8_matmul(ad, b.to(dev), sa, sb, s_out=so, bias=biasd)
+    torch.cuda.synchronize()
+    assert torch.equal(out, row)
+    _same_everywhere(out, ref.int8_matmul(ad, bd, sa, sb, s_out=so,
+                                          bias=biasd),
+                     ref.int8_matmul(a, b, sa, sb, s_out=so, bias=bias))
+
+
+@pytest.mark.parametrize("m", [1, 2, 15, 16, 17, 63, 64, 65, 100, 127, 128])
+def test_int8_matmul_kernel_every_row_count(dev, m):
+    """M = 1..128 at the encoder's w2 shape (K = 3072: 8-way split-K)."""
+    rng = np.random.default_rng(m)
+    a = torch.tensor(rng.integers(-127, 128, (m, 3072)), dtype=torch.int8)
+    b = torch.tensor(rng.integers(-127, 128, (3072, 768)), dtype=torch.int8)
+    bias = torch.tensor(rng.integers(-20000, 20000, (768,)),
+                        dtype=torch.int32)
+    sa, sb, so = torch.tensor(0.02), torch.tensor(0.004), torch.tensor(0.3)
+    for s_out in (so, None):
+        out = ops.int8_matmul(a.to(dev), _colmajor(b).to(dev), sa, sb,
+                              s_out=s_out, bias=bias.to(dev))
+        _same_everywhere(out, ref.int8_matmul(a.to(dev), b.to(dev), sa, sb,
+                                              s_out=s_out, bias=bias.to(dev)),
+                         ref.int8_matmul(a, b, sa, sb, s_out=s_out,
+                                         bias=bias))
+
+
+def test_int8_matmul_encoder_path_takes_no_copy(dev):
+    """The encoder's weights are column-major on the card, and a call with
+    one allocates nothing but its output; a row-major b costs one more
+    allocation (its transposing copy)."""
+    from repro_torch.models import ibert as ib
+
+    lin = {"w": torch.randn(768, 3072, device=dev),
+           "b": torch.zeros(3072, device=dev)}
+    w = ib._q_lin(lin, torch.tensor(0.1))["w"]
+    assert w.device.type == "cuda" and w.t().is_contiguous()
+    a = torch.ones((128, 768), dtype=torch.int8, device=dev)
+    ops.int8_matmul(a, w, 0.1, 0.1)  # built and bound
+    torch.cuda.synchronize()
+
+    def allocations(b):
+        before = torch.cuda.memory_stats()["allocation.all.allocated"]
+        ops.int8_matmul(a, b, 0.1, 0.1)
+        return torch.cuda.memory_stats()["allocation.all.allocated"] - before
+
+    assert allocations(w) == 1
+    assert allocations(w.contiguous()) == 2
+
+
 @pytest.mark.parametrize("rows,cols", [(1, 1), (3, 513), (1536, 128),
                                        (5, 1), (1, 513)])
 @pytest.mark.parametrize("scale", [0.004, 0.02, MIN_SCALE])
@@ -411,8 +532,9 @@ def test_ibert_wrappers_refuse_what_they_cannot_run(dev):
     with pytest.raises(ValueError, match="int32"):
         ops.int8_matmul(a, b, 0.1, 0.1,
                         bias=torch.zeros(4, dtype=torch.int64, device=dev))
-    with pytest.raises(ValueError, match="contiguous"):
-        ops.int8_matmul(a, b.t().contiguous().t(), 0.1, 0.1)
+    with pytest.raises(ValueError, match="contiguous"):  # neither layout
+        ops.int8_matmul(a, torch.zeros((8, 8), dtype=torch.int8,
+                                       device=dev)[:, :4], 0.1, 0.1)
     with pytest.raises(ValueError, match=r"\(M, K\) @ \(K, N\)"):
         ops.int8_matmul(a, a, 0.1, 0.1)
     q = torch.zeros((4, 8), dtype=torch.int32, device=dev)

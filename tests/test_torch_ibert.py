@@ -121,6 +121,23 @@ def test_quantize_ibert_matches_jax_bit_for_bit(small):
             assert g.device.type == "cpu", k  # scales are host metadata
 
 
+def test_quantized_weights_are_column_major(small):
+    """quantize_ibert keeps each int8 weight (K, N) with the reference's
+    values but column-major, the layout the card's int8_matmul reads
+    without a copy; moving the tree to another device keeps it."""
+    s = small
+    act = {k: torch.from_numpy(np.array(v)) for k, v in s["act"].items()}
+    qp = tib.quantize_ibert(s["tparams"], s["tcfg"], act)
+    ws = [lin["w"] for layer in qp["layers"].values()
+          for name, lin in layer.items() if name.startswith("w")]
+    assert len(ws) == 6 * s["tcfg"].n_layers
+    for w in ws:
+        assert w.dtype == torch.int8 and w.dim() == 2
+        assert w.t().is_contiguous() and w.stride() == (1, w.shape[0])
+        moved = w.to("cpu", copy=True)  # .to(dev) keeps dense strides
+        assert moved.stride() == w.stride()
+
+
 @pytest.mark.parametrize("masked", [False, True])
 def test_int_forward_matches_jax_ref_bit_for_bit(small, masked):
     s = small

@@ -69,6 +69,33 @@ def test_int8_matmul_matches_jax(m, k, n, requant):
                 for impl in ("interpret", "ref")))
 
 
+@pytest.mark.parametrize("m,k,n", [(1, 3, 5), (33, 65, 77), (7, 1, 100),
+                                   (130, 770, 96)])
+@pytest.mark.parametrize("requant", [False, True])
+def test_int8_matmul_column_major_b_matches_row_major_and_jax(m, k, n,
+                                                             requant):
+    """b of shape (K, N) stored column-major (as `quantize_ibert` keeps its
+    weights, and as the card kernel reads it with no copy) gives the same
+    bits as the row-major b and as JAX's Pallas body, at ragged shapes."""
+    rng = np.random.default_rng(m + 10 * k + 100 * n)
+    a = rng.integers(-127, 128, (m, k)).astype(np.int8)
+    b = rng.integers(-127, 128, (k, n)).astype(np.int8)
+    bias = rng.integers(-5000, 5000, (n,)).astype(np.int32)
+    sa, sb = np.float32(0.013), np.float32(0.021)
+    so = np.float32(0.9) if requant else None
+    b_row = torch.from_numpy(b)
+    b_col = b_row.t().contiguous().t()
+    assert b_col.t().is_contiguous() and torch.equal(b_col, b_row)
+    got = [tops.int8_matmul(torch.from_numpy(a), bb, torch.tensor(sa),
+                            torch.tensor(sb), s_out=so,
+                            bias=torch.from_numpy(bias))
+           for bb in (b_col, b_row)]
+    assert torch.equal(got[0], got[1])
+    same(got[0], jops.int8_matmul(jnp.asarray(a), jnp.asarray(b), sa, sb,
+                                  s_out=so, bias=jnp.asarray(bias),
+                                  impl="interpret"))
+
+
 @pytest.mark.parametrize("sa", [0.5, 0.49999997, 0.0123])
 def test_int8_matmul_requant_rounds_half_away(sa):
     """x = acc * ratio at exact halves, and at 0.49999997, where

@@ -201,13 +201,26 @@ def test_build_returns_the_report_of_a_library_built_earlier(tmp_path,
 def test_decode_schedule_constants_match_the_cuda_body():
     """ops' DECODE_TILE, DECODE_SPLITS and DECODE_WARPS (which the CPU
     emulation and the card tests' tile placement read) equal the kTile,
-    kSplit and kWarps the CUDA body compiles with."""
+    kSplit and kWarps the CUDA body compiles with, and all three decode
+    kernels run that body: the bf16 ones rounding p to bf16, the int8 one
+    (paged_flash_decode_q.cu) keeping p in f32 with a scaled loader."""
     import os
     import re
 
-    src = os.path.join(os.path.dirname(tops.__file__), "csrc",
-                       "decode_split.cuh")
-    text = open(src).read()
+    csrc = os.path.join(os.path.dirname(tops.__file__), "csrc")
+    text = open(os.path.join(csrc, "decode_split.cuh")).read()
+    for kernel, round_p, scaled in (("paged_flash_decode", "true", "false"),
+                                    ("flash_decode", "true", "false"),
+                                    ("paged_flash_decode_q", "false",
+                                     "true")):
+        body = open(os.path.join(csrc, kernel + ".cu")).read()
+        assert '#include "decode_split.cuh"' in body, kernel
+        assert "__cluster_dims__(kSplit, 1, 1)" in body, kernel
+        calls = re.findall(r"decode_split::decode<HD, GMAX, (\w+)>", body)
+        assert calls == [round_p], (kernel, calls)
+        assert re.findall(r"static constexpr bool kScaled = (\w+);",
+                          body) == [scaled], kernel
+    assert not os.path.exists(os.path.join(csrc, "decode_attn.cuh"))
 
     def const(name):
         found = re.findall(rf"constexpr int {name} = ([^;]+);", text)
@@ -219,3 +232,44 @@ def test_decode_schedule_constants_match_the_cuda_body():
     assert int(const("kTile")) == tops.DECODE_TILE
     assert int(const("kSplit")) == tops.DECODE_SPLITS
     assert threads // 32 == tops.DECODE_WARPS
+
+
+def test_int8_matmul_constants_match_the_cuda_kernel():
+    """ops' INT8_MM_BM, INT8_MM_BN, INT8_MM_BK and INT8_MM_MAX_SPLIT (the
+    wrapper picks the split from them) equal the tile and split constants
+    int8_matmul.cu compiles with, and the kernel computes on the int8
+    tensor cores without .satfinite (which would clamp where the plain
+    version wraps)."""
+    import os
+    import re
+
+    text = open(os.path.join(os.path.dirname(tops.__file__), "csrc",
+                             "int8_matmul.cu")).read()
+    tile = re.findall(r"constexpr int BM = (\d+), BN = (\d+), BK = (\d+);",
+                      text)
+    assert tile == [(str(tops.INT8_MM_BM), str(tops.INT8_MM_BN),
+                     str(tops.INT8_MM_BK))], tile
+    split = re.findall(r"constexpr int kMaxSplit = (\d+);", text)
+    assert split == [str(tops.INT8_MM_MAX_SPLIT)], split
+    assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in text
+    asm = re.findall(r'"([^"]*)"', text)  # the inline PTX strings
+    assert not [a for a in asm if "satfinite" in a]
+
+
+@pytest.mark.parametrize("m,n,k,sms,want", [
+    (128, 768, 768, 132, 8),    # ibert-base q/k/v/wo: 24 tiles
+    (128, 3072, 768, 132, 2),   # w1: 96 tiles
+    (128, 768, 3072, 132, 8),   # w2: 24 tiles, 48 K steps
+    (1, 5, 3, 132, 1),          # one K step: no split
+    (130, 3072, 770, 132, 1),   # 144 tiles fill the card
+    (33, 77, 65, 132, 2),       # two K steps: one each
+    (64, 64, 4096, 132, 8),     # capped at INT8_MM_MAX_SPLIT
+    (128, 768, 768, 48, 2),     # a smaller card fills sooner
+])
+def test_int8_matmul_split_fills_the_card(m, n, k, sms, want):
+    got = tops.int8_matmul_split(m, n, k, sms)
+    assert got == want
+    tiles = -(-m // tops.INT8_MM_BM) * -(-n // tops.INT8_MM_BN)
+    steps = -(-k // tops.INT8_MM_BK)
+    assert 1 <= got <= tops.INT8_MM_MAX_SPLIT and got <= max(steps, 1)
+    assert got == 1 or tiles * got // 2 < sms  # the smallest that fills

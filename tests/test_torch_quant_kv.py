@@ -15,6 +15,12 @@ body) and impl="ref" (the dequantizing gather oracle) in f32, to 2e-5
 absolute and relative (the JAX package's own bar; only the summation
 order differs), on page tables with pages shared between lanes, garbage
 in the trash page and inactive lanes (exact zeros).
+
+The card kernel's schedule over the int8 arena
+(tests/decode_schedule.py `paged_q_schedule`: rows dequantized one by
+one, p kept f32, the bf16 kernels' tiles, splits and sub-streams) is held
+against both at the same limits, at hd 16/64/128, G 1-8 and MAXP up to
+128.
 """
 import numpy as np
 import pytest
@@ -23,6 +29,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from decode_schedule import decode_limit, paged_q_schedule
 from repro.core import quant as jquant
 from repro.kernels import ops as jops
 from repro.models import transformer as jtr
@@ -232,3 +239,45 @@ def test_paged_flash_decode_q_wrapper_checks():
     out = tops.paged_flash_decode_q(t[0].bfloat16(), *t[1:])
     assert out.dtype == torch.bfloat16  # the result comes back in q's dtype
     assert tops.launches == before  # the plain version is no launch
+
+
+@pytest.mark.parametrize("b,h,kvh,hd,ps,maxp", [
+    (4, 4, 4, 16, 8, 5),      # G = 1, MAXP below the split count
+    (4, 9, 3, 64, 16, 12),    # the serve path's heads and pages
+    (3, 16, 2, 128, 4, 9),    # G = 8, eight pages per tile
+    (3, 10, 2, 64, 32, 8),    # G = 5, one page per tile
+    (2, 6, 3, 16, 16, 128),   # 2,048 slots
+    (2, 8, 2, 128, 16, 17),   # G = 4 at hd 128, MAXP no multiple of 8
+])
+def test_int8_kernel_schedule_matches_plain_and_pallas_body(b, h, kvh, hd,
+                                                            ps, maxp):
+    inp = _mk_paged_q(b + h + hd + maxp, b, h, kvh, hd, ps, maxp)
+    active = np.ones(b, bool)
+    active[1] = False
+    t = {n: torch.tensor(inp[n]) for n in _ORDER}
+    got, counts = paged_q_schedule(*(t[n] for n in _ORDER),
+                                   active=torch.tensor(active),
+                                   with_split_counts=True)
+    assert got.dtype == torch.float32
+    got = got.numpy()
+    plain = tops.paged_flash_decode_q(*(t[n] for n in _ORDER),
+                                      active=torch.tensor(active)).numpy()
+    np.testing.assert_allclose(got, plain, err_msg="plain", **TOL)
+    want = np.asarray(jops.paged_flash_decode_q(
+        *(jnp.asarray(inp[n]) for n in _ORDER), active=jnp.asarray(active),
+        impl="interpret"))
+    np.testing.assert_allclose(got, want, err_msg="pallas", **TOL)
+    assert np.isfinite(got).all() and (got[~active] == 0).all()
+    # the bf16 query the card takes: the schedule rounds only its output
+    qb = t["q"].bfloat16()
+    got_b = paged_q_schedule(qb, *(t[n] for n in _ORDER[1:]),
+                             active=torch.tensor(active))
+    plain_b = tops.paged_flash_decode_q(qb, *(t[n] for n in _ORDER[1:]),
+                                        active=torch.tensor(active))
+    assert got_b.dtype == torch.bfloat16
+    diff = (got_b.float() - plain_b.float()).abs()
+    assert bool((diff <= decode_limit(plain_b)).all()), diff.max().item()
+    # every kept key lies in exactly one split
+    kept = (inp["kpos"][inp["pt"]].reshape(b, -1)
+            <= inp["qpos"][:, None]).sum(1)
+    assert counts.sum(1)[active].tolist() == kept[active].tolist()
