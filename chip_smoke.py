@@ -24,7 +24,8 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    three decode kernels agree within DECODE_ATOL + 2^-7 |want| + 2^-8 W
    (W: the plain version over |v|) and give exact zeros on
    inactive lanes, and the four I-BERT integer kernels must equal their
-   plain versions bit for bit;
+   plain versions bit for bit; each I-BERT kernel is also timed beside a
+   copy of the same bytes (copy_ms);
 4. long forward: smollm-135m at full width (30 layers, random weights
    from seed 0) through `Model.forward_logits` at B=2, S=4096, `loss` on
    the same tokens and `prefill` without positions at S=1536 into 1,600
@@ -129,7 +130,7 @@ DECODE_KERNELS = ("paged_flash_decode", "paged_flash_decode_q",
 ATTN_KERNELS = DECODE_KERNELS + ("flash_attention",)
 # kernels whose every compiled instance must report 0 spill bytes
 SPILL_FREE = ("paged_flash_decode", "flash_decode", "paged_flash_decode_q",
-              "int8_matmul")
+              "int8_matmul", "i_layernorm", "i_gelu")
 LOGIT_TOL = 0.1    # 30 bf16 layers, CPU vs card summation order
 LOSS_TOL = 1e-2    # mean cross-entropy of those logits, card vs CPU
 # flash_attention vs its plain version, (atol, rtol) as |out - want| <=
@@ -437,9 +438,12 @@ def _bound(nbytes: float, nops: float, ops_rate: float):
 
 
 def _ibert_case(name: str, label: str, kernel, plain, flush, nbytes: float,
-                nops: float, ops_rate: float, library=None) -> dict:
+                nops: float, ops_rate: float, library=None,
+                copy_src=None) -> dict:
     """One I-BERT kernel at one shape: bit-exact against its plain version
-    on the same card inputs, then timed beside it."""
+    on the same card inputs, then timed beside it and beside a copy that
+    moves the same bytes (`copy_src` copied, or a byte buffer of half
+    `nbytes`): one launch's practical floor on this card, cold L2."""
     out, want = kernel(), plain()
     torch.cuda.synchronize()
     require(out.dtype == want.dtype and out.shape == want.shape,
@@ -463,6 +467,13 @@ def _ibert_case(name: str, label: str, kernel, plain, flush, nbytes: float,
     log(f"kernel {name} {label}: max_abs_err={err} (bit-exact) ms={ms:.5f} "
         f"plain_ms={plain_ms:.5f} {lib} bound_ms={bound_ms:.6f} "
         f"({bound_by}; {nbytes:.0f} bytes, {nops:.4g} ops)")
+    src = (copy_src if copy_src is not None else
+           torch.empty(int(nbytes) // 2, dtype=torch.uint8, device=out.device))
+    dst = torch.empty_like(src)
+    copy_ms = time_ms(lambda: dst.copy_(src), flush)
+    log(f"kernel {name} {label}: copy_ms={copy_ms:.5f} (a same-bytes "
+        f"yardstick, not a library call: {2 * src.nbytes} bytes moved by "
+        f"one copy_; kernel / copy {ms / copy_ms:.2f})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms)
 
@@ -514,7 +525,8 @@ def ibert_kernel_phase(dev, flush) -> dict:
     res["i_softmax"] = _ibert_case(
         "i_softmax", f"({rows}, {cols})", lambda: ops.i_softmax(q, 0.004),
         lambda: ref.i_softmax_rows(q, 0.004), flush, 2 * 4 * rows * cols,
-        IBERT_OPS_PER_ELEM["i_softmax"] * rows * cols, F32_FLOP_S)
+        IBERT_OPS_PER_ELEM["i_softmax"] * rows * cols, F32_FLOP_S,
+        copy_src=q)
     r = ints(-127, 128, (m, d), torch.int32) + ints(-127, 128, (m, d),
                                                     torch.int32)
     prep = ibert_ops.layernorm_prepare(
@@ -525,12 +537,12 @@ def ibert_kernel_phase(dev, flush) -> dict:
         "i_layernorm", f"({m}, {d})", lambda: ops.i_layernorm(r, prep)[0],
         lambda: ref.i_layernorm_rows(r, prep.q_gamma, prep.q_beta), flush,
         2 * 4 * m * d + 2 * 4 * d, IBERT_OPS_PER_ELEM["i_layernorm"] * m * d,
-        F32_FLOP_S)
+        F32_FLOP_S, copy_src=r)
     g = ints(-2047, 2048, (m, f), torch.int32)
     res["i_gelu"] = _ibert_case(
         "i_gelu", f"({m}, {f})", lambda: ops.i_gelu(g, 0.003),
         lambda: ref.i_gelu_elem(g, 0.003), flush, 2 * 4 * m * f,
-        IBERT_OPS_PER_ELEM["i_gelu"] * m * f, F32_FLOP_S)
+        IBERT_OPS_PER_ELEM["i_gelu"] * m * f, F32_FLOP_S, copy_src=g)
     return res
 
 

@@ -491,36 +491,59 @@ def test_i_softmax_kernel_matches_plain(dev, rows, cols, scale):
                      ref.i_softmax_rows(q, scale))
 
 
-@pytest.mark.parametrize("rows,h", [(1, 768), (128, 768), (5, 513), (3, 1)])
-def test_i_layernorm_kernel_matches_plain(dev, rows, h):
+def _on_card(t, dev, offset):
+    """t on the card, contiguous; at offset 1 a view one element into a
+    larger buffer, so its base is not 16-byte aligned."""
+    flat = torch.empty(t.numel() + offset, dtype=t.dtype, device=dev)
+    out = flat[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# H: 1 and 513 (the scalar path), 768 (ibert-base, whole in registers),
+# 4096 and 8192 (chunks of 1024); offset 1: an unaligned base
+@pytest.mark.parametrize("rows,h", [(r, h) for r in (1, 5, 128, 384)
+                                    for h in (1, 513, 768, 4096, 8192)]
+                         + [(3, 1)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_i_layernorm_kernel_matches_plain(dev, rows, h, offset):
     rng = np.random.default_rng(rows * h)
     r = (rng.integers(-127, 128, (rows, h))
          + rng.integers(-127, 128, (rows, h)))
     r[0] -= 120  # a negative mean
+    if rows > 3:  # far outside the residual range: var << 14 wraps
+        r[1] = np.where(np.arange(h) % 2, -470, 470)  # to < 0: 20 steps
+        r[2] = rng.integers(-2 ** 12, 2 ** 12, h)
+        r[3] = rng.integers(-2 ** 20, 2 ** 20, h)  # the var sum wraps too
     q = torch.tensor(r, dtype=torch.int32)
     prep = io.layernorm_prepare(
         torch.tensor(rng.uniform(-1.5, 1.5, h), dtype=torch.float32),
         torch.tensor(rng.normal(0, 0.3, h), dtype=torch.float32))
     prep_dev = prep._replace(q_gamma=prep.q_gamma.to(dev),
                              q_beta=prep.q_beta.to(dev))
+    qd = _on_card(q, dev, offset)
     n0 = ops.launches["i_layernorm"]
-    out, s_out = ops.i_layernorm(q.to(dev), prep_dev)
+    out, s_out = ops.i_layernorm(qd, prep_dev)
     assert ops.launches["i_layernorm"] == n0 + 1
     assert s_out is prep.s_out
-    _same_everywhere(out, ref.i_layernorm_rows(q.to(dev), prep_dev.q_gamma,
+    _same_everywhere(out, ref.i_layernorm_rows(qd, prep_dev.q_gamma,
                                                prep_dev.q_beta),
                      ref.i_layernorm_rows(q, prep.q_gamma, prep.q_beta))
 
 
-@pytest.mark.parametrize("shape", [(1, 1), (3, 513), (128, 3072), (2, 5, 7)])
+# n = 1, 3 and 4099: a ragged last vector; offset 1: the scalar path
+@pytest.mark.parametrize("shape", [(1, 1), (3, 513), (128, 3072), (2, 5, 7),
+                                   (3,), (4099,)])
 @pytest.mark.parametrize("scale", [0.003, MIN_SCALE, 1e-6, 0.3])
-def test_i_gelu_kernel_matches_plain(dev, shape, scale):
+@pytest.mark.parametrize("offset", [0, 1])
+def test_i_gelu_kernel_matches_plain(dev, shape, scale, offset):
     rng = np.random.default_rng(sum(shape))
     q = torch.tensor(rng.integers(-2047, 2048, shape), dtype=torch.int32)
+    qd = _on_card(q, dev, offset)
     n0 = ops.launches["i_gelu"]
-    out = ops.i_gelu(q.to(dev), scale)
+    out = ops.i_gelu(qd, scale)
     assert ops.launches["i_gelu"] == n0 + 1
-    _same_everywhere(out, ref.i_gelu_elem(q.to(dev), scale),
+    _same_everywhere(out, ref.i_gelu_elem(qd, scale),
                      ref.i_gelu_elem(q, scale))
 
 

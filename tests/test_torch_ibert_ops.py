@@ -204,7 +204,8 @@ def _ln_same(q: np.ndarray, gamma: np.ndarray, beta: np.ndarray) -> None:
     same(s_out, jprep.s_out)
 
 
-@pytest.mark.parametrize("rows,h", [(8, 768), (9, 576), (16, 64), (3, 8192)])
+@pytest.mark.parametrize("rows,h", [(8, 768), (9, 576), (16, 64), (3, 8192),
+                                    (5, 1), (3, 513)])
 def test_i_layernorm_matches_jax(rows, h):
     rng = np.random.default_rng(rows + h)
     x = rng.normal(0, 2, (rows, h)).astype(np.float32)
@@ -224,6 +225,22 @@ def test_i_layernorm_residual_sums_and_negative_means():
     r[3] = -37  # zero variance
     r[4] = np.where(rng.random(h) < 0.5, 254, -254)
     r[5] = np.where(rng.random(h) < 0.9, -254, 254)
+    _ln_same(r.astype(np.int32), rng.uniform(-1.5, 1.5, h).astype(np.float32),
+             rng.normal(0, 0.3, h).astype(np.float32))
+
+
+@pytest.mark.parametrize("h", [2, 513, 768])
+def test_i_layernorm_rows_whose_variance_wraps(h):
+    """Values far outside the residual range, as the card tests feed the
+    kernel: at +-470 (var = 220900) var << 14 wraps to -675741696, where
+    i_sqrt runs all 20 steps; at +-400 to -1673527296, where a step's sum
+    wraps and stops it; at +-2^20 the int32 sum of squares wraps too."""
+    rng = np.random.default_rng(h)
+    sign = np.where(np.arange(h) % 2, -1, 1)
+    r = np.stack([470 * sign, 400 * sign,
+                  rng.integers(-2 ** 12, 2 ** 12, h),
+                  rng.integers(-2 ** 20, 2 ** 20, h),
+                  rng.integers(-127, 128, h) - 2 ** 14])
     _ln_same(r.astype(np.int32), rng.uniform(-1.5, 1.5, h).astype(np.float32),
              rng.normal(0, 0.3, h).astype(np.float32))
 
@@ -257,7 +274,8 @@ def _gelu_same(q: np.ndarray, scale: np.float32,
     same(ts, jio.i_gelu(jq, scale)[1])
 
 
-@pytest.mark.parametrize("shape", [(37, 100), (64, 64), (1, 5), (128, 300)])
+@pytest.mark.parametrize("shape", [(37, 100), (64, 64), (1, 5), (128, 300),
+                                   (1, 3), (1, 4099)])
 def test_i_gelu_matches_jax(shape):
     rng = np.random.default_rng(shape[0])
     q, s = q12(rng.uniform(-6, 6, shape).astype(np.float32))
