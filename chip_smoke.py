@@ -25,7 +25,8 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    (W: the plain version over |v|) and give exact zeros on
    inactive lanes, and the four I-BERT integer kernels must equal their
    plain versions bit for bit; each I-BERT kernel is also timed beside a
-   copy of the same bytes (copy_ms);
+   copy of the same bytes (copy_ms), i_softmax at (1536, 128) and at
+   ibert-base's max_seq_len, (6144, 512);
 4. long forward: smollm-135m at full width (30 layers, random weights
    from seed 0) through `Model.forward_logits` at B=2, S=4096, `loss` on
    the same tokens and `prefill` without positions at S=1536 into 1,600
@@ -130,7 +131,7 @@ DECODE_KERNELS = ("paged_flash_decode", "paged_flash_decode_q",
 ATTN_KERNELS = DECODE_KERNELS + ("flash_attention",)
 # kernels whose every compiled instance must report 0 spill bytes
 SPILL_FREE = ("paged_flash_decode", "flash_decode", "paged_flash_decode_q",
-              "int8_matmul", "i_layernorm", "i_gelu")
+              "int8_matmul", "i_softmax", "i_layernorm", "i_gelu")
 LOGIT_TOL = 0.1    # 30 bf16 layers, CPU vs card summation order
 LOSS_TOL = 1e-2    # mean cross-entropy of those logits, card vs CPU
 # flash_attention vs its plain version, (atol, rtol) as |out - want| <=
@@ -479,9 +480,10 @@ def _ibert_case(name: str, label: str, kernel, plain, flush, nbytes: float,
 
 
 def ibert_kernel_phase(dev, flush) -> dict:
-    """The four I-BERT kernels at ibert-base's batch-1, seq-128 shapes.
-    Returns {kernel: metrics at its main shape}; int8_matmul's main shape
-    is the q/k/v/wo GEMM (4 of its 6 launches per layer)."""
+    """The four I-BERT kernels at ibert-base's batch-1, seq-128 shapes
+    (i_softmax also at seq 512).  Returns {kernel: metrics at its main
+    shape}; int8_matmul's main shape is the q/k/v/wo GEMM (4 of its 6
+    launches per layer)."""
     rng = np.random.default_rng(12)
     m, d, f = 128, 768, 3072
 
@@ -520,13 +522,17 @@ def ibert_kernel_phase(dev, flush) -> dict:
         log(f"kernel int8_matmul {label}: B row-major (copy + kernel) equals"
             f" B column-major bit for bit; ms="
             f"{time_ms(row_major, flush):.5f}")
-    rows, cols = 12 * m, m
-    q = ints(-2047, 2048, (rows, cols), torch.int32)
-    res["i_softmax"] = _ibert_case(
-        "i_softmax", f"({rows}, {cols})", lambda: ops.i_softmax(q, 0.004),
-        lambda: ref.i_softmax_rows(q, 0.004), flush, 2 * 4 * rows * cols,
-        IBERT_OPS_PER_ELEM["i_softmax"] * rows * cols, F32_FLOP_S,
-        copy_src=q)
+    # the encoder's (12 heads x seq 128, 128), then ibert-base at its
+    # max_seq_len 512 (rows of 512 whole in registers)
+    for rows, cols in ((12 * m, m), (12 * 512, 512)):
+        q = ints(-2047, 2048, (rows, cols), torch.int32)
+        r = _ibert_case(
+            "i_softmax", f"({rows}, {cols})",
+            lambda: ops.i_softmax(q, 0.004),
+            lambda: ref.i_softmax_rows(q, 0.004), flush, 2 * 4 * rows * cols,
+            IBERT_OPS_PER_ELEM["i_softmax"] * rows * cols, F32_FLOP_S,
+            copy_src=q)
+        res.setdefault("i_softmax", r)
     r = ints(-127, 128, (m, d), torch.int32) + ints(-127, 128, (m, d),
                                                     torch.int32)
     prep = ibert_ops.layernorm_prepare(

@@ -4,46 +4,100 @@
 // _kernel; paper Fig. 10 layer 2).  Per row of int32 scores q at a float32
 // scale S:
 //   qn = max(q - max(q), floor(-30 / S))
-//   i-exp: z = qn // q_ln2 (floor), p = qn + z*q_ln2, e = ((p+q_b)^2 + q_c) >> z
+//   i-exp: z = -qn // q_ln2, p = qn + z*q_ln2, e = ((p+q_b)^2 + q_c) >> z
 //   q_sum = max(sum(e), 1)                    (int32, wrapping)
 //   sh = max(ceil(log2(q_sum + 1)) - 16, 0)  (float32, log(x) / log(2))
 //   out = ((e >> sh) * (2^29 // max(q_sum >> sh, 1))) >> 15
-// with q_ln2, q_b, q_c the float32 constants of the scale, computed in the
-// kernel exactly as the reference computes them.  Output: int32
+// with q_ln2, q_b, q_c the float32 constants of the scale, computed once a
+// launch on the host exactly as the reference computes them.  Output: int32
 // probabilities at 2^-14.  Bit-exact against kernels/ref.py i_softmax_rows.
 //
 // What bounds it: bytes.  It reads and writes each int32 once: at the
 // encoder's (B*12*S, S) = (1536, 128) that is 1.57 MB, 0.47 us at 3.35 TB/s;
-// its ~15 integer operations per element are far below the card's rate.
+// its ~16 integer operations per element are far below the card's rate.
+// What holds it back is latency: a row is a chain (load, max, i-exp, sum,
+// output) that no other warp of a short launch hides, so the design keeps
+// the chain to one memory latency and few dependent instructions.
 //
-// Design (simple first): one warp per row, four rows per block.  The row is
-// read three times (max, sum, output), each pass with consecutive lanes on
-// consecutive elements; the second and third reads come from L1/L2, and
-// i-exp is recomputed in the last pass instead of being kept, so any row
-// length works without shared memory.  Reductions are warp shuffles; the
-// sum is taken in uint32, which wraps as XLA's int32 sum does.
+// Design: one warp per row, no shared memory and no block barrier; a block
+// holds kRowsPerBlock = 4 warps, the fastest of 1 / 2 / 4 / 8 with a cold
+// L2 at (1536, 128) and (6144, 512), within 2% of the fastest warm
+// (PERF.md).
+//  * The row is read once, into registers, every load issued before any
+//    arithmetic.  A lane holds 4 16-byte vectors (lane l has columns
+//    4(32j + l) .. +3): a chunk of 512 columns, ibert-base's max_seq_len,
+//    whole; at the encoder's 128 columns one vector a lane.
+//  * i-exp runs once per element; its values stay in registers between
+//    the sum and the output, which leaves in 16-byte stores.
+//  * Max and sum are warp shuffle trees.  The sum is taken in uint32: the
+//    reference's int32 sum wraps, i.e. lives in the ring mod 2^32, where
+//    any order gives the same bits.  Every lane then computes sh and
+//    factor itself (no broadcast); factor is one floor division a row.
+//  * The scale's constants and the reciprocal below are computed once a
+//    launch, on the host, and reach every thread as kernel arguments: a
+//    thread starts on its row at once, and the per-thread prologue of
+//    float divisions and a 64-bit division is gone (PERF.md).
+//  * The i-exp division z = floor(n / q_ln2), n = -qn, is a multiply-high
+//    by a reciprocal of the launch constant q_ln2 = d >= 1 (Granlund &
+//    Montgomery 1994, Thm 4.2, with N = kDivBits = 31): l = ceil(log2 d),
+//    s = N + l, m = ceil(2^s / d), so 2^s <= m d <= 2^s + d - 1 <= 2^s +
+//    2^l and, for every 0 <= n < 2^N, floor(n m / 2^s) = floor(n / d).
+//    Proof: with n = k d + r, 0 <= r < d, n m / 2^s = k + r/d + n e /
+//    (d 2^s), e = m d - 2^s <= 2^l, and r + n e / 2^s < (d - 1) + 1.
+//    m < 2^32 - 1 (d > 2^(l-1) for l >= 1, so 2^s / d < 2^(N+1) (1 -
+//    2^-N)): m fits in 32 bits and n m in 64.  After the clamp, n lies in
+//    [0, -q_clamp], and q_clamp = floor(-30 / S) > INT_MIN for every S >=
+//    1.4e-8 (the model's scales are >= 0.5 / 2047): so n < 2^31.  A
+//    dividend outside [0, 2^31) (a q - max(q) that wrapped, or q_clamp =
+//    INT_MIN) takes floordiv.
+// Row layouts: the vector path (kVec) takes cols a multiple of 4 with both
+// bases 16-byte aligned; the same kernel's scalar path (lane l has columns
+// 32i + l) takes any other cols or alignment.  A row longer than a chunk
+// (any cols, e.g. 4096) keeps its first chunk of 512 in registers and
+// walks the rest one vector (or 4 values) a lane at a time, read again
+// from L1/L2 for the sum and the output, where its i-exp is computed
+// again: a step holds 4 registers, so the one instance needs about as
+// many as a row of one chunk would.  At up to 512 columns the loops run
+// no iteration.
 #include <cuda_runtime.h>
 #include <limits.h>
+#include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "ibert_int.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
+constexpr int kRowsPerBlock = 4;     // warps (rows) a block
+constexpr int kSlots = 16;           // values a lane in the first chunk
+constexpr int kChunk = 32 * kSlots;  // columns of the first chunk
+constexpr int kStep = 32 * 4;        // columns a step past it
+constexpr int kDivBits = 31;         // the reciprocal is exact for n < 2^31
 
+// the scale's constants, computed once a launch on the host in float32
+// exactly as the reference computes them (IEEE division; no product here
+// meets an addition, so none can be contracted), with the reciprocal of
+// q_ln2
 struct ExpConsts {
   int q_clamp, q_ln2, q_b, q_c;
+  unsigned m;  // floor(n / q_ln2) = (n * m) >> s for 0 <= n < 2^kDivBits
+  int s;
 };
 
-__device__ __forceinline__ ExpConsts exp_consts(float scale) {
+ExpConsts exp_consts(float scale) {
   using namespace ibert;
   ExpConsts c;
-  c.q_clamp = (int)floorf(kExpClamp / scale);
-  c.q_ln2 = max(to_i32(floorf(kLn2 / scale)), 1);
+  // (int) of a float below INT_MIN saturates on the card; so here
+  c.q_clamp = (int)fmaxf(floorf(kExpClamp / scale), -0x1p31f);
+  c.q_ln2 = std::max(to_i32(floorf(kLn2 / scale)), 1);
   c.q_b = to_i32(floorf(kExpB / scale));
   c.q_c = to_i32(floorf(kExpC / (kExpA * scale * scale)));
+  const unsigned d = (unsigned)c.q_ln2;
+  const int l = d > 1 ? 32 - __builtin_clz(d - 1) : 0;  // ceil(log2 d)
+  c.s = kDivBits + l;
+  c.m = (unsigned)(((1ull << c.s) + d - 1) / d);  // ceil(2^s / d)
   return c;
 }
 
@@ -51,37 +105,147 @@ __device__ __forceinline__ ExpConsts exp_consts(float scale) {
 __device__ __forceinline__ int i_exp(int qn, const ExpConsts& c) {
   using namespace ibert;
   qn = max(qn, c.q_clamp);
-  const int z = floordiv(wsub(0, qn), c.q_ln2);
+  const int n = wsub(0, qn);
+  int z;
+  if (__builtin_expect(n < 0, 0))  // outside the reciprocal's proven range
+    z = floordiv(n, c.q_ln2);
+  else
+    z = (int)(((unsigned long long)(unsigned)n * c.m) >> c.s);
   const int p = wadd(qn, wmul(z, c.q_ln2));
   const int t = wadd(p, c.q_b);
   return sra(wadd(wmul(t, t), c.q_c), z);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// column of slot i of `lane` in the chunk that starts at c0
+template <bool kVec>
+__device__ __forceinline__ int column(int c0, int lane, int i) {
+  return kVec ? c0 + 4 * (32 * (i / 4) + lane) + i % 4 : c0 + 32 * i + lane;
+}
+
+// whether slot i holds a column of the row: on the vector path one test
+// for the slot's whole vector (cols is a multiple of 4)
+template <bool kVec>
+__device__ __forceinline__ bool in_row(int c0, int cols, int lane, int i) {
+  return column<kVec>(c0, lane, kVec ? i - i % 4 : i) < cols;
+}
+
+// kS / 4 vectors (or kS scalars) a lane of a row into registers, every
+// load issued before any use; columns at or past cols read as INT_MIN (no
+// effect on the max)
+template <bool kVec, int kS>
+__device__ __forceinline__ void load(const int* __restrict__ p, int c0,
+                                     int cols, int lane, int (&x)[kS]) {
+#pragma unroll
+  for (int j = 0; j < kS / 4; ++j) {
+    if constexpr (kVec) {
+      const int c = column<kVec>(c0, lane, 4 * j);
+      const int4 v = c < cols ? __ldg(reinterpret_cast<const int4*>(p + c))
+                              : make_int4(INT_MIN, INT_MIN, INT_MIN, INT_MIN);
+      x[4 * j] = v.x;
+      x[4 * j + 1] = v.y;
+      x[4 * j + 2] = v.z;
+      x[4 * j + 3] = v.w;
+    } else {
+#pragma unroll
+      for (int k = 4 * j; k < 4 * j + 4; ++k) {
+        const int c = column<kVec>(c0, lane, k);
+        x[k] = c < cols ? __ldg(p + c) : INT_MIN;
+      }
+    }
+  }
+}
+
+template <int kS>
+__device__ __forceinline__ int chunk_max(const int (&x)[kS], int mx) {
+#pragma unroll
+  for (int i = 0; i < kS; ++i) mx = max(mx, x[i]);
+  return mx;
+}
+
+// x -> i-exp of x - mx in place (0 at columns past cols); returns the
+// chunk's wrapping sum
+template <bool kVec, int kS>
+__device__ __forceinline__ unsigned exp_chunk(int (&x)[kS], int mx,
+                                              const ExpConsts& c, int c0,
+                                              int cols, int lane) {
+  unsigned sum = 0;
+#pragma unroll
+  for (int i = 0; i < kS; ++i) {
+    x[i] = in_row<kVec>(c0, cols, lane, i) ? i_exp(ibert::wsub(x[i], mx), c)
+                                           : 0;
+    sum += (unsigned)x[i];
+  }
+  return sum;
+}
+
+// out = ((e >> sh) * factor) >> 15 for one chunk of i-exp values
+template <bool kVec, int kS>
+__device__ __forceinline__ void store(const int (&e)[kS], int sh,
+                                      int factor, int* __restrict__ y,
+                                      int c0, int cols, int lane) {
+  using namespace ibert;
+#pragma unroll
+  for (int i = 0; i < kS; i += kVec ? 4 : 1) {
+    if (!in_row<kVec>(c0, cols, lane, i)) continue;
+    int o[4];
+#pragma unroll
+    for (int k = 0; k < (kVec ? 4 : 1); ++k)
+      o[k] = sra(wmul(sra(e[i + k], sh), factor), 29 - kSoftmaxOutBits);
+    int* p = y + column<kVec>(c0, lane, i);
+    if constexpr (kVec)
+      *reinterpret_cast<int4*>(p) = make_int4(o[0], o[1], o[2], o[3]);
+    else
+      *p = o[0];
+  }
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(32 * kRowsPerBlock)
 i_softmax_kernel(const int* __restrict__ q, int* __restrict__ out, int rows,
-                 int cols, float scale) {
+                 int cols, const ExpConsts c) {
   using namespace ibert;
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= rows) return;  // whole warps leave together
-  const int* x = q + (size_t)row * cols;
-  int* y = out + (size_t)row * cols;
-  const ExpConsts c = exp_consts(scale);
+  const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+  if (row >= rows) return;  // the whole warp: its shuffles stay full
+  const int* xr = q + (size_t)row * cols;
+  int* yr = out + (size_t)row * cols;
 
-  int mx = INT_MIN;
-  for (int i = lane; i < cols; i += 32) mx = max(mx, x[i]);
+  int x[kSlots];
+  load<kVec>(xr, 0, cols, lane, x);
+  int mx = chunk_max(x, INT_MIN);
+  for (int c0 = kChunk; c0 < cols; c0 += kStep) {
+    int xc[4];
+    load<kVec>(xr, c0, cols, lane, xc);
+    mx = chunk_max(xc, mx);
+  }
   mx = warp_max(mx);
 
-  unsigned sum = 0;
-  for (int i = lane; i < cols; i += 32) sum += (unsigned)i_exp(wsub(x[i], mx), c);
+  unsigned sum = exp_chunk<kVec>(x, mx, c, 0, cols, lane);  // x: i-exp now
+  for (int c0 = kChunk; c0 < cols; c0 += kStep) {
+    int xc[4];
+    load<kVec>(xr, c0, cols, lane, xc);
+    sum += exp_chunk<kVec>(xc, mx, c, c0, cols, lane);
+  }
   const int q_sum = max((int)warp_sum(sum), 1);
-
   const int sh = (int)fmaxf(ceil_log2((float)q_sum + 1.0f) - 16.0f, 0.0f);
   const int factor = floordiv(1 << 29, max(sra(q_sum, sh), 1));
-  for (int i = lane; i < cols; i += 32) {
-    const int e = i_exp(wsub(x[i], mx), c);
-    y[i] = sra(wmul(sra(e, sh), factor), 29 - kSoftmaxOutBits);
+
+  store<kVec>(x, sh, factor, yr, 0, cols, lane);
+  for (int c0 = kChunk; c0 < cols; c0 += kStep) {
+    int xc[4];
+    load<kVec>(xr, c0, cols, lane, xc);
+    exp_chunk<kVec>(xc, mx, c, c0, cols, lane);
+    store<kVec>(xc, sh, factor, yr, c0, cols, lane);
   }
+}
+
+template <bool kVec>
+cudaError_t launch(const int* q, int* out, int rows, int cols,
+                   const ExpConsts& c, cudaStream_t stream) {
+  const int blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+  i_softmax_kernel<kVec><<<blocks, 32 * kRowsPerBlock, 0, stream>>>(
+      q, out, rows, cols, c);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -90,8 +254,13 @@ i_softmax_kernel(const int* __restrict__ q, int* __restrict__ out, int rows,
 // launch (0 = none).
 extern "C" int i_softmax(const void* q, void* out, int rows, int cols,
                          float scale, void* stream) {
-  const int blocks = (rows + kWarps - 1) / kWarps;
-  i_softmax_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(q), static_cast<int*>(out), rows, cols, scale);
-  return (int)cudaGetLastError();
+  const auto* qi = static_cast<const int*>(q);
+  auto* oi = static_cast<int*>(out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool vec = cols % 4 == 0 && ((reinterpret_cast<uintptr_t>(q) |
+                                      reinterpret_cast<uintptr_t>(out)) &
+                                     15) == 0;
+  const ExpConsts c = exp_consts(scale);
+  return (int)(vec ? launch<true>(qi, oi, rows, cols, c, st)
+                   : launch<false>(qi, oi, rows, cols, c, st));
 }

@@ -55,7 +55,7 @@ __device__ __forceinline__ int floordiv(int a, int b) {
 }
 
 // saturating float -> int32, as the reference's _to_i32
-__device__ __forceinline__ int to_i32(float x) {
+__host__ __device__ __forceinline__ int to_i32(float x) {
   return (int)fminf(fmaxf(x, -kI32Clip), kI32Clip);
 }
 

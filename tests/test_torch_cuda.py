@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from decode_schedule import decode_limit
+from ibert_rows import row_with_sum
 from repro_torch.core import quant
 from repro_torch.kernels import ops, ref
 
@@ -476,21 +477,6 @@ def test_int8_matmul_encoder_path_takes_no_copy(dev):
     assert allocations(w.contiguous()) == 2
 
 
-@pytest.mark.parametrize("rows,cols", [(1, 1), (3, 513), (1536, 128),
-                                       (5, 1), (1, 513)])
-@pytest.mark.parametrize("scale", [0.004, 0.02, MIN_SCALE])
-def test_i_softmax_kernel_matches_plain(dev, rows, cols, scale):
-    rng = np.random.default_rng(rows + cols)
-    q = torch.tensor(rng.integers(-2047, 2048, (rows, cols)),
-                     dtype=torch.int32)
-    q[0, : cols // 2] = 0  # an equal run: at MIN_SCALE the sum wraps
-    n0 = ops.launches["i_softmax"]
-    out = ops.i_softmax(q.to(dev), scale)
-    assert ops.launches["i_softmax"] == n0 + 1
-    _same_everywhere(out, ref.i_softmax_rows(q.to(dev), scale),
-                     ref.i_softmax_rows(q, scale))
-
-
 def _on_card(t, dev, offset):
     """t on the card, contiguous; at offset 1 a view one element into a
     larger buffer, so its base is not 16-byte aligned."""
@@ -498,6 +484,55 @@ def _on_card(t, dev, offset):
     out = flat[offset:].view(t.shape)
     out.copy_(t)
     return out
+
+
+def _softmax_same(q, scale, dev, offset=0):
+    qd = _on_card(q, dev, offset)
+    n0 = ops.launches["i_softmax"]
+    out = ops.i_softmax(qd, scale)
+    assert ops.launches["i_softmax"] == n0 + 1
+    _same_everywhere(out, ref.i_softmax_rows(qd, scale),
+                     ref.i_softmax_rows(q, scale))
+
+
+# cols 128 and 512 (the vector path, a row whole in registers: the
+# encoder's and ibert-base's max_seq_len), 513 and 4096 (chunks of 512),
+# 1, 5 and 127 (the scalar path); offset 1: an unaligned base, the scalar
+# path at any cols
+@pytest.mark.parametrize("rows,cols", [(1, 1), (3, 513), (1536, 128),
+                                       (5, 1), (1, 513), (6144, 512),
+                                       (2, 4096), (4, 127), (2, 5)])
+@pytest.mark.parametrize("scale", [0.004, 0.02, MIN_SCALE])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_i_softmax_kernel_matches_plain(dev, rows, cols, scale, offset):
+    rng = np.random.default_rng(rows + cols)
+    q = torch.tensor(rng.integers(-2047, 2048, (rows, cols)),
+                     dtype=torch.int32)
+    q[0, : cols // 2] = 0  # an equal run: at MIN_SCALE the sum wraps
+    _softmax_same(q, scale, dev, offset)
+
+
+# the CPU tests' edge rows: z past 31 under the clamp, an int32 sum that
+# wraps, and sums at and beside a power of two (ceil(log2(q_sum + 1)))
+@pytest.mark.parametrize("case", ["clamped", "wraps", 2 ** 15 - 1, 2 ** 15,
+                                  2 ** 17 - 1, 2 ** 17, 2 ** 17 + 1])
+def test_i_softmax_kernel_edge_rows(dev, case):
+    if case == "clamped":
+        rng = np.random.default_rng(3)
+        q = torch.tensor(rng.integers(-io.ACT_QMAX, io.ACT_QMAX + 1,
+                                      (16, 50)), dtype=torch.int32)
+        scale = 0.02
+    elif case == "wraps":
+        rng = np.random.default_rng(4)
+        q = torch.tensor(rng.integers(-300, 300, (6, 77)), dtype=torch.int32)
+        q[0], q[1], scale = 0, -5, MIN_SCALE
+        e, _ = io.i_exp(torch.zeros(1, dtype=torch.int32), MIN_SCALE)
+        assert 77 * int(e) > 2 ** 31
+    else:
+        row, scale = row_with_sum(case, 16)
+        q, scale = torch.tensor(row), float(scale)
+        assert io.i_exp(q, scale)[0].sum().item() == case
+    _softmax_same(q, scale, dev)
 
 
 # H: 1 and 513 (the scalar path), 768 (ibert-base, whole in registers),

@@ -16,6 +16,7 @@ import torch
 
 import jax.numpy as jnp
 
+from ibert_rows import row_with_sum
 from repro.core import ibert_ops as jio
 from repro.core.quant import quantize as jquantize
 from repro.kernels import ops as jops
@@ -158,32 +159,107 @@ def test_i_softmax_at_the_min_range_scale_wraps_the_sum():
     assert 77 * int(e) > 2 ** 31
 
 
-def _row_with_sum(target: int, cols: int):
-    """(row, scale): a row of n zeros, -d1, -d2 and -ACT_QMAX padding
-    (whose i-exp is 0) with an i-exp sum of exactly `target`."""
-    for scale in np.linspace(0.01, 0.02, 41, dtype=np.float32):
-        e = tio.i_exp(-torch.arange(0, jio.ACT_QMAX + 1, dtype=torch.int32),
-                      scale)[0].numpy().astype(np.int64)
-        n = max(target // int(e[0]) - 1, 1)  # a 0 keeps the row max at 0
-        rest = {int(v): d for d, v in enumerate(e) if d}
-        for d1 in range(1, len(e)):
-            d2 = rest.get(target - n * int(e[0]) - int(e[d1]))
-            if d2 is not None and e[-1] == 0:
-                row = np.full((1, cols), -jio.ACT_QMAX, np.int32)
-                row[0, :n + 2] = [0] * n + [-d1, -d2]
-                return row, scale
-    raise AssertionError(f"no row sums to {target}")
-
-
 @pytest.mark.parametrize("target", [2 ** 15 - 1, 2 ** 15, 2 ** 17 - 1,
                                     2 ** 17, 2 ** 17 + 1])
 def test_i_softmax_rows_whose_sum_is_a_power_of_two(target):
     """ceil(log2(q_sum + 1)) at q_sum + 1 = 2^k and at q_sum = 2^k: the
     reference's log2 is log(x) / log(2) in float32."""
-    q, scale = _row_with_sum(target, 16)
+    q, scale = row_with_sum(target, 16)
     e, _ = tio.i_exp(torch.from_numpy(q), scale)
     assert e.sum().item() == target
     _softmax_same(q, scale)
+
+
+# The card kernel (csrc/i_softmax.cu) divides by q_ln2 as a multiply-high
+# by a reciprocal: for 0 <= n < 2^RECIP_BITS and d = q_ln2 >= 1, with l =
+# ceil(log2 d), s = RECIP_BITS + l and m = ceil(2^s / d), floor(n / d) =
+# (n * m) >> s, in uint64 as the card computes it.  The emulation below
+# repeats that formula; test_i_softmax_reciprocal_matches_the_cuda_kernel
+# holds it to the source.
+RECIP_BITS = 31
+
+
+def _recip_div(n: np.ndarray, d: np.ndarray) -> np.ndarray:
+    """The kernel's floor(n / d) for n in [0, 2^RECIP_BITS), d >= 1."""
+    n, d = n.astype(np.uint64), d.astype(np.uint64)
+    _, l = np.frexp((d - np.uint64(1)).astype(np.float64))  # ceil(log2 d)
+    s = np.uint64(RECIP_BITS) + l.astype(np.uint64)
+    m = ((np.uint64(1) << s) + d - np.uint64(1)) // d  # ceil(2^s / d)
+    assert np.all(m < np.uint64(2 ** 32)) and np.all(n < np.uint64(2 ** 31))
+    return (n * m) >> s
+
+
+def _q_ln2(scale: np.float32) -> int:
+    return max(int(np.floor(np.float32(jio._LN2) / scale)), 1)
+
+
+def _n_max() -> int:
+    """-q_clamp at MIN_SCALE: the largest dividend i-exp meets at a scale
+    in [MIN_SCALE, 1] (q_clamp = floor(-30 / S) grows with S)."""
+    return -int(np.floor(np.float32(jio._EXP_CLAMP) / MIN_SCALE))
+
+
+def test_i_softmax_reciprocal_division_is_floor_division():
+    """Every q_ln2 a float32 scale in [MIN_SCALE, 1] gives (it falls as
+    the scale grows, so all lie in [q_ln2(1), q_ln2(MIN_SCALE)]), at
+    dividends 0, 1, b-1, b, b+1, k b +- 1 up to -q_clamp and 2^31 - 1,
+    then 10^5 random dividends in [0, 2^31) at random such divisors and
+    10^5 at random divisors in [1, 2^31)."""
+    d_lo, d_hi, n_max = _q_ln2(np.float32(1.0)), _q_ln2(MIN_SCALE), _n_max()
+    assert d_lo == 1 and d_hi > 2000 and n_max < 2 ** 31
+    for b in range(d_lo, d_hi + 1):
+        k = np.arange(1, n_max // b + 2, dtype=np.int64) * b
+        n = np.concatenate([[0, 1, b - 1, b, b + 1, n_max, 2 ** 31 - 1],
+                            k - 1, k + 1])
+        n = n[(n >= 0) & (n < 2 ** 31)]
+        got = _recip_div(n, np.full_like(n, b))
+        np.testing.assert_array_equal(got.astype(np.int64), n // b,
+                                      err_msg=f"q_ln2 {b}")
+    rng = np.random.default_rng(19)
+    n = rng.integers(0, 2 ** 31, 2 * 10 ** 5, dtype=np.int64)
+    d = np.concatenate([rng.integers(d_lo, d_hi + 1, 10 ** 5),
+                        rng.integers(1, 2 ** 31, 10 ** 5)]).astype(np.int64)
+    np.testing.assert_array_equal(_recip_div(n, d).astype(np.int64), n // d)
+
+
+def test_i_softmax_reciprocal_matches_the_cuda_kernel():
+    """RECIP_BITS and _recip_div's formula are the ones csrc/i_softmax.cu
+    compiles, and the kernel keeps floordiv for a dividend below 0."""
+    import os
+    import re
+
+    text = open(os.path.join(os.path.dirname(tops.__file__), "csrc",
+                             "i_softmax.cu")).read()
+    bits = re.findall(r"constexpr int kDivBits = (\d+);", text)
+    assert bits == [str(RECIP_BITS)], bits
+    for line in ("const int l = d > 1 ? 32 - __builtin_clz(d - 1) : 0;",
+                 "c.s = kDivBits + l;",
+                 "c.m = (unsigned)(((1ull << c.s) + d - 1) / d);",
+                 "const int n = wsub(0, qn);",
+                 "if (__builtin_expect(n < 0, 0))",
+                 "z = floordiv(n, c.q_ln2);",
+                 "z = (int)(((unsigned long long)(unsigned)n * c.m) >> c.s);"):
+        assert text.count(line) == 1, line
+
+
+@pytest.mark.parametrize("scale", [MIN_SCALE, np.float32(0.004),
+                                   np.float32(0.02), np.float32(1.0)])
+def test_i_exp_with_the_reciprocal_matches_jax(scale):
+    """The kernel's i-exp, its division emulated, at every qn from below
+    the clamp to 0, equals JAX's and the port's i_exp."""
+    f32 = np.float32
+    q_clamp = int(np.floor(f32(jio._EXP_CLAMP) / scale))
+    q_ln2 = _q_ln2(scale)
+    q_b = int(np.floor(f32(jio._EXP_B) / scale))
+    q_c = int(np.floor(f32(jio._EXP_C) / (f32(jio._EXP_A) * scale * scale)))
+    qn = np.arange(q_clamp - 5, 1, dtype=np.int64)
+    qc = np.maximum(qn, q_clamp)
+    z = _recip_div(-qc, np.full_like(qc, q_ln2)).astype(np.int64)
+    t = qc + z * q_ln2 + q_b
+    e = (t * t + q_c).astype(np.int32) >> np.minimum(z, 31).astype(np.int32)
+    q = qn.astype(np.int32)
+    same(torch.from_numpy(e), jio.i_exp(jnp.asarray(q), scale)[0],
+         tio.i_exp(torch.from_numpy(q), scale)[0].numpy())
 
 
 # ---------------------------------------------------------------------------
