@@ -26,7 +26,8 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    inactive lanes, and the four I-BERT integer kernels must equal their
    plain versions bit for bit; each I-BERT kernel is also timed beside a
    copy of the same bytes (copy_ms), i_softmax at (1536, 128) and at
-   ibert-base's max_seq_len, (6144, 512);
+   ibert-base's max_seq_len, (6144, 512); kernels 1 and 2 also at the
+   speculative verify pass's shape (8 lanes x 5 queries folded into 40);
 4. long forward: smollm-135m at full width (30 layers, random weights
    from seed 0) through `Model.forward_logits` at B=2, S=4096, `loss` on
    the same tokens and `prefill` without positions at S=1536 into 1,600
@@ -57,7 +58,27 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    kv_quantize of the card's K/V rows must equal the CPU's bit for bit;
    where 8 fused greedy steps part, the CPU's top-2 logit gap is logged
    beside the card's logit error at that step;
-7. encode: the integer I-BERT encoder (ibert-base at full width, 12
+7. fit: `models.synthetic.fit_affine_lm` on the card at its defaults
+   (1,000 Adam steps) for reduced smollm-135m (the gate's instrument:
+   the full-width fit does not reach the accuracy a gate needs, PERF.md),
+   a 1-layer draft on the clean corpus and one with
+   disagree_every=3; each logs its held-out loss and greedy accuracy;
+8. gate: the fitted target's greedy streams on the card against the
+   CPU's (8 affine prompts, 16 fused steps) on a bf16 page arena, dense
+   slot rows and an int8 arena: the token match must be exactly 1.0;
+9. spec: greedy speculative decoding through the paged cb engine (B=8,
+   spec_k 4, a tight page pool so lanes starve, are preempted and catch
+   their drafts up): the fitted target with each fitted draft, on bf16
+   and int8 arenas, 16 affine requests then 8 sharing a prefix; every
+   stream must equal the plain engine's on the same requests; the route
+   kernel's launches split into verify passes (B * (k+1) folded lanes,
+   one per target layer per spec dispatch) and single-query steps; then
+   smollm-135m at full width on random weights drafting for itself: the
+   reduced target's verify block must equal its chained decode steps bit
+   for bit; at full width the largest difference d is logged, and a spec
+   stream may part from the plain one only at a tie (the two tokens the
+   plain route's top two, their gap at most 2d);
+10. encode: the integer I-BERT encoder (ibert-base at full width, 12
    layers, random float weights from seed 0, calibrated at batch 1, seq
    128) through `repro_torch.launch.ibert_encoder`: one forward must
    launch exactly 72 / 12 / 24 / 12 int8_matmul / i_softmax / i_layernorm
@@ -66,7 +87,8 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    tests/test_ibert_model.py's bounds, 12 within the reference's own
    12-layer error on these weights); then one forward under
    torch.profiler, and the entry point's time at seq 1, 8, 32, 64, 128;
-8. summary: a JSON line of the kernels, then the device line.
+11. summary: a JSON line of the kernels (the decode kernels' launches
+   include the gate's and the spec phase's), then the device line.
 
 Each phase logs its wall seconds ("phase ...").
 """
@@ -93,8 +115,10 @@ from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.launch import ibert_encoder  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models import ibert as ib  # noqa: E402
+from repro_torch.models import synthetic  # noqa: E402
 from repro_torch.models.transformer import init_params, make_model  # noqa: E402
-from repro_torch.serving.engine import ContinuousBatchingEngine  # noqa: E402
+from repro_torch.serving.engine import (  # noqa: E402
+    ContinuousBatchingEngine, Request)
 
 SENTINEL = 2 ** 30
 # published peaks of one H100 SXM at 700 W (NVIDIA data sheet, dense): HBM
@@ -140,6 +164,10 @@ LOSS_TOL = 1e-2    # mean cross-entropy of those logits, card vs CPU
 # typical output at S=4096, which a key tile left out or counted twice
 # moves by more
 FA_TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (4e-3, 2 ** -7)}
+SPEC_K = 4  # the spec phase's most drafted tokens per dispatch
+# the spec phase's page pool (16-row pages): ~5 lanes' worth at its
+# budgets, so B=8 lanes starve, preempt and (speculating) catch drafts up
+SPEC_PAGES = 30
 
 
 def log(msg: str) -> None:
@@ -209,6 +237,83 @@ def paged_inputs(seed: int, b: int, kvh: int, g: int, hd: int, ps: int,
              qpos=torch.tensor(qpos, device=dev),
              active=torch.tensor(active, device=dev))
     return t
+
+
+def verify_inputs(seed: int, b: int, t: int, kvh: int, g: int, hd: int,
+                  ps: int, maxp: int, dev) -> dict:
+    """The speculative verify pass's kernel inputs: lane i's block sits at
+    positions pos_i .. pos_i + t - 1, all written (the verify scatter runs
+    first), later rows never written; the t queries of a lane fold into
+    t lanes that repeat its table row, qpos = pos_i + j; lanes 5 and 7
+    (all their folded lanes) are inactive."""
+    rng = np.random.default_rng(seed)
+    n_pages = 1 + b * maxp
+    pos = rng.integers(maxp * ps // 2, maxp * ps - t, b)
+    kpos = np.full((n_pages, ps), SENTINEL, np.int32)
+    pt = np.zeros((b, maxp), np.int32)
+    nxt = 1
+    for lane in range(b):
+        end = int(pos[lane]) + t
+        for j in range(-(-end // ps)):
+            pt[lane, j] = nxt
+            rows = j * ps + np.arange(ps)
+            kpos[nxt] = np.where(rows < end, rows, SENTINEL)
+            nxt += 1
+    active = np.ones((b,), bool)
+    active[[5, 7]] = False
+    bf = torch.bfloat16
+    x = {"q": torch.tensor(rng.normal(0, 1, (b * t, kvh * g, hd))
+                           * hd ** -0.5),
+         "k": torch.tensor(rng.uniform(-1, 1, (n_pages, ps, kvh, hd))),
+         "v": torch.tensor(rng.uniform(-1, 1, (n_pages, ps, kvh, hd)))}
+    x = {n: v.to(bf).to(dev) for n, v in x.items()}
+    x.update(kpos=torch.tensor(kpos, device=dev),
+             page_table=torch.tensor(np.repeat(pt, t, axis=0), device=dev),
+             qpos=torch.tensor((pos[:, None] + np.arange(t)).reshape(-1),
+                               dtype=torch.int32, device=dev),
+             active=torch.tensor(np.repeat(active, t), device=dev))
+    return x
+
+
+def verify_kernel_phase(dev, flush, quantized: bool) -> dict:
+    """Kernel 1 (bf16 arena) or 2 (int8) at the verify pass's shape at
+    smollm-135m's heads: B=8 lanes x T=SPEC_K+1 queries = 40 folded
+    lanes, MAXP=12 pages of 16 — against its plain version, timed beside
+    it and beside SDPA."""
+    b, t, kvh, g, hd, ps, maxp = 8, SPEC_K + 1, 3, 3, 64, 16, 12
+    x = verify_inputs(maxp, b, t, kvh, g, hd, ps, maxp, dev)
+    nl = b * t
+    pt = x["page_table"].long()
+    mask = ((x["kpos"][pt].reshape(nl, -1) <= x["qpos"][:, None])
+            & x["active"][:, None])
+    label = (f"verify B={b} T={t} ({nl} lanes) KVH={kvh} G={g} hd={hd} "
+             f"ps={ps} MAXP={maxp}")
+    if not quantized:
+        args = (x["q"], x["k"], x["v"], x["kpos"], x["page_table"],
+                x["qpos"])
+        kg, vg = (y[pt].reshape(nl, -1, kvh, hd) for y in (x["k"], x["v"]))
+        nbytes, pairs = _paged_need(x, ps, kvh * hd * 2 * 2)
+        w = ref.paged_flash_decode(x["q"], x["k"], x["v"].abs(), *args[3:],
+                                   active=x["active"])
+        return _decode_case(
+            "paged_flash_decode", label,
+            lambda: ops.paged_flash_decode(*args, active=x["active"]),
+            lambda: ref.paged_flash_decode(*args, active=x["active"]),
+            _sdpa(x["q"], kg, vg, mask, g), flush, x["active"], nbytes,
+            4 * pairs * kvh * g * hd, w)
+    k8, ks = quant.kv_quantize(x["k"])
+    v8, vs = quant.kv_quantize(x["v"])
+    args = (x["q"], k8, v8, ks, vs, x["kpos"], x["page_table"], x["qpos"])
+    kg, vg = (quant.kv_dequantize(y[pt], sc[pt]).reshape(nl, -1, kvh, hd)
+              for y, sc in ((k8, ks), (v8, vs)))
+    nbytes, pairs = _paged_need(x, ps, kvh * (2 * hd + 2 * 4))
+    return _decode_case(
+        "paged_flash_decode_q", label + " (f32 SDPA over keys dequantized "
+        "beforehand)",
+        lambda: ops.paged_flash_decode_q(*args, active=x["active"]),
+        lambda: ref.paged_flash_decode_q(*args, active=x["active"]),
+        _sdpa(x["q"].float(), kg, vg, mask, g), flush, x["active"], nbytes,
+        4 * pairs * kvh * g * hd)
 
 
 def kernel_phase(dev, flush, maxp: int, kvh: int = 3, g: int = 3,
@@ -941,6 +1046,44 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
+def _admitted(model, params, prompts, ps, maxp, kind, out=None):
+    """Each prompt prefilled at its page-rounded bucket and admitted into
+    its lane of a `kind` cache ("paged", "int8" or "dense"), lane i owning
+    pages 1 + i * maxp ... (maxp of them).  Returns (cache, the prefills'
+    last logits (B, V)); `out` gets the last prompt's K/V rows."""
+    dev = model.device
+    b = len(prompts)
+    if kind == "dense":
+        big = model.init_cache(b, maxp * ps)
+    else:
+        big = model.init_paged_cache(
+            b, 1 + b * maxp, ps, maxp,
+            kv_dtype="int8" if kind == "int8" else "bf16")
+    logits = []
+    for i, p in enumerate(prompts):
+        bucket = -(-len(p) // ps) * ps
+        toks = np.zeros((1, bucket), np.int32)
+        pos = np.full((1, bucket), SENTINEL, np.int32)
+        toks[0, :len(p)], pos[0, :len(p)] = p, np.arange(len(p))
+        lg, small = model.prefill(
+            params, model.init_cache(1, bucket),
+            torch.tensor(toks, device=dev),
+            positions=torch.tensor(pos, device=dev),
+            last_idx=torch.tensor([len(p) - 1], device=dev))
+        if out is not None:
+            out["kv_rows"] = [small["scan"]["b0"][n] for n in ("k", "v")]
+        if kind == "dense":
+            model.insert_prefill_cache(big, small, i)
+        else:
+            pages = np.arange(1 + i * maxp, 1 + (i + 1) * maxp,
+                              dtype=np.int32)
+            model.admit_lane_cache(big, i, pages, len(p), pages,
+                                   small=small,
+                                   write_pages=pages[:bucket // ps])
+        logits.append(lg[0])
+    return big, torch.stack(logits)
+
+
 def _model_run(model, params, prompts, ps, maxp, steps, teacher, kind):
     """Prefill each prompt into its lane of a `kind` cache, then decode.
     The per-step input tokens come from `teacher` (the CPU run) when
@@ -950,34 +1093,7 @@ def _model_run(model, params, prompts, ps, maxp, steps, teacher, kind):
     out = {"tokens": []}
 
     def admitted():
-        if kind == "dense":
-            big = model.init_cache(b, maxp * ps)
-        else:
-            big = model.init_paged_cache(
-                b, 1 + b * maxp, ps, maxp,
-                kv_dtype="int8" if kind == "int8" else "bf16")
-        logits = []
-        for i, p in enumerate(prompts):
-            bucket = -(-len(p) // ps) * ps
-            toks = np.zeros((1, bucket), np.int32)
-            pos = np.full((1, bucket), SENTINEL, np.int32)
-            toks[0, :len(p)], pos[0, :len(p)] = p, np.arange(len(p))
-            lg, small = model.prefill(
-                params, model.init_cache(1, bucket),
-                torch.tensor(toks, device=dev),
-                positions=torch.tensor(pos, device=dev),
-                last_idx=torch.tensor([len(p) - 1], device=dev))
-            out["kv_rows"] = [small["scan"]["b0"][n] for n in ("k", "v")]
-            if kind == "dense":
-                model.insert_prefill_cache(big, small, i)
-            else:
-                pages = np.arange(1 + i * maxp, 1 + (i + 1) * maxp,
-                                  dtype=np.int32)
-                model.admit_lane_cache(big, i, pages, len(p), pages,
-                                       small=small,
-                                       write_pages=pages[:bucket // ps])
-            logits.append(lg[0])
-        return big, torch.stack(logits)
+        return _admitted(model, params, prompts, ps, maxp, kind, out)
 
     big, lg = admitted()
     out["logits"] = [lg.float().cpu()]
@@ -994,6 +1110,349 @@ def _model_run(model, params, prompts, ps, maxp, steps, teacher, kind):
                                    steps)
     out["block"] = block.cpu()
     return out
+
+
+# ---------------------------------------------------------------------------
+# the fitted instrument: fit, card stream gate, speculative decoding
+# ---------------------------------------------------------------------------
+
+
+def fit_phase(dev) -> dict:
+    """`fit_affine_lm` on the card at its defaults (1,000 Adam steps):
+    reduced smollm-135m, then a 1-layer draft on the clean corpus and one
+    with disagree_every=3.  Each logs its seconds, its loss on a held-out
+    batch of its own corpus and its greedy accuracy on 64 affine prompts.
+    Returns {name: (model, params)}."""
+    cfg = get_config("smollm-135m").reduced()
+    dcfg = dataclasses.replace(cfg, name=cfg.name + "-draft", n_layers=1)
+    prompts = synthetic.affine_prompts(np.random.default_rng(123), 64,
+                                       cfg.vocab_size)
+    fits = {}
+    for name, c, every in (("target", cfg, 0), ("draft", dcfg, 0),
+                           ("draft_disagree3", dcfg, 3)):
+        model = make_model(c, device=dev)
+        t0 = time.perf_counter()
+        params = synthetic.fit_affine_lm(model, disagree_every=every)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        toks, labels = synthetic.affine_batch(
+            np.random.default_rng(99), c.vocab_size, disagree_every=every,
+            device=dev)
+        with torch.no_grad():
+            loss = float(model.loss(params, {"tokens": toks,
+                                             "labels": labels}))
+        acc = synthetic.greedy_accuracy(model, params, prompts)
+        require(np.isfinite(loss), f"fit {c.name}: loss {loss}")
+        log(f"fit {c.name} (x{c.n_layers}, vocab {c.vocab_size}) "
+            f"disagree_every={every}: 1000 steps in {secs:.1f} s, held-out "
+            f"loss={loss:.5f}, greedy accuracy on 64 affine prompts="
+            f"{acc:.4f}")
+        fits[name] = (model, params)
+    return fits
+
+
+def gate_phase(model, params, kind: str) -> dict:
+    """The card's greedy streams against the CPU's on the fitted weights:
+    8 affine prompts admitted into a `kind` cache, 16 teacher-fed decode
+    steps, then 16 fused greedy steps on each device; the fused blocks
+    must agree at every token.  Returns the decode kernel's launches."""
+    cfg = model.cfg
+    ps, maxp, steps = 16, 3, 16
+    prompts = synthetic.affine_prompts(np.random.default_rng(7), 8,
+                                       cfg.vocab_size)
+    kernel = {"paged": "paged_flash_decode", "int8": "paged_flash_decode_q",
+              "dense": "flash_decode"}[kind]
+    n = cfg.n_layers * 2 * steps
+    with torch.no_grad():
+        cpu = _model_run(make_model(cfg, device="cpu"), _to(params, "cpu"),
+                         prompts, ps, maxp, steps, None, kind)
+        gpu, _, got = _counted(
+            lambda: _model_run(model, params, prompts, ps, maxp, steps, cpu,
+                               kind), {kernel: n}, f"gate {kind}")
+    match = (cpu["block"] == gpu["block"]).float().mean().item()
+    errs = [(g - c).abs().max().item() for c, g in zip(cpu["logits"],
+                                                       gpu["logits"])]
+    log(f"gate {cfg.name} fitted, {kind} cache, B={len(prompts)}, card vs "
+        f"CPU: fused {steps}-step greedy token match={match:.4f} (want "
+        f"1.0), teacher-fed max_abs_logit_err={max(errs):.4g}, "
+        f"{kernel} launches={got[kernel]}; {_first_divergence(cpu, gpu)}")
+    require(match == 1.0, f"gate {kind}: card and CPU greedy streams part")
+    return {kernel: got[kernel]}
+
+
+def _spec_requests(vocab: int, seed: int = 0):
+    """16 affine requests, then 8 that share a 32-token affine prefix (a
+    prefix hit whose draft lane ingests the forced suffix); budgets
+    8-32."""
+    rng = np.random.default_rng(seed)
+    prompts = synthetic.affine_prompts(rng, 16, vocab, (4, 30))
+    prefix = synthetic.affine_prompts(rng, 1, vocab, (32, 33))[0]
+    prompts += [np.concatenate([prefix, s]).astype(np.int32) for s in
+                synthetic.affine_prompts(rng, 8, vocab, (3, 9))]
+    return [(p, int(rng.integers(8, 33))) for p in prompts]
+
+
+class _LaneTally:
+    """Records the lane count of every paged decode-kernel call while
+    installed (a pass-through around the wrappers, which count the
+    launches themselves): B lanes for a decode step, B * (k+1) for a
+    verify pass."""
+
+    names = ("paged_flash_decode", "paged_flash_decode_q")
+
+    def __enter__(self):
+        self.lanes = {n: [] for n in self.names}
+        self.orig = {n: getattr(ops, n) for n in self.names}
+        for n in self.names:
+            def call(q, *a, _n=n, **k):
+                self.lanes[_n].append(q.shape[0])
+                return self.orig[_n](q, *a, **k)
+            setattr(ops, n, call)
+        return self
+
+    def __exit__(self, *exc):
+        for n, f in self.orig.items():
+            setattr(ops, n, f)
+
+
+def _serve_requests(model, params, requests, kv_dtype, spec=None,
+                    num_pages=SPEC_PAGES):
+    """The paged cb engine at B=8 on `requests` (FIFO, all at t=0) over
+    `num_pages` pages (None: room for every lane), with the launch counts
+    set to 0 just before; returns (streams, engine, wall seconds, launch
+    counts, kernel lane tally)."""
+    eng = ContinuousBatchingEngine(model, params, max_batch=8,
+                                   buckets=serve_cli.BUCKETS,
+                                   deadline_s=0.0, max_decode_len=40,
+                                   num_pages=num_pages, kv_dtype=kv_dtype,
+                                   spec_config=spec)
+    for i, (p, b) in enumerate(requests):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=b))
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    with _LaneTally() as tally:
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    got = {k: ops.launches[k] for k in ATTN_KERNELS}
+    require(len(done) == len(requests) and all(
+        r.done and len(r.tokens_out) == b
+        for r, (_, b) in zip(done, requests)),
+        "spec phase: a request stopped short of its budget")
+    return [r.tokens_out for r in done], eng, wall, got, tally.lanes
+
+
+def _spec_run(label, model, params, requests, kv_dtype, draft, dparams,
+              plain_toks, plain_wall, gated: bool = True,
+              num_pages=SPEC_PAGES, out=None) -> dict:
+    """One speculative engine run against the plain engine's streams:
+    tok/s, acceptance, dispatches, catch-up, and the route kernel's
+    launches split into verify passes (B * (k+1) lanes; one per target
+    layer per spec dispatch, the warm-up's one per ladder depth
+    included) and single-query steps (B lanes: the target's plain
+    decode steps, the draft's steps).  Returns the route kernel's
+    launches."""
+    kernel = ("paged_flash_decode_q" if kv_dtype == "int8"
+              else "paged_flash_decode")
+    spec = dict(draft_model=draft, draft_params=dparams, spec_k=SPEC_K)
+    toks, eng, wall, got, lanes = _serve_requests(
+        model, params, requests, kv_dtype, spec, num_pages)
+    s, b = eng.stats, eng.max_batch
+    verify = sum(1 for n in lanes[kernel] if n > b)
+    single = sum(1 for n in lanes[kernel] if n == b)
+    ladder = eng.sched.spec_ladder
+    n_tgt, n_dft = model.cfg.n_layers, draft.cfg.n_layers
+    plain_steps = s["decode_steps"] - s["spec_draft_steps"]
+    least_single = (n_tgt * plain_steps + n_dft * (
+        s["spec_draft_steps"] + sum(k + 1 for k in ladder)))
+    require(got[kernel] == len(lanes[kernel]) == verify + single
+            and not any(v for k, v in got.items() if k != kernel),
+            f"spec {label}: launches {got}, tally {len(lanes[kernel])}")
+    require(verify == n_tgt * (s["spec_dispatches"] + len(ladder)),
+            f"spec {label}: {verify} verify launches, want {n_tgt} x "
+            f"({s['spec_dispatches']} dispatches + {len(ladder)} warm)")
+    require(single >= least_single, f"spec {label}: {single} single-query "
+            f"launches < {least_single}")
+    ntok = sum(len(t) for t in toks)
+    same = sum(int(a == c) for x, y in zip(toks, plain_toks)
+               for a, c in zip(x, y))
+    acc = s["spec_accepted"] / max(s["spec_proposed"], 1)
+    log(f"spec {label} kv={kv_dtype} spec_k={SPEC_K} B={b}: requests="
+        f"{len(toks)} tokens={ntok} wall_s={wall:.4f} tok_s={ntok / wall:.1f}"
+        f" (plain engine {ntok / plain_wall:.1f}) token match vs plain="
+        f"{same / ntok:.4f} acceptance={acc:.4f} ({s['spec_accepted']}/"
+        f"{s['spec_proposed']}) spec_dispatches={s['spec_dispatches']} "
+        f"decode_dispatches={s['decode_dispatches']} spec_catchup_tokens="
+        f"{s['spec_catchup_tokens']} spec_draft_prefills="
+        f"{s['spec_draft_prefills']} prefix_hits={s['prefix_hits']} "
+        f"preemptions={s['preemptions']} "
+        f"{kernel} launches={got[kernel]}: verify={verify} (lanes "
+        f"{sorted(set(n for n in lanes[kernel] if n > b))}) single-query="
+        f"{single}")
+    if gated:
+        require(toks == plain_toks, f"spec {label} kv={kv_dtype}: streams "
+                "differ from the plain engine's")
+    if out is not None:
+        out.extend(toks)
+    return {kernel: got[kernel]}
+
+
+def _verify_vs_chained(model, params, kind: str, seed: int) -> tuple:
+    """One verify block (T = SPEC_K + 1) after 8 admitted prompts, against
+    T chained decode_step calls from an identical cache: the largest
+    |logit difference|, and the chained run's top-2 gap at the first row
+    that differs (None where every row is equal bit for bit)."""
+    cfg = model.cfg
+    ps, maxp, t = 16, 4, SPEC_K + 1
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in rng.integers(6, 40, 8)]
+    tokens = torch.tensor(rng.integers(0, cfg.vocab_size, (8, t)),
+                          dtype=torch.int32, device=model.device)
+    with torch.no_grad():
+        cache, _ = _admitted(model, params, prompts, ps, maxp, kind)
+        steps = []
+        for j in range(t):
+            lg, cache = model.decode_step(params, cache, tokens[:, j])
+            steps.append(lg)
+        chained = torch.stack(steps, 1)
+        cache, _ = _admitted(model, params, prompts, ps, maxp, kind)
+        ver, _ = model.verify_block(params, cache, tokens)
+    diff = (ver - chained).abs()
+    differ = diff.amax(-1) > 0
+    if not bool(differ.any()):
+        return 0.0, None
+    top2 = chained.topk(2, dim=-1).values
+    return float(diff.max()), float((top2[..., 0] - top2[..., 1])[differ][0])
+
+
+def _ties_only(model, params, requests, toks, plain_toks, limit: float):
+    """Where a speculative stream parts from the plain engine's, whether
+    the first differing token is a tie the verify pass may break either
+    way: the plain route (the prompt's prefill, then one paged decode step
+    per token) recomputes the logits that chose it, and the two tokens
+    must be their top two, with a gap of at most `limit`.  Returns one
+    note per parting request."""
+    notes = []
+    for i, ((prompt, budget), got, want) in enumerate(
+            zip(requests, toks, plain_toks)):
+        t = next((j for j, (a, c) in enumerate(zip(got, want)) if a != c),
+                 None)
+        if t is None:
+            continue
+        with torch.no_grad():
+            cache, lg = _admitted(model, params, [prompt], 16,
+                                  -(-(len(prompt) + budget) // 16), "paged")
+            for tok in want[:t]:
+                lg, cache = model.decode_step(
+                    params, cache, torch.tensor([tok], dtype=torch.int32,
+                                                device=model.device))
+        vals, idx = lg[0].float().topk(2)
+        gap = float(vals[0] - vals[1])
+        notes.append(f"request {i} parts at token {t}: plain {want[t]}, "
+                     f"spec {got[t]}, top-2 {idx.tolist()} gap {gap:.4g}")
+        require(set(idx.tolist()) == {want[t], got[t]} and gap <= limit,
+                f"spec: {notes[-1]}, not a tie within {limit:.4g}")
+    return notes
+
+
+def _spec_profile(model, params, requests) -> None:
+    """The full-width self-draft spec run once more under torch.profiler:
+    the device's busy share of the window, device ops per dispatch, and
+    the paged kernel's share of device time (its spans must number its
+    launches)."""
+    spec = dict(draft_model=model, draft_params=params, spec_k=SPEC_K)
+    eng = ContinuousBatchingEngine(model, params, max_batch=8,
+                                   buckets=serve_cli.BUCKETS,
+                                   deadline_s=0.0, max_decode_len=40,
+                                   spec_config=spec)
+    for i, (p, b) in enumerate(requests):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=b))
+    ops.reset_launches()
+    spans, wall_us = _device_spans(eng.run)
+    if not spans:
+        log("profile spec: the profiler recorded no device time (not "
+            "measured)")
+        return
+    kern = [e - s for s, e, name in spans
+            if "paged_flash_decode_kernel" in name]
+    n = ops.launches["paged_flash_decode"]
+    require(len(kern) == n, f"profile spec: {len(kern)} kernel spans, "
+            f"{n} launches")
+    dev_total = sum(e - s for s, e, _ in spans)
+    disp = eng.stats["decode_dispatches"]
+    log(f"profile spec smollm-135m self-draft bf16 x{len(requests)} (B=8, "
+        f"spec_k {SPEC_K}): wall_ms={wall_us / 1e3:.2f} "
+        f"device_busy_share={_busy_us(spans) / wall_us:.4f} "
+        f"device_kernel_ms={dev_total / 1e3:.2f} "
+        f"paged_flash_decode_share_of_device="
+        f"{sum(kern) / max(dev_total, 1e-9):.4f} ({n} launches) "
+        f"device_ops_per_dispatch={len(spans) / max(disp, 1):.1f} "
+        f"dispatches={disp} decode_steps={eng.stats['decode_steps']} "
+        f"wall_ms_per_dispatch={wall_us / 1e3 / max(disp, 1):.3f}")
+
+
+def spec_phase(dev, fits: dict) -> dict:
+    """Speculative serving on the card through the paged cb engine
+    (spec_k 4, B=8): the fitted reduced target with its clean and its
+    disagreeing draft, on bf16 and int8 arenas, each stream required to
+    equal the plain engine's on the same requests; then smollm-135m at
+    full width on init_params weights drafting for itself (acceptance
+    1.0 but for blocks cut short by a budget), in a pool with room for
+    every lane, its streams required to equal the plain engine's but at
+    ties within twice the verify pass's measured logit difference.  The
+    reduced target's verify block must equal its chained decode steps bit
+    for bit.  Returns the paged kernels' launches."""
+    launches = dict.fromkeys(ATTN_KERNELS, 0)
+
+    def add(d):
+        for k, v in d.items():
+            launches[k] += v
+
+    model, params = fits["target"]
+    requests = _spec_requests(model.cfg.vocab_size)
+    _serve_requests(model, params, requests[:4], "bf16")  # process warm-up
+    for kind in ("paged", "int8"):
+        d, _ = _verify_vs_chained(model, params, kind, 1)
+        log(f"spec {model.cfg.name} {kind}: max |verify_block - {SPEC_K + 1}"
+            f" chained decode_step| logits = {d:.4g}")
+        require(d == 0, f"spec {kind}: the verify pass parts from the "
+                "chained decode steps")
+    for kv in ("bf16", "int8"):
+        toks, _, wall, got, _ = _serve_requests(model, params, requests, kv)
+        add(got)
+        for name in ("draft", "draft_disagree3"):
+            add(_spec_run(f"{model.cfg.name} {name}", model, params,
+                          requests, kv, *fits[name], toks, wall))
+    cfg = get_config("smollm-135m")
+    model = make_model(cfg, device=dev)
+    params = init_params(cfg, seed=0, device=dev)
+    args = serve_cli.parse_args(["--requests", "16", "--max-new", "32",
+                                 "--seed", "0"])
+    requests = [(r.prompt, r.max_new_tokens) for r in
+                serve_cli.make_stream(args, cfg.vocab_size, args.seed)]
+    d, gap = _verify_vs_chained(model, params, "paged", 2)
+    log(f"spec smollm-135m full width, init_params: max |verify_block - "
+        f"{SPEC_K + 1} chained decode_step| logits = {d:.4g} (chained top-2 "
+        f"gap at the first differing row: {gap})")
+    # a pool with room for every lane: on random weights a preempted
+    # request's re-prefill may break a near-tie otherwise than the decode
+    # steps it replaces, in either engine, whatever the verify pass does
+    toks, _, wall, got, _ = _serve_requests(model, params, requests, "bf16",
+                                            num_pages=None)
+    add(got)
+    spec_toks = []
+    add(_spec_run("smollm-135m self-draft", model, params, requests, "bf16",
+                  model, params, toks, wall, gated=False, num_pages=None,
+                  out=spec_toks))
+    # the verify rows part from the decode steps' by up to d per logit, so
+    # a token may flip where the plain stream's top-2 gap is within 2d;
+    # every other token must equal the plain engine's
+    for note in _ties_only(model, params, requests, spec_toks, toks, 2 * d):
+        log(f"spec smollm-135m self-draft: tie, {note}")
+    _spec_profile(model, params, requests[:8])
+    return launches
 
 
 def _first_difference(qp, qp_cpu, cfg, x) -> str:
@@ -1119,6 +1578,9 @@ def kernels_phase(dev) -> dict:
     kernel_phase(dev, flush, maxp=128)
     main_shape["paged_flash_decode_q"] = paged_q_phase(dev, flush, maxp=12)
     paged_q_phase(dev, flush, maxp=128)
+    # kernels 1 and 2 at the speculative verify pass's folded lanes
+    verify_kernel_phase(dev, flush, quantized=False)
+    verify_kernel_phase(dev, flush, quantized=True)
     main_shape["flash_decode"] = flash_decode_phase(dev, flush, sk=192)
     flash_decode_phase(dev, flush, sk=192, window=48)
     flash_decode_phase(dev, flush, sk=2048)
@@ -1194,8 +1656,12 @@ def main() -> None:
                                                               "int8")])
     timed("model", lambda: [model_phase(k) for k in ("paged", "dense",
                                                      "int8")])
+    fits = timed("fit", lambda: fit_phase(dev))
+    gated = timed("gate", lambda: [gate_phase(*fits["target"], k)
+                                   for k in ("paged", "dense", "int8")])
+    gated.append(timed("spec", lambda: spec_phase(dev, fits)))
     launches = {k: sum(s["launches"] for s in served if s["kernel"] == k)
-                for k in DECODE_KERNELS}
+                + sum(g.get(k, 0) for g in gated) for k in DECODE_KERNELS}
     launches.update(timed("encode", encode_phase))
     launches["flash_attention"] = fa_launches
 

@@ -1,8 +1,11 @@
 """Serving CLI of the PyTorch port: one engine on one device, fed a
 synthetic request stream.  The continuous-batching engine (`--engine cb`,
 the default) serves from a paged KV arena, bf16 or `--kv-dtype int8` (or,
-through `serve(args, paged=False)`, from dense slot rows); `--engine wave`
-is the batch-synchronous baseline on dense slot rows.
+through `serve(args, paged=False)`, from dense slot rows), and with
+`--draft-config` speculates greedily (a draft proposes, the target
+verifies); `--engine wave` is the batch-synchronous baseline on dense
+slot rows.  The summary line ends with the engine's stats (`spec_*` under
+speculation).
 
 Runs on the CUDA device unless ``--device cpu`` is given; without a card
 it stops with an error instead of falling back to the CPU.
@@ -12,6 +15,8 @@ it stops with an error instead of falling back to the CPU.
   PYTHONPATH=src python -m repro_torch.launch.serve --kv-dtype int8
   PYTHONPATH=src python -m repro_torch.launch.serve --engine wave
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
+      --draft-config smollm-135m --spec-k 4
 """
 from __future__ import annotations
 
@@ -58,6 +63,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--num-pages", type=int, default=0,
                     help="KV page-pool size (0 = the dense table's "
                          "capacity + the trash page)")
+    ap.add_argument("--draft-config", default="",
+                    help="arch of a speculative-decoding draft model "
+                         "(random weights from seed + 1; --reduced applies "
+                         "to it too): the draft proposes up to --spec-k "
+                         "tokens per lane per dispatch and the target "
+                         "verifies them in one pass.  Needs the paged cb "
+                         "engine and the target's vocabulary")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="most drafted tokens per speculative dispatch; "
+                         "each lane walks a depth ladder below it on low "
+                         "acceptance")
     ap.add_argument("--warmup", action="store_true",
                     help="first serve, unmeasured, a stream drawn from "
                          "seed + 1")
@@ -95,6 +111,10 @@ def serve(args: argparse.Namespace, paged="auto"):
                   kv_dtype=args.kv_dtype)
         if args.num_pages:
             kw["num_pages"] = args.num_pages
+        if args.draft_config:
+            kw["spec_config"] = draft_config(args, cfg, paged, device)
+    elif args.draft_config:
+        raise SystemExit("serve: --draft-config needs --engine cb")
     cls = ContinuousBatchingEngine if args.engine == "cb" else WaveEngine
     engine = cls(model, params, max_batch=args.max_batch, buckets=BUCKETS,
                  monitor=StragglerMonitor(),
@@ -108,6 +128,26 @@ def serve(args: argparse.Namespace, paged="auto"):
         engine.submit(r)
     done = engine.run()
     return engine, done, time.perf_counter() - t0
+
+
+def draft_config(args: argparse.Namespace, cfg, paged, device) -> dict:
+    """The engine's spec_config for --draft-config: the draft's model and
+    random weights (seed + 1), at the target's vocabulary."""
+    if not (paged and paged_eligible(cfg)):
+        raise SystemExit(
+            "serve: --draft-config needs the paged cb engine (an "
+            "all-attention, unwindowed, causal model)")
+    dcfg = get_config(args.draft_config)
+    if args.reduced:
+        dcfg = dcfg.reduced()
+    if dcfg.vocab_size != cfg.vocab_size:
+        raise SystemExit(
+            "serve: draft and target must share a vocabulary "
+            f"({dcfg.vocab_size} vs {cfg.vocab_size})")
+    return dict(draft_model=make_model(dcfg, device=device),
+                draft_params=init_params(dcfg, seed=args.seed + 1,
+                                         device=device),
+                spec_k=args.spec_k)
 
 
 def make_stream(args: argparse.Namespace, vocab_size: int, seed: int):

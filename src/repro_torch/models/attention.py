@@ -16,9 +16,10 @@ The JAX code builds new cache arrays with ``.at[].set`` and relies on
 buffer donation; this port updates the cache tensors in place
 (``index_put_`` and slice assignment) and returns the same dict.
 
-Not ported yet — each raises NotImplementedError naming its slice: the
-paged multi-query verify branch (speculative decoding) and sliding
-windows (the other families).
+A paged cache with T > 1 queries per lane is speculative decoding's
+verify pass: the T queries fold into B*T lanes of one paged decode
+launch.  Not ported yet: sliding windows (the other families), which
+raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -153,11 +154,9 @@ def attention(x: torch.Tensor, p: Params, cfg, positions: torch.Tensor,
     # takes q unscaled: its kernel scales the f32 score)
     qs = q * (1.0 / math.sqrt(hd))
 
-    if cache is not None and page_table is not None and x.shape[1] > 1:
-        raise NotImplementedError(
-            "the paged multi-query verify branch arrives with the "
-            "speculative-decoding slice")
-    if cache is None or x.shape[1] > 1:
+    if cache is not None and page_table is not None:
+        out = _paged_decode(qs, k, v, cache, page_table, positions, active)
+    elif cache is None or x.shape[1] > 1:
         s = x.shape[1]
         if s <= DENSE_ATTN_MAX_KV:
             msk = _mask(s, s, positions, positions, cfg.causal, 0,
@@ -174,42 +173,6 @@ def attention(x: torch.Tensor, p: Params, cfg, positions: torch.Tensor,
             cache["k"][:, :take] = k[:, -take:].to(cache["k"].dtype)
             cache["v"][:, :take] = v[:, -take:].to(cache["v"].dtype)
             cache["kpos"][:, :take] = positions[:, -take:].to(torch.int32)
-    elif page_table is not None:
-        b = x.shape[0]
-        ck, cv, ckpos = cache["k"], cache["v"], cache["kpos"]
-        ps = ck.shape[1]
-        cpos = positions[:, 0].to(torch.int32)
-        act = (torch.ones((b,), dtype=torch.bool, device=x.device)
-               if active is None else active.bool())
-        lane = torch.arange(b, device=x.device)
-        # clamped like a JAX gather, for lanes whose stale counter ran off
-        # the table (they are inactive and write to the trash page)
-        col = torch.clamp(cpos // ps, max=page_table.shape[1] - 1).long()
-        page = page_table[lane, col]
-        zero = torch.zeros_like(page)
-        wr_page = torch.where(act, page, zero).long()
-        wr_off = torch.where(act, cpos % ps, zero).long()
-        kpos_val = torch.where(act, cpos,
-                               torch.full_like(cpos, KPOS_SENTINEL))
-        ckpos.index_put_((wr_page, wr_off), kpos_val)
-        q0 = qs[:, 0].contiguous()
-        if "k_scale" in cache:
-            # int8 arena: the new row is quantized on the way in, one int8
-            # row and one f32 scale per kv head at the same (page, offset)
-            kq, ksc = kv_quantize(k[:, 0])
-            vq, vsc = kv_quantize(v[:, 0])
-            ck.index_put_((wr_page, wr_off), kq)
-            cv.index_put_((wr_page, wr_off), vq)
-            cache["k_scale"].index_put_((wr_page, wr_off), ksc)
-            cache["v_scale"].index_put_((wr_page, wr_off), vsc)
-            out = kops.paged_flash_decode_q(
-                q0, ck, cv, cache["k_scale"], cache["v_scale"], ckpos,
-                page_table, cpos, active=act)[:, None]
-        else:
-            ck.index_put_((wr_page, wr_off), k[:, 0].to(ck.dtype))
-            cv.index_put_((wr_page, wr_off), v[:, 0].to(cv.dtype))
-            out = kops.paged_flash_decode(q0, ck, cv, ckpos, page_table,
-                                          cpos, active=act)[:, None]
     else:
         # dense slot decode: lane b's row for position q is slot
         # min(q, slots - 1) (ring buffers, q % slots, arrive with the
@@ -236,6 +199,65 @@ def attention(x: torch.Tensor, p: Params, cfg, positions: torch.Tensor,
 
     out = out.reshape(x.shape[0], x.shape[1], nh * hd)
     return dense(out, p["wo"]), cache
+
+
+def _paged_decode(qs, k, v, cache, page_table, positions, active):
+    """Paged decode: T contiguous queries per lane against the arena (T = 1
+    for a decode step, T = k+1 for speculative decoding's verify pass).
+
+    All B*T new rows are scattered through the page table in one write,
+    exactly as T single-query decode writes would place them, then the T
+    queries are folded into B*T lanes of one decode-kernel launch, each
+    attending at its own position with its lane's table.  Rows ahead of a
+    query carry kpos above its qpos, so the causal mask hides them, and
+    each output row is what a single-step decode at that position gives.
+    Rejected rows need no cleanup: the caller rewinds the position
+    counter, and they stay beyond every later query until overwritten.
+    """
+    from repro_torch.kernels import ops as kops
+
+    b, t, nh, hd = qs.shape
+    ps = cache["k"].shape[1]
+    cpos = positions.to(torch.int32)  # (B, T)
+    act = (torch.ones((b,), dtype=torch.bool, device=qs.device)
+           if active is None else active.bool())
+    # clamped like a JAX gather: the block's last rows near cache_len, and
+    # inactive lanes' stale counters, may run off the table's columns
+    col = torch.clamp(cpos // ps, max=page_table.shape[1] - 1).long()
+    page = torch.gather(page_table, 1, col)
+    a2 = act[:, None]
+    zero = torch.zeros_like(page)
+    wr_page = torch.where(a2, page, zero).reshape(-1).long()
+    wr_off = torch.where(a2, cpos % ps, zero).reshape(-1).long()
+    # inactive lanes' rows all land on the trash page 0, offset 0; the
+    # order of duplicate writes is not fixed on the card, which is harmless
+    # only because each of them writes the same sentinel kpos first
+    kpos_val = torch.where(a2, cpos, torch.full_like(cpos, KPOS_SENTINEL))
+    cache["kpos"].index_put_((wr_page, wr_off), kpos_val.reshape(-1))
+    kf = k.reshape(b * t, *k.shape[2:])
+    vf = v.reshape(b * t, *v.shape[2:])
+    qf = qs.reshape(b * t, nh, hd).contiguous()
+    qpf = cpos.reshape(-1)
+    # a decode step (T = 1) needs no fold: the table and mask are the lanes'
+    ptf = page_table if t == 1 else page_table.repeat_interleave(t, dim=0)
+    actf = act if t == 1 else act.repeat_interleave(t)
+    if "k_scale" in cache:
+        # int8 arena: each row quantized on the way in, per kv head
+        kq, ksc = kv_quantize(kf)
+        vq, vsc = kv_quantize(vf)
+        cache["k"].index_put_((wr_page, wr_off), kq)
+        cache["v"].index_put_((wr_page, wr_off), vq)
+        cache["k_scale"].index_put_((wr_page, wr_off), ksc)
+        cache["v_scale"].index_put_((wr_page, wr_off), vsc)
+        out = kops.paged_flash_decode_q(
+            qf, cache["k"], cache["v"], cache["k_scale"], cache["v_scale"],
+            cache["kpos"], ptf, qpf, active=actf)
+    else:
+        cache["k"].index_put_((wr_page, wr_off), kf.to(cache["k"].dtype))
+        cache["v"].index_put_((wr_page, wr_off), vf.to(cache["v"].dtype))
+        out = kops.paged_flash_decode(qf, cache["k"], cache["v"],
+                                      cache["kpos"], ptf, qpf, active=actf)
+    return out.reshape(b, t, nh, hd)
 
 
 def init_paged_attn_cache(cfg, num_pages: int, page_size: int,

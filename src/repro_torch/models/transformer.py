@@ -1,5 +1,6 @@
-"""Decoder backbone, prefill and the fused greedy decode loop (port of
-`repro/models/transformer.py`, attention-only families).
+"""Decoder backbone, prefill, the fused greedy decode loop and greedy
+speculative decoding (port of `repro/models/transformer.py`,
+attention-only families).
 
 Parameters keep the JAX package's layout: {"embed", "scan", "tail",
 "final_norm"}, with every "scan" leaf stacked on a leading layer-period
@@ -85,6 +86,64 @@ def greedy_token_update(logits, cur, active, remaining, eos_id, pad_token):
     still = active & (nxt != eos_id) & (remaining > 0)
     cur = torch.where(still, nxt, torch.full_like(nxt, pad_token))
     return emit, cur, still, remaining
+
+
+def spec_acceptance(ins, tgt, active, remaining, eos_id, pad_token,
+                    forced, forced_len, forced_ptr):
+    """The acceptance state machine of one speculative block, vectorised
+    over lanes.
+
+    ins: (B, T) the block's input tokens (T = k+1; column 0 is the lane's
+    current input, later columns are forced-queue tokens or draft
+    proposals); tgt: (B, T) the target's greedy argmax at each position.
+    It follows `decode_steps`' forced-queue rules step for step: step j's
+    output is swallowed while ``forced_ptr + j < forced_len``; a drafted
+    input (one the forced queue did not cover) is consumed only if it
+    equals the target's argmax at the step before; the first divergence
+    emits the target's own argmax, which is ``tgt[:, j-1]``, already
+    emitted — so rejection costs nothing and the emitted stream equals
+    plain greedy decoding.
+
+    Returns (emit (T, B) with -1 holes, cur, alive, remaining, forced_ptr,
+    n_consumed): `n_consumed` is how many block positions the sequential
+    run would have taken, the advance of both caches' position counters.
+    """
+    b, t = ins.shape
+    lane = torch.arange(b, device=ins.device)
+    fcap = forced.shape[1]
+    valid = active  # step 0's input is the lane's own cur: always matched
+    alive = active
+    rem = remaining
+    n_consumed = torch.zeros((b,), dtype=torch.int32, device=ins.device)
+    minus1 = torch.full((b,), -1, dtype=torch.int32, device=ins.device)
+    emits = []
+    for j in range(t):
+        if j > 0:
+            drafted = (forced_ptr + j - 1) >= forced_len
+            matched = ~drafted | (ins[:, j] == tgt[:, j - 1])
+            valid = valid & matched & alive
+        n_consumed = n_consumed + valid.to(torch.int32)
+        swallowed = (forced_ptr + j) < forced_len
+        emitting = valid & ~swallowed
+        emits.append(torch.where(emitting, tgt[:, j], minus1))
+        rem = torch.where(emitting, rem - 1, rem)
+        exited = emitting & ((tgt[:, j] == eos_id) | (rem <= 0))
+        alive = alive & ~exited
+    # the next input of the sequential run: the first unconsumed step's
+    # input — a still-pending forced token, or the target's argmax at the
+    # last consumed step (the correction on divergence, the bonus token on
+    # full acceptance; both already emitted)
+    idx = forced_ptr + n_consumed - 1
+    nxt = torch.where(
+        idx < forced_len,
+        forced[lane, torch.clamp(idx, 0, fcap - 1).long()],
+        tgt[lane, torch.clamp(n_consumed - 1, 0, t - 1).long()])
+    cur = torch.where(alive, nxt.to(torch.int32),
+                      torch.full_like(minus1, pad_token))
+    fptr = forced_ptr + torch.minimum(
+        torch.clamp(forced_len - forced_ptr, min=0), n_consumed)
+    return (torch.stack(emits), cur, alive, rem, fptr.to(torch.int32),
+            n_consumed)
 
 
 # ---------------------------------------------------------------------------
@@ -420,6 +479,111 @@ class Model:
             fptr = torch.where(act & pending, fptr + 1, fptr)
             act = still
         return torch.stack(toks), cur, act, rem, fptr, caches
+
+    def draft_steps(self, params, caches, token: torch.Tensor,
+                    active: torch.Tensor, n_draft: int,
+                    forced: torch.Tensor, forced_len: torch.Tensor,
+                    forced_ptr: torch.Tensor, pad_token: int = 0):
+        """Build one speculative input block on the draft model.
+
+        Runs ``n_draft + 1`` draft decode steps: step j consumes input
+        ``ins[:, j]`` — the forced-queue token while the queue still covers
+        the position (so a prefix-hit lane's draft cache ingests the same
+        suffix as the target's), else the previous step's draft argmax.
+        The last step only ingests the last input's KV, so the draft cache
+        covers every position the target verifies; its output is dropped.
+        Returns (ins (B, n_draft+1), caches), the draft position counters
+        advanced by n_draft+1 (the caller rewinds them to the accepted
+        length).
+        """
+        b = token.shape[0]
+        lane = torch.arange(b, device=token.device)
+        fcap = forced.shape[1]
+        pad = torch.full_like(token, pad_token, dtype=torch.int32)
+        cur = torch.where(active, token.to(torch.int32), pad)
+        ins = [cur]
+        for j in range(n_draft + 1):
+            logits, caches = self.decode_step(params, caches, cur,
+                                              active=active)
+            if j == n_draft:
+                break
+            prop = torch.argmax(logits, dim=-1).to(torch.int32)
+            idx = forced_ptr + j
+            nxt = torch.where(
+                idx < forced_len,
+                forced[lane, torch.clamp(idx, max=fcap - 1).long()], prop)
+            cur = torch.where(active, nxt.to(torch.int32), pad)
+            ins.append(cur)
+        return torch.stack(ins, dim=1), caches
+
+    def verify_block(self, params, caches, tokens: torch.Tensor,
+                     active: Optional[torch.Tensor] = None):
+        """The target's pass over T contiguous speculative inputs.
+
+        tokens: (B, T), column j at position ``caches['pos'][b] + j``.  One
+        backbone call with S = T takes the paged verify branch
+        (models/attention.py): every row's logits are what T chained
+        single-step `decode_step` calls with the same inputs give, which
+        is what makes greedy verification lossless.  Returns (logits (B,
+        T, V) f32, caches), the position counters untouched: the caller
+        advances them by the accepted length only.
+        """
+        if "pt" not in caches:
+            raise ValueError("verify_block needs a paged cache")
+        t = tokens.shape[1]
+        x = self.embed_inputs(params, tokens=tokens)
+        positions = (caches["pos"][:, None]
+                     + torch.arange(t, dtype=torch.int32,
+                                    device=x.device)[None, :])
+        h = self.backbone(params, x, positions, caches=caches,
+                          page_table=caches["pt"], active=active)
+        return lm_head(h, params["embed"]), caches
+
+    def spec_decode_step(self, params, caches, token: torch.Tensor,
+                         active: torch.Tensor, n_draft: int,
+                         draft_model: "Model", draft_params, draft_caches,
+                         eos_id: Optional[torch.Tensor] = None,
+                         budget: Optional[torch.Tensor] = None,
+                         pad_token: int = 0,
+                         forced: Optional[torch.Tensor] = None,
+                         forced_len: Optional[torch.Tensor] = None,
+                         forced_ptr: Optional[torch.Tensor] = None):
+        """One speculative block: the draft's n_draft+1 steps, one target
+        verify pass and the acceptance state machine, emitting up to
+        ``n_draft + 1`` tokens per lane while equal to `decode_steps`.
+
+        A rejection is rolled back by rewinding both caches' position
+        counters (in place): rejected rows sit at kpos beyond every later
+        query position until the stream overwrites them.  Returns (toks
+        (n_draft+1, B), cur, active, remaining, forced_ptr, caches,
+        draft_caches, n_consumed).
+        """
+        b = token.shape[0]
+        dev = token.device
+        if eos_id is None:
+            eos_id = torch.full((b,), -1, dtype=torch.int32, device=dev)
+        if budget is None:
+            budget = torch.full((b,), 2 ** 30, dtype=torch.int32,
+                                device=dev)
+        if forced is None:
+            forced = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+            forced_len = torch.zeros((b,), dtype=torch.int32, device=dev)
+            forced_ptr = torch.zeros((b,), dtype=torch.int32, device=dev)
+        ins, draft_caches = draft_model.draft_steps(
+            draft_params, draft_caches, token, active, n_draft, forced,
+            forced_len, forced_ptr, pad_token)
+        logits, caches = self.verify_block(params, caches, ins,
+                                           active=active)
+        tgt = torch.argmax(logits, dim=-1).to(torch.int32)
+        toks, cur, alive, rem, fptr, v = spec_acceptance(
+            ins, tgt, active, budget, eos_id, pad_token, forced, forced_len,
+            forced_ptr)
+        pos = caches["pos"]
+        caches["pos"] = torch.where(active, pos + v, pos)
+        dpos = draft_caches["pos"]
+        draft_caches["pos"] = torch.where(active, dpos - (n_draft + 1) + v,
+                                          dpos)
+        return toks, cur, alive, rem, fptr, caches, draft_caches, v
 
     def insert_prefill_cache(self, big, small, slot: int):
         """Write a batch-1 prefill cache `small` into lane `slot` of the

@@ -8,7 +8,10 @@ dispatches, over a paged KV arena (bf16 or int8) or over dense slot rows
 pages and its suffix rides the decode loop's forced-token queue; a cold
 request is prefilled at its bucket and scattered into its own pages, and
 its full prompt pages are registered for later hits.  On dense slots each
-admission is a batch-1 prefill inserted into the lane's row.
+admission is a batch-1 prefill inserted into the lane's row.  With a
+draft model (`spec_config`) a paged engine speculates: each lane also
+holds pages of the draft's arena, and a dispatch drafts, verifies and
+accepts up to spec_k + 1 tokens per lane.
 `WaveEngine` (serving/wave.py), the batch-synchronous baseline, shares
 `EngineBase`.  Decode: one fused n-step dispatch per loop turn, one (n, B)
 token fetch, host-side reconciliation.
@@ -66,6 +69,7 @@ class EngineBase:
         self.buckets = tuple(sorted(buckets))
         self.monitor = monitor
         self.paged = False  # ContinuousBatchingEngine may flip this
+        self.spec_k = 0  # drafted tokens per speculative dispatch, or 0
         # lane rows: prompt KV + decode headroom, fixed per engine
         self.cache_len = bucket_len(max(self.buckets), self.buckets,
                                     lane=8) + max_decode_len
@@ -81,6 +85,9 @@ class EngineBase:
 
     def submit(self, req: Request) -> None:
         need = self.policy.bucket_of(len(req.prompt)) + req.max_new_tokens
+        # speculation scatters up to spec_k rows past the committed
+        # position; the lane's page table must cover the overshoot
+        need += self.spec_k
         if need > self.cache_len:
             raise ValueError(
                 f"request {req.rid}: bucket+budget {need} exceeds lane "
@@ -108,8 +115,13 @@ class ContinuousBatchingEngine(EngineBase):
     ``paged`` (default "auto") serves from the page arena + radix prefix
     cache where the model allows it (all-attention, unwindowed, causal),
     else from dense slot rows; ``kv_dtype="int8"`` quantizes the arena.
-    Not ported yet (each raises NotImplementedError): speculative decoding
-    (`spec_config`) and disaggregated pools, besides EngineBase's.
+    ``spec_config`` (paged only) serves greedy speculative decoding: a
+    dict with ``draft_model``, ``draft_params``, ``spec_k`` (default 4)
+    and ``draft_num_pages`` (default: the target pool's count).  The
+    draft proposes up to spec_k tokens per lane per dispatch from its own
+    page arena, the target verifies them in one pass, and the streams
+    equal plain greedy decoding.  Not ported yet (raises
+    NotImplementedError): disaggregated pools, besides EngineBase's.
     """
 
     def __init__(self, *args, paged="auto", page_size: int = 16,
@@ -118,7 +130,7 @@ class ContinuousBatchingEngine(EngineBase):
                  kv_dtype: str = "bf16",
                  spec_config: Optional[dict] = None,
                  disagg: Optional[Tuple[int, int]] = None, **kw):
-        _unported(spec_config=bool(spec_config), disagg=disagg is not None)
+        _unported(disagg=disagg is not None)
         super().__init__(*args, **kw)
         self.stats.update(admitted=0, completed=0, prefills=0,
                           active_lane_steps=0)
@@ -140,6 +152,12 @@ class ContinuousBatchingEngine(EngineBase):
                 "back to dense slots")
         self.kv_dtype = kv_dtype
         self.kv: Optional[KVManager] = None
+        self.spec = bool(spec_config)
+        self._draft_slot_caches = None
+        if self.spec and not self.paged:
+            raise ValueError(
+                "spec_config needs the paged KV pool: the draft arena and "
+                "the batched verify both address KV through page tables")
         if self.paged:
             self.page_size = page_size
             # whole-page capacity: gathered paged layout == dense slot row
@@ -148,8 +166,31 @@ class ContinuousBatchingEngine(EngineBase):
             self.max_pages = self.cache_len // page_size
             if num_pages is None:  # default: dense table capacity + trash
                 num_pages = self.max_batch * self.max_pages + 1
+            draft_num_pages = 0
+            if self.spec:
+                # the draft arena defaults to position parity with the
+                # target's: every target page a lane can hold has a draft
+                # twin (kv_manager.spec_pool_split sizes both from one
+                # byte budget when the caller wants byte parity)
+                self.spec_k = int(spec_config.get("spec_k", 4))
+                if self.spec_k < 1:
+                    raise ValueError(f"spec_k {self.spec_k}: want >= 1")
+                self.draft_model: Model = spec_config["draft_model"]
+                draft_num_pages = int(spec_config.get("draft_num_pages")
+                                      or num_pages)
+                self.executor.set_draft(self.draft_model,
+                                        spec_config["draft_params"])
+                self.sched.set_spec(self.spec_k)
+                self._spec_warm = False
+                self._tpos = [0] * self.max_batch  # target positions
+                self._dpos = [0] * self.max_batch  # draft positions
+                self.stats.update(spec_dispatches=0, spec_draft_steps=0,
+                                  spec_accepted=0, spec_proposed=0,
+                                  spec_draft_prefills=0,
+                                  spec_catchup_tokens=0)
             self.kv = KVManager(num_pages, page_size, self.max_batch,
-                                self.max_pages)
+                                self.max_pages,
+                                draft_num_pages=draft_num_pages)
             self.max_hit_suffix = (max(self.buckets)
                                    if max_hit_suffix is None
                                    else max_hit_suffix)
@@ -179,7 +220,8 @@ class ContinuousBatchingEngine(EngineBase):
         queue; cold -> bucket prefill scattered into owned pages + prompt
         registered.  False = the pool can't cover it (nothing held)."""
         prompt = r.effective_prompt()
-        grant = self.kv.admit(prompt, r.remaining(), self.max_hit_suffix)
+        grant = self.kv.admit(prompt, r.remaining(), self.max_hit_suffix,
+                              spec_margin=self.spec_k)
         if grant is None:
             return False
         self.stats["admitted"] += 1
@@ -209,10 +251,30 @@ class ContinuousBatchingEngine(EngineBase):
                                     r.remaining(), np.zeros((0,), np.int32),
                                     0)
         self.kv.commit(sl, grant)
+        if self.spec and not r.done:
+            self._admit_draft(r, sl, st, grant, prompt)
         self.stats["pages_in_use"] = self.kv.pages_in_use
         self.stats["pages_peak"] = max(self.stats["pages_peak"],
                                        self.kv.pages_in_use)
         return True
+
+    def _admit_draft(self, r: Request, sl: int, st, grant, prompt) -> None:
+        """Bring the lane's draft cache to the target's position: a cold
+        lane prefills its whole effective prompt on the draft model, a
+        prefix-hit lane prompt[:hit_len] (page-aligned, so the rest of the
+        suffix ingests in lockstep through the spec dispatch's forced
+        queue; the draft has no radix tree to hit on)."""
+        plen = grant.hit_len if grant.hit_len else len(prompt)
+        small, bucket = self.executor.draft_prefill_prompts(
+            [prompt[:plen]], 1)
+        n_wp = min(self.kv.draft_pool.pages_for(bucket),
+                   len(grant.draft_pages))
+        self.executor.admit_cold_draft(
+            st, sl, small, grant.draft_pt_row, plen, grant.draft_reset,
+            np.asarray(grant.draft_pages[:n_wp], np.int32))
+        self._tpos[sl] = self._dpos[sl] = int(plen)
+        self.sched.reset_lane_spec(sl)
+        self.stats["spec_draft_prefills"] += 1
 
     @staticmethod
     def _first_token(r: Request, tok: int) -> None:
@@ -223,6 +285,8 @@ class ContinuousBatchingEngine(EngineBase):
     def _release(self, sl: int) -> None:
         self.kv.release(sl)
         self.sched.lane_forced[sl] = 0
+        if self.spec:
+            self._tpos[sl] = self._dpos[sl] = 0
         self.stats["pages_in_use"] = self.kv.pages_in_use
 
     def _preempt(self, slots, pending, st) -> None:
@@ -239,6 +303,61 @@ class ContinuousBatchingEngine(EngineBase):
         pending.append(victim)
         self.stats["preemptions"] += 1
 
+    # -- speculation bookkeeping -----------------------------------------------
+
+    def _advance_mirrors(self, block: np.ndarray, slots, n: int) -> None:
+        """Advance the host's target-position mirrors by what the device
+        consumed: per live lane, min(pending forced, n) swallowed
+        positions plus one per emitted token (each consumed step is one or
+        the other, in decode_steps and in the spec block alike)."""
+        for i, r in enumerate(slots):
+            if r is None:
+                continue
+            emitted = int((block[:, i] >= 0).sum())
+            self._tpos[i] += min(self.sched.lane_forced[i], n) + emitted
+
+    def _reconcile_spec(self, block: np.ndarray, slots, k: int) -> None:
+        """A spec dispatch's bookkeeping, before the scheduler's: one
+        (k+1, B) block; acceptance drives each lane's depth ladder, and
+        both position mirrors move together (the device rewound both
+        counters alike)."""
+        self.stats["spec_dispatches"] += 1
+        self.stats["spec_draft_steps"] += k + 1
+        self._advance_mirrors(block, slots, k + 1)
+        for i, r in enumerate(slots):
+            if r is None:
+                continue
+            self._dpos[i] = self._tpos[i]  # verify + rewind keep them equal
+            emitted = int((block[:, i] >= 0).sum())
+            if emitted >= 1 and self.sched.lane_forced[i] == 0:
+                # emitted = 1 sure token + accepted drafts (+ the bonus);
+                # a forced-ingest dispatch says nothing about the draft
+                accepted = min(emitted - 1, k)
+                self.stats["spec_accepted"] += accepted
+                self.stats["spec_proposed"] += k
+                self.sched.observe_acceptance(i, accepted, k)
+
+    def _spec_catchup(self, slots, st) -> None:
+        """Feed draft lanes the stream tokens the target consumed during
+        plain dispatches, so each draft cache re-enters speculation at its
+        target's exact position."""
+        lags = [(self._tpos[i] - self._dpos[i]) if r is not None else 0
+                for i, r in enumerate(slots)]
+        width = max(lags)
+        if width <= 0:
+            return
+        tokens = np.zeros((self.max_batch, width), np.int32)
+        for i, r in enumerate(slots):
+            if r is None or lags[i] == 0:
+                continue
+            stream = np.concatenate(
+                [np.asarray(r.prompt, np.int32),
+                 np.asarray(r.tokens_out, np.int32)])
+            tokens[i, :lags[i]] = stream[self._dpos[i]:self._tpos[i]]
+            self._dpos[i] = self._tpos[i]
+        self.executor.draft_catchup(st, tokens, np.asarray(lags, np.int32))
+        self.stats["spec_catchup_tokens"] += int(sum(lags))
+
     # -- serving loop ----------------------------------------------------------
 
     def run(self) -> List[Request]:
@@ -249,7 +368,16 @@ class ContinuousBatchingEngine(EngineBase):
                 self.paged, *((self.page_size, self.kv.num_pages,
                                self.max_pages, self.kv_dtype)
                               if self.paged else ()))
-        st = self.executor.fresh_state(self._slot_caches, self.paged)
+        if self.spec and self._draft_slot_caches is None:
+            self._draft_slot_caches = self.executor.init_draft_caches(
+                self.page_size, self.kv.draft_pool.num_pages,
+                self.max_pages, self.kv_dtype)
+        st = self.executor.fresh_state(
+            self._slot_caches, self.paged,
+            draft_caches=self._draft_slot_caches if self.spec else None)
+        if self.spec and not self._spec_warm:
+            self.executor.warm_spec(st, self.sched.spec_ladder)
+            self._spec_warm = True
         done: List[Request] = []
         pending = self.sched.take_queue()
         slots: List[Optional[Request]] = [None] * self.max_batch
@@ -282,14 +410,25 @@ class ContinuousBatchingEngine(EngineBase):
                                      time.perf_counter() - t0)
                 continue
 
-            n = self.sched.pick_horizon(bool(pending),
-                                        self.sched.lane_remaining(slots))
+            k = (self.sched.spec_depth(slots, starved is not None)
+                 if self.spec else 0)
             t_step = time.perf_counter()
-            toks = self.executor.decode(st, n, self.paged)
+            if k:
+                self._spec_catchup(slots, st)
+                toks = self.executor.spec_decode(st, k)
+                n = k + 1
+            else:
+                n = self.sched.pick_horizon(bool(pending),
+                                            self.sched.lane_remaining(slots))
+                toks = self.executor.decode(st, n, self.paged)
             block = toks.cpu().numpy()  # the only per-dispatch device sync
             if self.monitor is not None:
                 self.monitor.observe(self.stats["decode_steps"] + n,
                                      (time.perf_counter() - t_step) / n)
+            if k:
+                self._reconcile_spec(block, slots, k)
+            elif self.spec:  # a plain dispatch: the draft lags until the
+                self._advance_mirrors(block, slots, n)  # next catch-up
             self.sched.reconcile(block, slots, done, n, self.stats,
                                  time.perf_counter(), self.paged,
                                  self._release if self.paged else None)
@@ -297,6 +436,7 @@ class ContinuousBatchingEngine(EngineBase):
         if self.paged:
             self.kv.assert_drained()
         self._slot_caches = st["caches"]
+        self._draft_slot_caches = st.get("draft_caches")
         return sorted(done, key=lambda r: r.rid)
 
 

@@ -1,5 +1,6 @@
 """Device-side serving execution for one device (port of
-`repro/serving/executor.py`: the paged and the dense slot paths).
+`repro/serving/executor.py`: the paged and the dense slot paths, and
+greedy speculative decoding on the paged one).
 
 The executor owns the params and the device decode state: bucketed
 prefill, the fused n-step decode loop (`Model.decode_steps`), and the lane
@@ -10,7 +11,7 @@ itself never syncs with the host.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -33,6 +34,16 @@ class Executor:
         self.cache_len = cache_len  # a paged engine re-rounds it to pages
         self.buckets = tuple(sorted(buckets))
         self._warm = []  # buckets prefilled at batch 1, first-use order
+        # speculative decoding (set_draft): the draft model and its params
+        self.draft_model = None
+        self.draft_params = None
+
+    def set_draft(self, draft_model: Model, draft_params) -> None:
+        """Install the speculative-decoding draft model (its params as
+        given: W8A8 serving, which the reference applies to the draft too,
+        is not ported)."""
+        self.draft_model = draft_model
+        self.draft_params = draft_params
 
     def _tensor(self, a, dtype=torch.int32) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
@@ -50,9 +61,18 @@ class Executor:
                                                kv_dtype=kv_dtype)
         return self.model.init_cache(self.max_batch, self.cache_len)
 
-    def fresh_state(self, caches, paged: bool) -> Dict[str, Any]:
+    def init_draft_caches(self, page_size: int, num_pages: int,
+                          max_pages: int, kv_dtype: str = "bf16"):
+        """The draft model's paged arena (its own page pool)."""
+        return self.draft_model.init_paged_cache(
+            self.max_batch, num_pages, page_size, max_pages,
+            kv_dtype=kv_dtype)
+
+    def fresh_state(self, caches, paged: bool,
+                    draft_caches=None) -> Dict[str, Any]:
         """Device decode state, mutated only by the methods below; the
-        paged one carries the forced-token (suffix-ingest) queues."""
+        paged one carries the forced-token (suffix-ingest) queues, and a
+        speculative one the draft's arena."""
         b, dev = self.max_batch, self.device
 
         def full(shape, val, dtype=torch.int32):
@@ -66,16 +86,17 @@ class Executor:
         if paged:
             st.update(forced=full((b, self.cache_len), 0),
                       flen=full((b,), 0), fptr=full((b,), 0))
+        if draft_caches is not None:
+            st["draft_caches"] = draft_caches
         return st
 
     # -- prefill -------------------------------------------------------------
 
-    def prefill_prompts(self, prompts, batch: int,
-                        bucket_cache: bool = False):
-        """Bucketed left-aligned batched prefill; returns (logits (batch,
-        V), caches).  bucket_cache=True writes a bucket-sized cache (an
-        admission then scatters or inserts it); otherwise the cache spans
-        cache_len and is decoded into directly (waves)."""
+    def _prefill(self, model: Model, params, prompts, batch: int,
+                 cache_slots: Optional[int]):
+        """Bucketed left-aligned batched prefill on `model` into a dense
+        cache of `cache_slots` rows (None: the bucket); returns (logits
+        (batch, V), caches, bucket)."""
         maxlen = max(len(p) for p in prompts)
         bucket = bucket_len(maxlen, self.buckets, lane=8)
         toks = np.zeros((batch, bucket), np.int32)
@@ -87,15 +108,26 @@ class Executor:
             toks[i, :n] = p
             pos[i, :n] = np.arange(n)
             lengths[i] = n
-        if batch == 1 and bucket not in self._warm:
-            self._warm.append(bucket)
-        caches = self.model.init_cache(
-            batch, bucket if bucket_cache else self.cache_len)
+        caches = model.init_cache(batch, cache_slots or bucket)
         with torch.no_grad():
-            return self.model.prefill(
-                self.params, caches, self._tensor(toks),
+            logits, caches = model.prefill(
+                params, caches, self._tensor(toks),
                 positions=self._tensor(pos),
                 last_idx=self._tensor(lengths - 1, torch.long))
+        return logits, caches, bucket
+
+    def prefill_prompts(self, prompts, batch: int,
+                        bucket_cache: bool = False):
+        """Bucketed left-aligned batched prefill; returns (logits (batch,
+        V), caches).  bucket_cache=True writes a bucket-sized cache (an
+        admission then scatters or inserts it); otherwise the cache spans
+        cache_len and is decoded into directly (waves)."""
+        logits, caches, bucket = self._prefill(
+            self.model, self.params, prompts, batch,
+            None if bucket_cache else self.cache_len)
+        if batch == 1 and bucket not in self._warm:
+            self._warm.append(bucket)
+        return logits, caches
 
     @property
     def warm_buckets(self):
@@ -122,6 +154,65 @@ class Executor:
         if paged:
             st["fptr"] = out[4]
         return toks
+
+    # -- speculative decoding --------------------------------------------------
+
+    def spec_decode(self, st: Dict[str, Any], k: int) -> torch.Tensor:
+        """One speculative dispatch at draft depth k: the draft's k+1
+        steps, one target verify pass (k+1 queries per lane through the
+        paged verify branch) and the acceptance state machine, threading
+        the forced-token queues.  Returns the (k+1, B) token tensor (on
+        the device), st (both arenas included) updated in place."""
+        with torch.no_grad():
+            toks, cur, active, budget, fptr, caches, dcaches, _ = \
+                self.model.spec_decode_step(
+                    self.params, st["caches"], st["cur"], st["active"], k,
+                    self.draft_model, self.draft_params, st["draft_caches"],
+                    eos_id=st["eos"], budget=st["budget"],
+                    pad_token=PAD_TOKEN, forced=st["forced"],
+                    forced_len=st["flen"], forced_ptr=st["fptr"])
+        st.update(caches=caches, draft_caches=dcaches, cur=cur,
+                  active=active, budget=budget, fptr=fptr)
+        return toks
+
+    def warm_spec(self, st: Dict[str, Any], ladder) -> None:
+        """One dispatch per ladder depth on the empty (all-inactive) state,
+        as the reference compiles its spec programs there: every lane is
+        inactive, so no live row, counter or token changes."""
+        for k in ladder:
+            self.spec_decode(st, k)
+
+    def draft_prefill_prompts(self, prompts, batch: int):
+        """Bucketed prefill on the draft model (a draft lane's admission:
+        a prefix-hit lane prefills prompt[:hit_len] — hit lengths are
+        page-aligned, so the suffix ingests in lockstep through the spec
+        dispatch's forced queue).  Returns (caches, bucket)."""
+        _, caches, bucket = self._prefill(self.draft_model,
+                                          self.draft_params, prompts, batch,
+                                          None)
+        return caches, bucket
+
+    def admit_cold_draft(self, st, slot: int, small, pt_row, pos0: int,
+                         reset, write_pages: np.ndarray) -> None:
+        """Scatter a draft bucket prefill into the lane's draft-arena
+        pages (the draft's admit_cold)."""
+        self.draft_model.admit_lane_cache(st["draft_caches"], slot, pt_row,
+                                          pos0, reset, small=small,
+                                          write_pages=write_pages)
+
+    def draft_catchup(self, st, tokens: np.ndarray, lag: np.ndarray) -> None:
+        """Bring draft lanes back to the target's position after plain
+        dispatches: feed each lane the stream tokens the target consumed
+        while the draft sat idle (tokens[b, :lag[b]]), one draft decode
+        step per column; a column past a lane's lag leaves it inactive,
+        so its rows and counter stop at exactly the target's position."""
+        toks = self._tensor(tokens)
+        lag_t = self._tensor(lag)
+        with torch.no_grad():
+            for j in range(tokens.shape[1]):
+                self.draft_model.decode_step(
+                    self.draft_params, st["draft_caches"], toks[:, j],
+                    active=j < lag_t)
 
     # -- lane updates ----------------------------------------------------------
 

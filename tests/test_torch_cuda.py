@@ -704,3 +704,105 @@ def test_flash_attention_wrapper_refuses_what_it_cannot_run(dev):
     with pytest.raises(RuntimeError, match="forward-only"):
         ops.flash_attention(q.float().requires_grad_(True), k.float(),
                             v.float())
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding's verify pass: kernels 1 and 2 with the T queries
+# of a block folded into B*T lanes, and the spec engine against the plain
+# engine on a fitted pair
+# ---------------------------------------------------------------------------
+
+
+def _verify_inputs(seed, b, t, kvh, g, hd, ps, maxp, dev):
+    """The verify pass's folded inputs: lane i's block sits at positions
+    pos_i .. pos_i + t - 1, all written (the verify scatter runs before
+    the kernel), later rows never written; the folded lanes repeat their
+    lane's table row t times, qpos = pos_i + j, and lanes 5 and 7 (all t
+    of their folded lanes) are inactive."""
+    rng = np.random.default_rng(seed)
+    n_pages = 1 + b * maxp
+    pos = rng.integers(ps, maxp * ps - t, b)
+    kpos = np.full((n_pages, ps), SENTINEL, np.int32)
+    pt = np.zeros((b, maxp), np.int32)
+    nxt = 1
+    for lane in range(b):
+        end = int(pos[lane]) + t  # one past the block's last position
+        for j in range(-(-end // ps)):
+            pt[lane, j] = nxt
+            kpos[nxt] = np.where(j * ps + np.arange(ps) < end,
+                                 j * ps + np.arange(ps), SENTINEL)
+            nxt += 1
+    active = np.ones((b,), bool)
+    active[[5, 7]] = False
+    q = torch.tensor(rng.normal(0, 1, (b * t, kvh * g, hd)) * hd ** -0.5)
+    k = torch.tensor(rng.uniform(-1, 1, (n_pages, ps, kvh, hd)))
+    v = torch.tensor(rng.uniform(-1, 1, (n_pages, ps, kvh, hd)))
+    pt_t = torch.tensor(pt, device=dev).repeat_interleave(t, dim=0)
+    qpos = torch.tensor((pos[:, None] + np.arange(t)).reshape(-1),
+                        dtype=torch.int32, device=dev)
+    return (q.bfloat16().to(dev), k.bfloat16().to(dev), v.bfloat16().to(dev),
+            torch.tensor(kpos, device=dev), pt_t.contiguous(), qpos,
+            torch.tensor(active, device=dev).repeat_interleave(t))
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("kvh,g,hd,ps,maxp", [(2, 2, 16, 4, 16),
+                                              (3, 3, 64, 16, 12)])
+def test_decode_kernels_at_verify_shape(dev, kv_dtype, kvh, g, hd, ps,
+                                        maxp):
+    """B=8, T=5: 40 folded lanes against their plain versions."""
+    args = _verify_inputs(hd + maxp, 8, 5, kvh, g, hd, ps, maxp, dev)
+    act = args[6]
+    name = ("paged_flash_decode" if kv_dtype == "bf16"
+            else "paged_flash_decode_q")
+    n0 = ops.launches[name]
+    if kv_dtype == "bf16":
+        out = ops.paged_flash_decode(*args[:6], active=act)
+        want = ref.paged_flash_decode(*args[:6], active=act)
+        w = _paged_spread(*args)
+    else:
+        *qargs, _ = _quantized(args)
+        out = ops.paged_flash_decode_q(*qargs, active=act)
+        want = ref.paged_flash_decode_q(*qargs, active=act)
+        w = None
+    torch.cuda.synchronize()
+    assert ops.launches[name] == n0 + 1 and out.shape == (40, kvh * g, hd)
+    _assert_decode_close(out, want, w)
+    assert (out[~act] == 0).all() and bool(act.sum() == 30)
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_spec_engine_matches_plain_engine_on_card(dev, kv_dtype):
+    """The port's own fitted reduced pair on the card (a 1-layer draft
+    that disagrees on every value = 0 mod 3): every request's stream
+    from the speculative engine equals the plain paged engine's, and the
+    verify pass launched the route's kernel."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.synthetic import affine_prompts, fit_affine_lm
+    from repro_torch.models.transformer import make_model
+    from repro_torch.serving.engine import ContinuousBatchingEngine, Request
+
+    cfg = get_config("smollm-135m").reduced()
+    dcfg = dataclasses.replace(cfg, name=cfg.name + "-draft", n_layers=1)
+    model, draft = make_model(cfg, device=dev), make_model(dcfg, device=dev)
+    params = fit_affine_lm(model, steps=300)
+    dparams = fit_affine_lm(draft, steps=300, disagree_every=3)
+    rng = np.random.default_rng(0)
+    prompts = affine_prompts(rng, 12, cfg.vocab_size, (4, 30))
+    budgets = [int(rng.integers(8, 24)) for _ in prompts]
+
+    def serve(**kw):
+        eng = ContinuousBatchingEngine(model, params, max_batch=8,
+                                       buckets=(16, 32), deadline_s=0.0,
+                                       kv_dtype=kv_dtype, **kw)
+        for i, (p, b) in enumerate(zip(prompts, budgets)):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=b))
+        return [r.tokens_out for r in eng.run()], eng.stats
+
+    plain, _ = serve()
+    spec, stats = serve(spec_config=dict(draft_model=draft,
+                                         draft_params=dparams, spec_k=4))
+    assert spec == plain
+    assert stats["spec_dispatches"] > 0 and stats["spec_accepted"] > 0
