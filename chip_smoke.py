@@ -28,6 +28,10 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    copy of the same bytes (copy_ms), i_softmax at (1536, 128) and at
    ibert-base's max_seq_len, (6144, 512); kernels 1 and 2 also at the
    speculative verify pass's shape (8 lanes x 5 queries folded into 40);
+   the port-only row norm (rmsnorm, layernorm) at every served width
+   (ROW_NORM_DS) and at 1, 8, 40 and 4096 rows, within ROW_NORM_TOL, in
+   bf16 beside F.rms_norm / F.layer_norm, and row-count invariant: a
+   row's output is the same bits at every row count;
 4. long forward: smollm-135m at full width (30 layers, random weights
    from seed 0) through `Model.forward_logits` at B=2, S=4096, `loss` on
    the same tokens and `prefill` without positions at S=1536 into 1,600
@@ -48,10 +52,11 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    arena; every request must finish its budget, the shared prefix must
    hit the radix cache, and the route's decode kernel (paged_flash_decode,
    flash_decode, paged_flash_decode_q) must have launched once per layer
-   per fused decode step and the other two never; serving never
-   launches flash_attention; then one more paged bf16 stream and one
-   paged int8 stream under torch.profiler say where those routes' time
-   goes (the decode kernel's share of device time);
+   per fused decode step and the other two never, and the row norm 2 per
+   layer and 1 per backbone call; serving never
+   launches flash_attention; then one more paged bf16 stream under
+   torch.profiler says where the main route's time goes (the decode
+   kernel's and the row norm's shares of device time);
 6. model: the same weights run prefill and 8 decode steps on the card and
    on the CPU (plain versions), on a bf16 page arena, dense slot rows and
    an int8 page arena; logits must agree within a stated bound, and
@@ -73,12 +78,18 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    stream must equal the plain engine's on the same requests; the route
    kernel's launches split into verify passes (B * (k+1) folded lanes,
    one per target layer per spec dispatch) and single-query steps; then
-   smollm-135m at full width on random weights drafting for itself: the
-   reduced target's verify block must equal its chained decode steps bit
-   for bit; at full width the largest difference d is logged, and a spec
-   stream may part from the plain one only at a tie (the two tokens the
-   plain route's top two, their gap at most 2d);
-10. encode: the integer I-BERT encoder (ibert-base at full width, 12
+   smollm-135m at full width on random weights drafting for itself; the
+   verify block must equal its chained decode steps bit for bit, on the
+   reduced target and at full width;
+10. families: minitron-8b, musicgen-medium, internvl2-1b and
+   deepseek-coder-33b at full width on random weights: card vs CPU on 2
+   layers (as phase 6, paged), 8 requests of 32 tokens served through the
+   paged cb engine at full depth (deepseek-coder-33b cut to 8 of its 62
+   layers), exact paged_flash_decode and row_norm launch counts, and the
+   verify block's difference from its chained decode steps (logged);
+   then reduced musicgen-medium and minitron-8b fitted and gated card vs
+   CPU at token match 1.0 (paged);
+11. encode: the integer I-BERT encoder (ibert-base at full width, 12
    layers, random float weights from seed 0, calibrated at batch 1, seq
    128) through `repro_torch.launch.ibert_encoder`: one forward must
    launch exactly 72 / 12 / 24 / 12 int8_matmul / i_softmax / i_layernorm
@@ -87,8 +98,10 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    tests/test_ibert_model.py's bounds, 12 within the reference's own
    12-layer error on these weights); then one forward under
    torch.profiler, and the entry point's time at seq 1, 8, 32, 64, 128;
-11. summary: a JSON line of the kernels (the decode kernels' launches
-   include the gate's and the spec phase's), then the device line.
+12. summary: a JSON line of the kernels (the decode kernels' launches
+   include the gate's, the spec phase's and the families'; row_norm's
+   are the serve phases' and the families' served streams), then the
+   device line.
 
 Each phase logs its wall seconds ("phase ...").
 """
@@ -155,7 +168,8 @@ DECODE_KERNELS = ("paged_flash_decode", "paged_flash_decode_q",
 ATTN_KERNELS = DECODE_KERNELS + ("flash_attention",)
 # kernels whose every compiled instance must report 0 spill bytes
 SPILL_FREE = ("paged_flash_decode", "flash_decode", "paged_flash_decode_q",
-              "int8_matmul", "i_softmax", "i_layernorm", "i_gelu")
+              "int8_matmul", "i_softmax", "i_layernorm", "i_gelu",
+              "row_norm")
 LOGIT_TOL = 0.1    # 30 bf16 layers, CPU vs card summation order
 LOSS_TOL = 1e-2    # mean cross-entropy of those logits, card vs CPU
 # flash_attention vs its plain version, (atol, rtol) as |out - want| <=
@@ -164,7 +178,27 @@ LOSS_TOL = 1e-2    # mean cross-entropy of those logits, card vs CPU
 # typical output at S=4096, which a key tile left out or counted twice
 # moves by more
 FA_TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (4e-3, 2 ** -7)}
+# row_norm's widths: the reduced configs, smollm-135m, internvl2-1b,
+# musicgen-medium, minitron-8b, deepseek-coder-33b; its row counts: one
+# lane, a decode step (B=8), a verify pass (8 x 5), a long prompt
+ROW_NORM_DS = (64, 576, 896, 1536, 4096, 7168)
+ROW_NORM_ROWS = (1, 8, 40, 4096)
+# row_norm vs its plain version: a bf16 output within one bf16 ulp of the
+# plain one (the two round f32 values a few f32 ulps apart), an f32 one
+# within ROW_NORM_TOL of itself; layernorm adds ROW_NORM_TOL of the row's
+# largest |output|: x - mu cancels where x is near the mean, so a mean a
+# few f32 ulps apart moves an output near 0 by more than its own ulp
+ROW_NORM_TOL = 1e-6
 SPEC_K = 4  # the spec phase's most drafted tokens per dispatch
+# the families phase: each served at full width, whole but for
+# deepseek-coder-33b, cut from 62 to 8 layers (~4.7 B parameters, ~9.4 GB
+# in bf16; init_params draws each stacked leaf in f32 first); reduced
+# musicgen-medium (layernorm, tanh GELU, 2-matrix MLP, untied head) and
+# minitron-8b (squared ReLU) fitted and gated
+FAMILIES = ("minitron-8b", "musicgen-medium", "internvl2-1b",
+            "deepseek-coder-33b")
+FAMILY_LAYERS = {"deepseek-coder-33b": 8}
+FAMILY_GATES = ("musicgen-medium", "minitron-8b")
 # the spec phase's page pool (16-row pages): ~5 lanes' worth at its
 # budgets, so B=8 lanes starve, preempt and (speculating) catch drafts up
 SPEC_PAGES = 30
@@ -657,6 +691,124 @@ def ibert_kernel_phase(dev, flush) -> dict:
     return res
 
 
+def _bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at each |t| (t holds bf16 values, as f32):
+    2^(e - 8) for |t| in [2^(e-1), 2^e)."""
+    _, e = torch.frexp(t)
+    return torch.ldexp(torch.ones_like(t), e - 8)
+
+
+def _row_norm_check(label: str, out, want, layer: bool) -> tuple:
+    """row_norm's output against its plain version's (ROW_NORM_TOL):
+    (a note for the log line, the largest |difference|)."""
+    require(out.dtype == want.dtype and out.shape == want.shape,
+            f"row_norm {label}: {out.dtype} {tuple(out.shape)} vs plain "
+            f"{want.dtype} {tuple(want.shape)}")
+    o, w = out.float(), want.float()
+    require(bool(torch.isfinite(o).all()), f"row_norm {label}: not finite")
+    diff = (o - w).abs()
+    if out.dtype == torch.bfloat16:
+        limit, unit = _bf16_ulp(w), "bf16 ulp of want"
+    else:
+        limit, unit = ROW_NORM_TOL * w.abs(), f"{ROW_NORM_TOL:g} |want|"
+    if layer:
+        limit = limit + ROW_NORM_TOL * w.abs().amax(-1, keepdim=True)
+        unit += f" + {ROW_NORM_TOL:g} of the row's largest |want|"
+    bad = int((diff > limit).sum())
+    worst = (diff / limit.clamp(min=2.0 ** -149)).max().item()
+    err = diff.max().item()
+    check = (f"max_abs_err={err:.3g} (limit 1 x {unit}; worst {worst:.3f} "
+             f"of it) differing share={(diff > 0).float().mean().item():.5f}")
+    require(bad == 0, f"row_norm {label}: {bad} elements beyond the limit; "
+            f"{check}")
+    return check, err
+
+
+def row_norm_phase(dev, flush) -> dict:
+    """The port-only row norm (rmsnorm, and layernorm with a bias) against
+    its plain version on the card, at every width of ROW_NORM_DS and
+    every row count of ROW_NORM_ROWS, in bf16 (timed beside the plain
+    version and F.rms_norm / F.layer_norm) and in f32; then row-count
+    invariance: each row count's output equals the next one's first rows
+    bit for bit.  Returns the metrics at a smollm-135m decode step's
+    rmsnorm (8 rows of 576, bf16)."""
+    rng = np.random.default_rng(21)
+    bf, f32, eps = torch.bfloat16, torch.float32, 1e-6
+    main = None
+    for d in ROW_NORM_DS:
+        # a nonzero mean: layernorm's x - mu cancels, as in a model
+        x_all = torch.tensor(rng.normal(0.3, 1.0, (ROW_NORM_ROWS[-1], d)),
+                             dtype=f32, device=dev)
+        g = torch.tensor(rng.uniform(0.5, 1.5, d), dtype=f32, device=dev)
+        b0 = torch.tensor(rng.normal(0, 0.1, d), dtype=f32, device=dev)
+        for layer in (False, True):
+            form, b = ("layernorm", b0) if layer else ("rmsnorm", None)
+            for dt in (bf, f32):
+                x = x_all.to(dt)
+                outs = {}
+                for rows in ROW_NORM_ROWS:
+                    xr = x[:rows]
+                    label = (f"{form} rows={rows} D={d} "
+                             f"{str(dt).replace('torch.', '')}")
+
+                    def kernel():
+                        return ops.row_norm(xr, g, b, eps)
+
+                    def plain():
+                        return (ref.layernorm(xr, g, b, eps) if layer
+                                else ref.rmsnorm(xr, g, eps))
+
+                    out, want = kernel(), plain()
+                    torch.cuda.synchronize()
+                    check, err = _row_norm_check(label, out, want, layer)
+                    outs[rows] = out
+                    if dt is f32:
+                        log(f"kernel row_norm {label}: {check}")
+                        continue
+                    m = _row_norm_timed(label, check, kernel, plain, xr, g,
+                                        b, eps, flush)
+                    if not layer and d == 576 and rows == 8:
+                        main = dict(max_abs_err=err, **m)
+                for small, big in zip(ROW_NORM_ROWS, ROW_NORM_ROWS[1:]):
+                    require(torch.equal(outs[small], outs[big][:small]),
+                            f"row_norm {form} D={d} {dt}: the first {small}"
+                            f" rows of a {big}-row launch differ from a "
+                            f"{small}-row launch")
+                log(f"kernel row_norm {form} D={d} "
+                    f"{str(dt).replace('torch.', '')}: row-count invariant "
+                    f"bit for bit over rows {ROW_NORM_ROWS}")
+    return main
+
+
+def _row_norm_timed(label, check, kernel, plain, x, g, b, eps,
+                    flush) -> dict:
+    """One bf16 row_norm case timed beside its plain version and the
+    library call (F.rms_norm / F.layer_norm, the weights cast to bf16).
+    Bound: x read and y written once, g (and b) read once, over the HBM
+    rate, or ~4 (rmsnorm) / ~7 (layernorm) f32 operations an element."""
+    rows, d = x.shape
+    ms = time_ms(kernel, flush)
+    plain_ms = time_ms(plain, flush)
+    # the fused library kernels take the weights in x's dtype
+    gx, bx = g.to(x.dtype), None if b is None else b.to(x.dtype)
+    library = ((lambda: F.layer_norm(x, (d,), gx, bx, eps)) if b is not None
+               else (lambda: F.rms_norm(x, (d,), gx, eps)))
+    library_ms = None
+    try:  # a yardstick only, never part of the port
+        library_ms = time_ms(library, flush)
+    except RuntimeError as exc:
+        log(f"kernel row_norm {label}: library yardstick refused: {exc}")
+    nbytes = 2 * rows * d * x.element_size() + d * 4 * (1 if b is None else 2)
+    bound_ms, bound_by = _bound(nbytes, (4 if b is None else 7) * rows * d,
+                                F32_FLOP_S)
+    lib = "none" if library_ms is None else f"{library_ms:.5f}"
+    log(f"kernel row_norm {label}: {check} ms={ms:.5f} plain_ms="
+        f"{plain_ms:.5f} library_ms={lib} bound_ms={bound_ms:.6f} "
+        f"({bound_by}; {nbytes} bytes)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
 def serve_phase(stream: str, n: int, engine: str = "cb",
                 kv_dtype: str = "bf16", paged="auto") -> dict:
     """One stream served at full width through the serve entry point, after
@@ -673,7 +825,7 @@ def serve_phase(stream: str, n: int, engine: str = "cb",
              f"cb {'dense' if paged is False else 'paged ' + kv_dtype}")
     ops.reset_launches()
     eng, done, wall = serve_cli.serve(args, paged=paged)
-    launches = ops.launches[kernel]
+    launches, norms = ops.launches[kernel], ops.launches["row_norm"]
     others = {k: ops.launches[k] for k in ATTN_KERNELS if k != kernel}
     steps = eng.stats["decode_steps"]  # warm-up pass included
     n_layers = eng.model.cfg.n_layers
@@ -687,6 +839,7 @@ def serve_phase(stream: str, n: int, engine: str = "cb",
             "steps")
     require(not any(others.values()), f"{route}: other attention kernels "
             f"launched: {others}")
+    _require_norms(route, norms, eng)
     toks = sum(len(r.tokens_out) for r in done)
     ttft = sorted((r.t_first_token - r.t_enqueue) * 1e3 for r in done)
     s = eng.stats
@@ -694,12 +847,23 @@ def serve_phase(stream: str, n: int, engine: str = "cb",
         f"wall_s={wall:.4f} tok_s={toks / wall:.1f} "
         f"ttft_p50_ms={ttft[len(ttft) // 2]:.2f} decode_steps={steps} "
         f"{kernel}_launches={launches} (= {n_layers} x {steps}) "
+        f"row_norm_launches={norms} "
         f"prefix_hits={s.get('prefix_hits', 0)} "
         f"pages_peak={s.get('pages_peak', 0)} "
         f"preemptions={s.get('preemptions', 0)}")
     if stream == "shared-prefix":
         require(s["prefix_hits"] > 0, f"no prefix hit: {s}")
-    return dict(kernel=kernel, launches=launches)
+    return dict(kernel=kernel, launches=launches, row_norm=norms)
+
+
+def _require_norms(route: str, norms: int, eng) -> None:
+    """The row norm's launches over a served stream: 2 per layer and the
+    final one, at every backbone call (one per prefill or wave, one per
+    fused decode step)."""
+    s, n = eng.stats, eng.model.cfg.n_layers
+    calls = s["decode_steps"] + s.get("prefills", 0) + s.get("waves", 0)
+    require(norms == (2 * n + 1) * calls, f"{route}: {norms} row_norm "
+            f"launches != {2 * n + 1} x {calls} backbone calls")
 
 
 def _device_spans(fn) -> tuple:
@@ -729,45 +893,49 @@ def _busy_us(spans) -> float:
     return busy
 
 
-def profile_phase(dev, kv_dtype: str = "bf16") -> None:
-    """Where a paged serve route's time goes: one Poisson stream served
-    under torch.profiler by the continuous-batching engine on a paged
-    bf16 (the main route) or int8 arena.  Prints the device's busy share
-    of the window (union of kernel and copy intervals over the host
-    clock), the route's decode kernel's share of device time, and device
-    ops per decode step.  The profiler's own host cost lowers the busy
-    share somewhat, and its handling of the window's events takes far
-    longer than the stream, so only the two paged routes are profiled."""
+def profile_phase(dev) -> None:
+    """Where the main route's time goes: one Poisson stream served under
+    torch.profiler by the continuous-batching engine on a paged bf16
+    arena.  Prints the device's busy share of the window (union of kernel
+    and copy intervals over the host clock), the decode kernel's and the
+    row norm's shares of device time, and device ops per decode step.
+    The profiler's own host cost lowers the busy share somewhat, and its
+    handling of the window's events takes far longer than the stream, so
+    only this route is profiled."""
     args = serve_cli.parse_args(["--requests", "16", "--max-batch", "8",
-                                 "--max-new", "32", "--seed", "3",
-                                 "--kv-dtype", kv_dtype])
+                                 "--max-new", "32", "--seed", "3"])
     cfg = get_config(args.arch)
-    kernel = ("paged_flash_decode_q" if kv_dtype == "int8"
-              else "paged_flash_decode")
     engine = ContinuousBatchingEngine(make_model(cfg, device=dev),
                                       init_params(cfg, seed=0, device=dev),
                                       max_batch=args.max_batch,
-                                      buckets=serve_cli.BUCKETS,
-                                      kv_dtype=kv_dtype)
+                                      buckets=serve_cli.BUCKETS)
     for r in serve_cli.make_stream(args, cfg.vocab_size, args.seed):
         engine.submit(r)
     spans, wall_us = _device_spans(engine.run)
     if not spans:
-        log(f"profile cb paged {kv_dtype}: the profiler recorded no device "
-            "time (not measured)")
+        log("profile cb paged bf16: the profiler recorded no device time "
+            "(not measured)")
         return
-    kern = [e - s for s, e, name in spans if f"{kernel}_kernel" in name]
+    kern = [e - s for s, e, name in spans
+            if "paged_flash_decode_kernel" in name]
+    norms = [e - s for s, e, name in spans if "row_norm_kernel" in name]
     dev_total = sum(e - s for s, e, _ in spans)
-    steps = engine.stats["decode_steps"]
-    require(len(kern) == cfg.n_layers * steps, f"profile cb paged "
-            f"{kv_dtype}: {len(kern)} {kernel} spans, want {cfg.n_layers} x "
-            f"{steps}")
-    log(f"profile cb paged {kv_dtype} poisson x16 (B=8, max_new 32): "
+    steps, n = engine.stats["decode_steps"], cfg.n_layers
+    calls = steps + engine.stats["prefills"]
+    require(len(kern) == n * steps and len(norms) == (2 * n + 1) * calls,
+            f"profile cb paged bf16: {len(kern)} paged_flash_decode and "
+            f"{len(norms)} row_norm spans, want {n} x {steps} and "
+            f"{2 * n + 1} x {calls}")
+    log(f"profile cb paged bf16 poisson x16 (B=8, max_new 32): "
         f"wall_ms={wall_us / 1e3:.2f} "
         f"device_busy_share={_busy_us(spans) / wall_us:.4f} "
-        f"device_kernel_ms={dev_total / 1e3:.2f} {kernel}_share_of_device="
+        f"device_kernel_ms={dev_total / 1e3:.2f} "
+        f"paged_flash_decode_share_of_device="
         f"{sum(kern) / max(dev_total, 1e-9):.4f} ({len(kern)} launches, "
-        f"{cfg.n_layers} x {steps} steps) "
+        f"{n} x {steps} steps) row_norm_share_of_device="
+        f"{sum(norms) / max(dev_total, 1e-9):.4f} ({len(norms)} launches, "
+        f"{2 * n + 1} x {calls} backbone calls, mean "
+        f"{sum(norms) / max(len(norms), 1):.2f} us) "
         f"device_ops_per_decode_step={len(spans) / max(steps, 1):.1f} "
         f"decode_steps={steps} wall_ms_per_decode_step="
         f"{wall_us / 1e3 / max(steps, 1):.3f}")
@@ -968,13 +1136,14 @@ def phi3_forward_phase(dev) -> int:
     return got["flash_attention"]
 
 
-def model_phase(kind: str) -> None:
+def model_phase(kind: str, cfg=None, note: str = "") -> None:
     """Same weights on card and CPU, on a bf16 page arena ("paged"), an
     int8 one ("int8") or dense slot rows ("dense"): prefill two prompts,
     then 8 decode steps fed the same tokens on both; then 8 fused greedy
     steps.  On the int8 arena, kv_quantize of the card's K/V rows must
-    equal the CPU's of the same rows bit for bit."""
-    cfg = get_config("smollm-135m")
+    equal the CPU's of the same rows bit for bit.  `cfg`: smollm-135m
+    unless given; `note` says how a given one was cut."""
+    cfg = cfg or get_config("smollm-135m")
     ps, maxp, steps = 16, 6, 8
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
@@ -993,12 +1162,13 @@ def model_phase(kind: str) -> None:
                                                        gpu["logits"])]
     scale = max(c.abs().max().item() for c in cpu["logits"])
     match = (cpu["block"] == gpu["block"]).float().mean().item()
-    log(f"model smollm-135m {kind} cache, prefill+{steps} decode steps, card "
-        f"vs CPU: max_abs_logit_err={max(errs):.4g} (tol {LOGIT_TOL}, "
+    log(f"model {cfg.name}{note} {kind} cache, prefill+{steps} decode "
+        f"steps, card vs CPU: max_abs_logit_err={max(errs):.4g} (tol {LOGIT_TOL}, "
         f"|logit| max {scale:.3g}) per step={['%.3g' % e for e in errs]} "
         f"fused {steps}-step token match={match:.3f}; "
         f"{_first_divergence(cpu, gpu)}")
-    require(max(errs) <= LOGIT_TOL, f"{kind}: card vs CPU logits: {errs}")
+    require(max(errs) <= LOGIT_TOL, f"{cfg.name} {kind}: card vs CPU logits:"
+            f" {errs}")
     if kind == "int8":
         rows = gpu["kv_rows"]
         same = [torch.equal(a.cpu(), b) for x in rows
@@ -1244,13 +1414,12 @@ def _serve_requests(model, params, requests, kv_dtype, spec=None,
 
 
 def _spec_run(label, model, params, requests, kv_dtype, draft, dparams,
-              plain_toks, plain_wall, gated: bool = True,
-              num_pages=SPEC_PAGES, out=None) -> dict:
-    """One speculative engine run against the plain engine's streams:
-    tok/s, acceptance, dispatches, catch-up, and the route kernel's
-    launches split into verify passes (B * (k+1) lanes; one per target
-    layer per spec dispatch, the warm-up's one per ladder depth
-    included) and single-query steps (B lanes: the target's plain
+              plain_toks, plain_wall, num_pages=SPEC_PAGES) -> dict:
+    """One speculative engine run against the plain engine's streams,
+    which it must equal: tok/s, acceptance, dispatches, catch-up, and the
+    route kernel's launches split into verify passes (B * (k+1) lanes;
+    one per target layer per spec dispatch, the warm-up's one per ladder
+    depth included) and single-query steps (B lanes: the target's plain
     decode steps, the draft's steps).  Returns the route kernel's
     launches."""
     kernel = ("paged_flash_decode_q" if kv_dtype == "int8"
@@ -1290,11 +1459,8 @@ def _spec_run(label, model, params, requests, kv_dtype, draft, dparams,
         f"{kernel} launches={got[kernel]}: verify={verify} (lanes "
         f"{sorted(set(n for n in lanes[kernel] if n > b))}) single-query="
         f"{single}")
-    if gated:
-        require(toks == plain_toks, f"spec {label} kv={kv_dtype}: streams "
-                "differ from the plain engine's")
-    if out is not None:
-        out.extend(toks)
+    require(toks == plain_toks, f"spec {label} kv={kv_dtype}: streams "
+            "differ from the plain engine's")
     return {kernel: got[kernel]}
 
 
@@ -1325,36 +1491,6 @@ def _verify_vs_chained(model, params, kind: str, seed: int) -> tuple:
         return 0.0, None
     top2 = chained.topk(2, dim=-1).values
     return float(diff.max()), float((top2[..., 0] - top2[..., 1])[differ][0])
-
-
-def _ties_only(model, params, requests, toks, plain_toks, limit: float):
-    """Where a speculative stream parts from the plain engine's, whether
-    the first differing token is a tie the verify pass may break either
-    way: the plain route (the prompt's prefill, then one paged decode step
-    per token) recomputes the logits that chose it, and the two tokens
-    must be their top two, with a gap of at most `limit`.  Returns one
-    note per parting request."""
-    notes = []
-    for i, ((prompt, budget), got, want) in enumerate(
-            zip(requests, toks, plain_toks)):
-        t = next((j for j, (a, c) in enumerate(zip(got, want)) if a != c),
-                 None)
-        if t is None:
-            continue
-        with torch.no_grad():
-            cache, lg = _admitted(model, params, [prompt], 16,
-                                  -(-(len(prompt) + budget) // 16), "paged")
-            for tok in want[:t]:
-                lg, cache = model.decode_step(
-                    params, cache, torch.tensor([tok], dtype=torch.int32,
-                                                device=model.device))
-        vals, idx = lg[0].float().topk(2)
-        gap = float(vals[0] - vals[1])
-        notes.append(f"request {i} parts at token {t}: plain {want[t]}, "
-                     f"spec {got[t]}, top-2 {idx.tolist()} gap {gap:.4g}")
-        require(set(idx.tolist()) == {want[t], got[t]} and gap <= limit,
-                f"spec: {notes[-1]}, not a tie within {limit:.4g}")
-    return notes
 
 
 def _spec_profile(model, params, requests) -> None:
@@ -1400,10 +1536,11 @@ def spec_phase(dev, fits: dict) -> dict:
     equal the plain engine's on the same requests; then smollm-135m at
     full width on init_params weights drafting for itself (acceptance
     1.0 but for blocks cut short by a budget), in a pool with room for
-    every lane, its streams required to equal the plain engine's but at
-    ties within twice the verify pass's measured logit difference.  The
-    reduced target's verify block must equal its chained decode steps bit
-    for bit.  Returns the paged kernels' launches."""
+    every lane, its streams required to equal the plain engine's.  The
+    verify block must equal its chained decode steps bit for bit, on the
+    reduced target and at full width (the row norm sums a row in an order
+    fixed by its width, whatever the row count).  Returns the paged
+    kernels' launches."""
     launches = dict.fromkeys(ATTN_KERNELS, 0)
 
     def add(d):
@@ -1436,22 +1573,136 @@ def spec_phase(dev, fits: dict) -> dict:
     log(f"spec smollm-135m full width, init_params: max |verify_block - "
         f"{SPEC_K + 1} chained decode_step| logits = {d:.4g} (chained top-2 "
         f"gap at the first differing row: {gap})")
+    require(d == 0, "spec smollm-135m full width: the verify pass parts "
+            "from the chained decode steps")
     # a pool with room for every lane: on random weights a preempted
     # request's re-prefill may break a near-tie otherwise than the decode
     # steps it replaces, in either engine, whatever the verify pass does
     toks, _, wall, got, _ = _serve_requests(model, params, requests, "bf16",
                                             num_pages=None)
     add(got)
-    spec_toks = []
     add(_spec_run("smollm-135m self-draft", model, params, requests, "bf16",
-                  model, params, toks, wall, gated=False, num_pages=None,
-                  out=spec_toks))
-    # the verify rows part from the decode steps' by up to d per logit, so
-    # a token may flip where the plain stream's top-2 gap is within 2d;
-    # every other token must equal the plain engine's
-    for note in _ties_only(model, params, requests, spec_toks, toks, 2 * d):
-        log(f"spec smollm-135m self-draft: tie, {note}")
+                  model, params, toks, wall, num_pages=None))
     _spec_profile(model, params, requests[:8])
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the attention-only families
+# ---------------------------------------------------------------------------
+
+
+def family_serve(model, params, seed: int) -> dict:
+    """8 Poisson requests of 32 new tokens through the paged bf16 cb
+    engine, the launch counts set to 0 just before and read just after:
+    paged_flash_decode once per layer per fused decode step and no other
+    attention kernel, row_norm 2 per layer and 1 per backbone call.
+    Returns those two kernels' launches."""
+    cfg = model.cfg
+    args = serve_cli.parse_args(["--requests", "8", "--max-new", "32",
+                                 "--seed", str(seed)])
+    eng = ContinuousBatchingEngine(model, params, max_batch=8,
+                                   buckets=serve_cli.BUCKETS)
+    for r in serve_cli.make_stream(args, cfg.vocab_size, args.seed):
+        eng.submit(r)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {k: ops.launches[k] for k in ATTN_KERNELS}
+    norms, steps = ops.launches["row_norm"], eng.stats["decode_steps"]
+    what = f"families {cfg.name} x{cfg.n_layers} serve"
+    require(len(done) == 8 and all(
+        r.done and (len(r.tokens_out) == r.max_new_tokens
+                    or r.tokens_out[-1] == r.eos_id) for r in done),
+        f"{what}: a request stopped short of its budget")
+    want = {k: cfg.n_layers * steps if k == "paged_flash_decode" else 0
+            for k in ATTN_KERNELS}
+    require(got == want, f"{what}: launches {got} != {want}")
+    _require_norms(what, norms, eng)
+    toks = sum(len(r.tokens_out) for r in done)
+    log(f"{what} cb paged bf16 poisson x8 (B=8, max_new 32): tokens={toks} "
+        f"wall_s={wall:.4f} tok_s={toks / wall:.1f} decode_steps={steps} "
+        f"paged_flash_decode_launches={got['paged_flash_decode']} (= "
+        f"{cfg.n_layers} x {steps}) row_norm_launches={norms} "
+        f"prefills={eng.stats['prefills']}")
+    return {"paged_flash_decode": got["paged_flash_decode"], "row_norm": norms}
+
+
+def _gemm_rows(params, tied: bool) -> str:
+    """Which of a model's products (torch.matmul, cuBLAS) give a row other
+    bits among 40 rows, a verify pass (B=8 x T=5), than among 8, a decode
+    step: layer 0's weights and the head, on seeded bf16 rows."""
+    emb = params["embed"]
+    ws = {f"{blk} {k}": v[0] for blk in ("mix", "ffn")
+          for k, v in params["scan"]["b0"][blk].items()}
+    ws["head"] = emb["tok"].t() if tied else emb["head"]
+    gen = torch.Generator(device=emb["tok"].device).manual_seed(0)
+    parts = []
+    for name, w in ws.items():
+        x = torch.randn((8, SPEC_K + 1, w.shape[0]), generator=gen,
+                        device=w.device).to(w.dtype)
+        y = torch.matmul(x, w)
+        bad = sum(int((torch.matmul(x[:, j:j + 1].contiguous(), w)[:, 0]
+                       != y[:, j]).sum()) for j in range(SPEC_K + 1))
+        parts.append(f"{name} {w.shape[0]}x{w.shape[1]}: {bad} of "
+                     f"{y.numel()}")
+    return "; ".join(parts)
+
+
+def families_phase(dev) -> dict:
+    """The attention-only families on the card, each at full width: card
+    vs CPU on 2 of its layers (model_phase, paged); then served through
+    the paged cb engine at full depth (deepseek-coder-33b at FAMILY_LAYERS'
+    depth) and its verify block held against its chained decode steps (d
+    logged, not gated, beside the products whose rows part between 40 and
+    8 rows); then reduced musicgen-medium and minitron-8b,
+    fitted with fit_affine_lm, gated card vs CPU at token match 1.0.
+    Returns the paged kernel's and row_norm's launches."""
+    launches = {"paged_flash_decode": 0, "row_norm": 0}
+    for i, arch in enumerate(FAMILIES):
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        model_phase("paged", dataclasses.replace(cfg, n_layers=2),
+                    note=f" (full width, depth cut to 2 of {cfg.n_layers} "
+                    "layers)")
+        n = FAMILY_LAYERS.get(arch, cfg.n_layers)
+        cut = dataclasses.replace(cfg, n_layers=n)
+        depth = f"x{n}" + (f" (depth cut from {cfg.n_layers})"
+                           if n != cfg.n_layers else "")
+        torch.cuda.reset_peak_memory_stats()
+        model = make_model(cut, device=dev)
+        params = init_params(cut, seed=0, device=dev)
+        torch.cuda.synchronize()
+        log(f"families {arch} {depth}: {cut.param_count() / 1e9:.3f} B "
+            f"parameters, init peak "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+        for k, v in family_serve(model, params, i).items():
+            launches[k] += v
+        d, gap = _verify_vs_chained(model, params, "paged", 2)
+        log(f"families {arch} {depth}: max |verify_block - {SPEC_K + 1} "
+            f"chained decode_step| logits = {d:.4g} (chained top-2 gap at "
+            f"the first differing row: {gap}); outputs that differ between "
+            f"40 and 8 rows, per product: "
+            f"{_gemm_rows(params, cfg.tie_embeddings)}")
+        del model, params
+        torch.cuda.empty_cache()
+        log(f"families {arch}: {time.perf_counter() - t0:.1f} s")
+    prompts = synthetic.affine_prompts(np.random.default_rng(123), 64, 256)
+    for arch in FAMILY_GATES:
+        cfg = get_config(arch).reduced()
+        model = make_model(cfg, device=dev)
+        t0 = time.perf_counter()
+        params = synthetic.fit_affine_lm(model)
+        torch.cuda.synchronize()
+        log(f"fit {cfg.name} (x{cfg.n_layers}, {cfg.norm}, {cfg.act}, "
+            f"{cfg.mlp_style}): 1000 steps in {time.perf_counter() - t0:.1f}"
+            f" s, greedy accuracy on 64 affine prompts="
+            f"{synthetic.greedy_accuracy(model, params, prompts):.4f}")
+        launches["paged_flash_decode"] += gate_phase(
+            model, params, "paged")["paged_flash_decode"]
     return launches
 
 
@@ -1589,6 +1840,7 @@ def kernels_phase(dev) -> dict:
     paged_q_phase(dev, flush, maxp=128, kvh=10, g=4, hd=128)
     flash_decode_phase(dev, flush, sk=2048, kvh=10, g=4, hd=128)
     main_shape.update(ibert_kernel_phase(dev, flush))
+    main_shape["row_norm"] = row_norm_phase(dev, flush)
     bf, f32 = torch.bfloat16, torch.float32
     main_shape["flash_attention"] = flash_attention_phase(
         dev, flush, 2, 4096, 9, 3, 64, bf, True)  # smollm's forward_logits
@@ -1652,32 +1904,38 @@ def main() -> None:
         serve_phase("poisson", 16, engine="wave"),
         serve_phase("poisson", 16, paged=False),
         serve_phase("poisson", 16, kv_dtype="int8")])
-    timed("profile", lambda: [profile_phase(dev, k) for k in ("bf16",
-                                                              "int8")])
+    timed("profile", lambda: profile_phase(dev))
     timed("model", lambda: [model_phase(k) for k in ("paged", "dense",
                                                      "int8")])
     fits = timed("fit", lambda: fit_phase(dev))
     gated = timed("gate", lambda: [gate_phase(*fits["target"], k)
                                    for k in ("paged", "dense", "int8")])
     gated.append(timed("spec", lambda: spec_phase(dev, fits)))
+    family = timed("families", lambda: families_phase(dev))
+    gated.append(family)
     launches = {k: sum(s["launches"] for s in served if s["kernel"] == k)
                 + sum(g.get(k, 0) for g in gated) for k in DECODE_KERNELS}
+    launches["row_norm"] = (sum(s["row_norm"] for s in served)
+                            + family["row_norm"])
     launches.update(timed("encode", encode_phase))
     launches["flash_attention"] = fa_launches
 
+    # row_norm has no TPU kernel: it replaces the reference's plain jnp
+    # rmsnorm and layernorm
     entries = [dict(name=kernel, route="cuda",
                     source=f"src/repro_torch/kernels/csrc/{kernel}.cu",
-                    replaces=f"src/repro/kernels/{replaces}",
+                    replaces=f"src/repro/{replaces}",
                     launches=launches[kernel], **main_shape[kernel])
                for kernel, replaces in (
-                   ("paged_flash_decode", "flash_decode.py:250"),
-                   ("paged_flash_decode_q", "flash_decode.py:193"),
-                   ("flash_decode", "flash_decode.py:308"),
-                   ("flash_attention", "flash_attention.py:77"),
-                   ("int8_matmul", "int8_matmul.py:60"),
-                   ("i_softmax", "i_softmax.py:49"),
-                   ("i_layernorm", "i_layernorm.py:50"),
-                   ("i_gelu", "i_gelu.py:41"))]
+                   ("paged_flash_decode", "kernels/flash_decode.py:250"),
+                   ("paged_flash_decode_q", "kernels/flash_decode.py:193"),
+                   ("flash_decode", "kernels/flash_decode.py:308"),
+                   ("flash_attention", "kernels/flash_attention.py:77"),
+                   ("int8_matmul", "kernels/int8_matmul.py:60"),
+                   ("i_softmax", "kernels/i_softmax.py:49"),
+                   ("i_layernorm", "kernels/i_layernorm.py:50"),
+                   ("i_gelu", "kernels/i_gelu.py:41"),
+                   ("row_norm", "models/layers.py:39"))]
     log(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -257,7 +257,8 @@ def _load_all():
     # only the families whose model code the port has; the others arrive
     # with their blocks (ROADMAP.md, port queue)
     from repro_torch.configs import (  # noqa: F401
-        ibert_base, phi3_medium_14b, smollm_135m,
+        deepseek_coder_33b, ibert_base, internvl2_1b, minitron_8b,
+        musicgen_medium, phi3_medium_14b, smollm_135m,
     )
 
     _LOADED = True

@@ -59,8 +59,13 @@ __host__ __device__ __forceinline__ int to_i32(float x) {
   return (int)fminf(fmaxf(x, -kI32Clip), kI32Clip);
 }
 
+// ceil(log2(x)) as the reference computes it: ceil(log(x) / ln 2) in
+// float32, from the correctly rounded float32 log the CPU gives.  logf may
+// be an ulp off, and at x = 2^26 that put the quotient past 26 (i_gelu's
+// shift one too large; tests/test_torch_cuda.py seeds x at and beside every
+// power of two); the float32 of a double log is the correctly rounded one.
 __device__ __forceinline__ float ceil_log2(float x) {
-  return ceilf(logf(x) / kLn2);
+  return ceilf((float)log((double)x) / kLn2);
 }
 
 // warp-wide reductions (all 32 lanes take part)

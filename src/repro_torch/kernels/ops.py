@@ -22,7 +22,7 @@ from repro_torch.kernels import ref as _ref
 
 launches = {"paged_flash_decode": 0, "paged_flash_decode_q": 0,
             "flash_decode": 0, "flash_attention": 0, "int8_matmul": 0,
-            "i_softmax": 0, "i_layernorm": 0, "i_gelu": 0}
+            "i_softmax": 0, "i_layernorm": 0, "i_gelu": 0, "row_norm": 0}
 
 HEAD_DIMS = (16, 64, 128)  # the decode kernels' compiled head_dim instances
 MAX_GROUP = 8  # query heads per kv head the decode kernels take
@@ -59,6 +59,7 @@ _SIGNATURES = {
     "i_softmax": ("i_softmax", [_P, _P, _I, _I, _F, _P]),
     "i_layernorm": ("i_layernorm", [_P] * 4 + [_I, _I, _P]),
     "i_gelu": ("i_gelu", [_P, _P, ctypes.c_longlong, _F, _P]),
+    "row_norm": ("row_norm", [_P] * 4 + [_I, _I, _F, _I, _P]),
 }
 
 
@@ -451,3 +452,80 @@ def i_gelu(q: torch.Tensor, scale) -> torch.Tensor:
     _launch(name, q.device, q.data_ptr(), out.data_ptr(), q.numel(),
             _scale(scale))
     return out
+
+
+def _row_norm_launch(x: torch.Tensor, g: torch.Tensor,
+                     b: Optional[torch.Tensor], eps: float) -> torch.Tensor:
+    name = "row_norm"
+    d = x.shape[-1]
+    x2 = x.reshape(-1, d)
+    if not x2.is_contiguous():
+        x2 = x2.contiguous()
+    _check(x.dtype in (torch.bfloat16, torch.float32), f"x is {x.dtype}, "
+           "the kernel takes bf16 or float32", name)
+    f32 = torch.float32
+    tensors, dtypes = {"x": x2, "g": g}, {"x": x.dtype, "g": f32, "b": f32}
+    if b is not None:
+        tensors["b"] = b
+    _check_cuda(name, dtypes, **tensors)
+    out = torch.empty_like(x2)
+    if out.numel():
+        _launch(name, x.device, x2.data_ptr(), g.data_ptr(),
+                None if b is None else b.data_ptr(), out.data_ptr(),
+                x2.shape[0], d, float(eps), int(x.dtype == torch.bfloat16))
+    return out.view(x.shape)
+
+
+class _RowNormFn(torch.autograd.Function):
+    """The kernel's forward where autograd records (`fit_affine_lm` on the
+    card).  The gradient is the plain version's, recomputed from the saved
+    inputs: the reference differentiates its jnp norms through XLA, with
+    no kernel behind them."""
+
+    @staticmethod
+    def forward(ctx, x, g, b, eps):
+        ctx.save_for_backward(x, g, b)
+        ctx.eps = eps
+        return _row_norm_launch(x, g, b, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        need = ctx.needs_input_grad[:3]
+        ins = [None if t is None else t.detach().requires_grad_(n)
+               for t, n in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad():
+            y = (_ref.rmsnorm(ins[0], ins[1], ctx.eps) if ins[2] is None
+                 else _ref.layernorm(ins[0], ins[1], ins[2], ctx.eps))
+        wrt = [t for t, n in zip(ins, need) if t is not None and n]
+        grads = iter(torch.autograd.grad(y, wrt, dy))
+        return tuple(next(grads) if t is not None and n else None
+                     for t, n in zip(ins, need)) + (None,)
+
+
+def row_norm(x: torch.Tensor, g: torch.Tensor,
+             b: Optional[torch.Tensor] = None,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm (b None) or LayerNorm (with bias b) over the last axis of x,
+    in f32, returned in x's dtype: `kernels/ref.py` rmsnorm and layernorm.
+
+    x: (..., D) bf16 or f32; g, b: (D,) f32.  On the card the kernel sums
+    each row in an order fixed by D alone, so a row gives the same bits
+    in a tensor of any row count (a speculative verify pass and a decode
+    step); x is taken contiguous (one copy first where it is not), g and
+    b contiguous on x's device.  Differentiable: under autograd the
+    gradient is the plain version's.
+    """
+    name = "row_norm"
+    d = x.shape[-1] if x.dim() else 0
+    _check(d > 0 and tuple(g.shape) == (d,)
+           and (b is None or tuple(b.shape) == (d,)),
+           f"x {tuple(x.shape)}, g {tuple(g.shape)}, b "
+           f"{None if b is None else tuple(b.shape)}: want (..., D), (D,), "
+           "(D,)", name)
+    if x.device.type == "cpu":
+        return (_ref.rmsnorm(x, g, eps) if b is None
+                else _ref.layernorm(x, g, b, eps))
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, g, b)):
+        return _RowNormFn.apply(x, g, b, eps)
+    return _row_norm_launch(x, g, b, eps)

@@ -21,6 +21,10 @@ while its sum stays f32, and the result is divided by
 ``max(l, 1e-30)`` — so a fully masked (inactive) lane gives exact zeros,
 never NaN.  `flash_attention` is the prefill kernel's function (see its
 docstring): unscaled q, the scale applied to the f32 score.
+
+`rmsnorm` and `layernorm` are the model's norms as the JAX package
+writes them in plain jnp (`repro/models/layers.py`), and the function of
+the port-only `row_norm` kernel.
 """
 from __future__ import annotations
 
@@ -177,3 +181,24 @@ def i_layernorm_rows(q8: torch.Tensor, q_gamma: torch.Tensor,
 def i_gelu_elem(q: torch.Tensor, scale) -> torch.Tensor:
     out, _ = _io.i_gelu(q.to(torch.int32), scale)
     return out
+
+
+def rmsnorm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-6
+            ) -> torch.Tensor:
+    """RMSNorm over the last axis in f32, returned in x's dtype
+    (`repro/models/layers.py` rmsnorm; the row_norm kernel's function)."""
+    xf = x.float()
+    rms = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return ((xf * rms) * g).to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+              eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm over the last axis in f32 (biased variance), returned in
+    x's dtype (`repro/models/layers.py` layernorm; the row_norm kernel's
+    function with a bias)."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps) * g + b
+    return y.to(x.dtype)

@@ -15,6 +15,7 @@ it stops with an error instead of falling back to the CPU.
   PYTHONPATH=src python -m repro_torch.launch.serve --kv-dtype int8
   PYTHONPATH=src python -m repro_torch.launch.serve --engine wave
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-medium
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
       --draft-config smollm-135m --spec-k 4
 """
@@ -40,7 +41,10 @@ BUCKETS = (16, 32, 64, 128)
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(prog="repro_torch.launch.serve")
-    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--arch", default="smollm-135m",
+                    help="a decoder of the registry: smollm-135m, "
+                         "phi3-medium-14b, minitron-8b, musicgen-medium, "
+                         "internvl2-1b, deepseek-coder-33b")
     ap.add_argument("--engine", choices=["cb", "wave"], default="cb",
                     help="cb: continuous batching; wave: the batch-"
                          "synchronous baseline (dense slot rows)")

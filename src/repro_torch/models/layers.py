@@ -4,6 +4,8 @@
 Parameters are plain nested dicts of tensors in the JAX package's layout
 (`dense` weights are (d_in, d_out)).  Compute dtype is bf16; norms and
 RoPE compute in f32 and cast back, matmuls round their result to bf16.
+The norms go through the `row_norm` kernel wrapper (`kernels/ops.py`):
+the kernel on the card, its plain version (`kernels/ref.py`) on the CPU.
 `cross_entropy_chunked` is the evaluation loss (f32 logsumexp over
 sequence chunks).
 """
@@ -13,6 +15,8 @@ from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels import ops
 
 Params = Dict[str, Any]
 
@@ -25,17 +29,11 @@ def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def rmsnorm(x: torch.Tensor, p: Params, eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
-    rms = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
-    return ((xf * rms) * p["g"]).to(x.dtype)
+    return ops.row_norm(x, p["g"], eps=eps)
 
 
 def layernorm(x: torch.Tensor, p: Params, eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = xf.var(dim=-1, keepdim=True, unbiased=False)
-    y = (xf - mu) * torch.rsqrt(var + eps) * p["g"] + p["b"]
-    return y.to(x.dtype)
+    return ops.row_norm(x, p["g"], p["b"], eps=eps)
 
 
 def norm(x, p, cfg):

@@ -156,9 +156,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
 
     Same shapes, dtypes and scales as `repro.models.transformer
     .init_params` (normal weights scaled 1/sqrt(d_in), embeddings 0.02,
-    norm gains 1), but torch's generator gives other numbers than
-    jax.random from the same seed; load JAX weights with
-    `models.convert.params_from_jax` to compare with the reference.
+    norm gains 1 and layernorm biases 0), but torch's generator gives
+    other numbers than jax.random from the same seed; load JAX weights
+    with `models.convert.params_from_jax` to compare with the reference.
     """
     _check_supported(cfg)
     n_rep, tail, kinds = layer_plan(cfg)
@@ -173,17 +173,22 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     def dense_w(lead, d_in, d_out):
         return normal(lead + (d_in, d_out), d_in ** -0.5)
 
-    def ones(lead, d):
-        return torch.ones(lead + (d,), dtype=torch.float32, device=device)
+    def norm_p(lead, d):
+        """Gain 1 (and, for layernorm, bias 0), f32."""
+        p = {"g": torch.ones(lead + (d,), dtype=torch.float32,
+                             device=device)}
+        if cfg.norm == "layernorm":
+            p["b"] = torch.zeros_like(p["g"])
+        return p
 
     def block(lead):
         d, hd = cfg.d_model, cfg.head_dim
-        p = {"norm1": {"g": ones(lead, d)},
+        p = {"norm1": norm_p(lead, d),
              "mix": {"wq": dense_w(lead, d, cfg.n_heads * hd),
                      "wk": dense_w(lead, d, cfg.n_kv_heads * hd),
                      "wv": dense_w(lead, d, cfg.n_kv_heads * hd),
                      "wo": dense_w(lead, cfg.n_heads * hd, d)},
-             "norm2": {"g": ones(lead, d)}}
+             "norm2": norm_p(lead, d)}
         if cfg.mlp_style != "none" and cfg.d_ff:
             p["ffn"] = {"wi": dense_w(lead, d, cfg.d_ff),
                         "wo": dense_w(lead, cfg.d_ff, d)}
@@ -199,7 +204,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
         "scan": ({f"b{i}": block((n_rep,)) for i in range(len(kinds))}
                  if n_rep else {}),
         "tail": {str(t): block(()) for t in range(tail)},
-        "final_norm": {"g": ones((), cfg.d_model)},
+        "final_norm": norm_p((), cfg.d_model),
     }
 
 
@@ -379,15 +384,18 @@ class Model:
         h = self.backbone(params, x, positions, pos_contiguous=contiguous)
         return lm_head(h, params["embed"])
 
-    def prefill(self, params, caches, tokens, positions=None, last_idx=None):
-        """Fill `caches` (in place) from a left-aligned prompt batch.
+    def prefill(self, params, caches, tokens=None, embeds=None,
+                positions=None, last_idx=None):
+        """Fill `caches` (in place) from a left-aligned prompt batch: token
+        ids (B, S), or embeddings (B, S, D) for the stub frontends
+        (musicgen-medium's audio frames, internvl2-1b's patches).
 
         last_idx: (B,) index of each request's final prompt token;
         defaults to S-1.  Without positions the prompt sits at 0..S-1 and,
         past 1024 tokens, attends through flash_attention.  Returns
         (logits at last_idx (B, V) f32, caches).
         """
-        x = embed(tokens, params["embed"])
+        x = self.embed_inputs(params, tokens, embeds)
         b, s = x.shape[:2]
         positions, contiguous = self._positions(x, positions)
         if last_idx is None:
@@ -403,14 +411,15 @@ class Model:
 
     def decode_step(self, params, caches, token: torch.Tensor,
                     active: Optional[torch.Tensor] = None):
-        """token (B,) -> (logits (B, V) f32, caches) on a paged or a dense
-        slot cache.
+        """token (B,) ids, or (B, D) embeddings for the stub frontends ->
+        (logits (B, V) f32, caches) on a paged or a dense slot cache.
 
         Inactive lanes are computed (the batch shape is static) but leave
         their cache rows and position counters untouched: on a paged cache
         they write only to the trash page, on a dense one they write their
         slot's old contents back."""
-        x = embed(token[:, None], params["embed"])
+        x = (embed(token[:, None], params["embed"]) if token.dim() == 1
+             else token[:, None, :].to(COMPUTE_DTYPE))
         positions = caches["pos"][:, None]
         h = self.backbone(params, x, positions, caches=caches,
                           page_table=caches.get("pt"), active=active)

@@ -18,7 +18,9 @@ import pytest
 import torch
 
 from decode_schedule import decode_limit
-from ibert_rows import row_with_sum
+from ibert_rows import (beside_power_of_two, gelu_scale_beside,
+                        layernorm_row_with_var, row_with_sum,
+                        softmax_row_with_sum_in)
 from repro_torch.core import quant
 from repro_torch.kernels import ops, ref
 
@@ -582,6 +584,57 @@ def test_i_gelu_kernel_matches_plain(dev, shape, scale, offset):
                      ref.i_gelu_elem(q, scale))
 
 
+# ceil(log2(x)) at and beside a power of two: the card's logf and the
+# CPU's log may round apart there, and the ceiling then flips.  x is
+# float32(v) + 1 for v the i-exp sum (i_softmax's shift), var << 14
+# (i_layernorm's Newton start) or 2 / |s_erf| (i_gelu's shift g); each
+# case seeds x = 2^k and the nearest x the input reaches on either side.
+@pytest.mark.parametrize("k", range(1, 32))
+def test_i_softmax_kernel_sums_beside_powers_of_two(dev, k):
+    sides = [s for s in (-1, 0, 1) if beside_power_of_two(k, s)]
+    assert sides and (k in (1, 31) or len(sides) == 3)
+    for side in sides:
+        row, scale = softmax_row_with_sum_in(*beside_power_of_two(k, side))
+        q = torch.tensor(row)
+        assert beside_power_of_two(k, side)[0] <= io.i_exp(
+            q, float(scale))[0].sum().item()
+        _softmax_same(q, float(scale), dev)
+
+
+# var = 2^m - 1, 2^m, 2^m + 1: x = 2^(m + 14) exactly for m = 10 .. 16,
+# x = 2 at var = 0 and where var << 14 wraps (m = 17)
+@pytest.mark.parametrize("m", range(0, 18))
+def test_i_layernorm_kernel_variance_beside_powers_of_two(dev, m):
+    q = torch.tensor(np.concatenate([layernorm_row_with_var(2 ** m + off)
+                                     for off in (-1, 0, 1)]))
+    rng = np.random.default_rng(m)
+    prep = io.layernorm_prepare(
+        torch.tensor(rng.uniform(-1.5, 1.5, 8), dtype=torch.float32),
+        torch.tensor(rng.normal(0, 0.3, 8), dtype=torch.float32))
+    prep_dev = prep._replace(q_gamma=prep.q_gamma.to(dev),
+                             q_beta=prep.q_beta.to(dev))
+    out, _ = ops.i_layernorm(q.to(dev), prep_dev)
+    _same_everywhere(out, ref.i_layernorm_rows(q.to(dev), prep_dev.q_gamma,
+                                               prep_dev.q_beta),
+                     ref.i_layernorm_rows(q, prep.q_gamma, prep.q_beta))
+
+
+# g = ceil(log2(x)) - 19 clamped at 0: from k = 19 on a flip moves g
+@pytest.mark.parametrize("k", range(19, 41))
+def test_i_gelu_kernel_scale_beside_powers_of_two(dev, k):
+    rng = np.random.default_rng(k)
+    q = torch.tensor(rng.integers(-2047, 2048, (4, 257)), dtype=torch.int32)
+    for side in (-1, 0, 1):
+        try:
+            scale = gelu_scale_beside(k, side)
+        except AssertionError:  # no float32 scale lands on 2^k itself
+            assert side == 0
+            continue
+        out = ops.i_gelu(q.to(dev), scale)
+        _same_everywhere(out, ref.i_gelu_elem(q.to(dev), scale),
+                         ref.i_gelu_elem(q, scale))
+
+
 def test_ibert_wrappers_refuse_what_they_cannot_run(dev):
     a = torch.zeros((4, 8), dtype=torch.int8, device=dev)
     b = torch.zeros((8, 4), dtype=torch.int8, device=dev)
@@ -806,3 +859,110 @@ def test_spec_engine_matches_plain_engine_on_card(dev, kv_dtype):
                                          draft_params=dparams, spec_k=4))
     assert spec == plain
     assert stats["spec_dispatches"] > 0 and stats["spec_accepted"] > 0
+
+
+# ---------------------------------------------------------------------------
+# row_norm: the port-only rmsnorm / layernorm kernel against its plain
+# version, at the widths of the served families (64: reduced; 576, 896,
+# 1536, 4096, 7168: smollm-135m, internvl2-1b, musicgen-medium,
+# minitron-8b, deepseek-coder-33b) and the row counts of a lane, a decode
+# step, a verify pass and a long prompt.  Limits: a bf16 output within
+# one bf16 ulp of the plain one, an f32 one within 1e-6 of itself;
+# layernorm adds 1e-6 of the row's largest |output| (x - mu cancels near
+# the mean).  And bit for bit: a row's output does not depend on the
+# row count of its launch.
+# ---------------------------------------------------------------------------
+
+ROW_NORM_ROWS = (1, 8, 40, 4096)
+
+
+def _row_norm_close(out, want, layer):
+    o, w = out.float(), want.float()
+    diff = (o - w).abs()
+    if out.dtype == torch.bfloat16:
+        limit = torch.ldexp(torch.ones_like(w), torch.frexp(w)[1] - 8)
+    else:
+        limit = 1e-6 * w.abs()
+    if layer:
+        limit = limit + 1e-6 * w.abs().amax(-1, keepdim=True)
+    assert out.dtype == want.dtype and out.shape == want.shape
+    assert bool((diff <= limit).all()), f"max_abs_err {diff.max().item()}"
+
+
+@pytest.mark.parametrize("d", [64, 576, 896, 1536, 4096, 7168])
+@pytest.mark.parametrize("layer", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_row_norm_kernel_matches_plain(dev, d, layer, dtype):
+    rng = np.random.default_rng(d)
+    x = torch.tensor(rng.normal(0.3, 1.0, (ROW_NORM_ROWS[-1], d)),
+                     dtype=torch.float32).to(dtype).to(dev)
+    g = torch.tensor(rng.uniform(0.5, 1.5, d), dtype=torch.float32,
+                     device=dev)
+    b = (torch.tensor(rng.normal(0, 0.1, d), dtype=torch.float32,
+                      device=dev) if layer else None)
+    outs = {}
+    for rows in ROW_NORM_ROWS:
+        n0 = ops.launches["row_norm"]
+        outs[rows] = ops.row_norm(x[:rows], g, b)
+        assert ops.launches["row_norm"] == n0 + 1
+        want = (ref.layernorm(x[:rows], g, b) if layer
+                else ref.rmsnorm(x[:rows], g))
+        torch.cuda.synchronize()
+        _row_norm_close(outs[rows], want, layer)
+    # row-count invariance, bit for bit
+    for small, big in zip(ROW_NORM_ROWS, ROW_NORM_ROWS[1:]):
+        assert torch.equal(outs[small], outs[big][:small]), (small, big)
+
+
+@pytest.mark.parametrize("layer", [False, True])
+def test_row_norm_kernel_takes_any_row_layout(dev, layer):
+    """A (B, S, D) tensor, a transposed view (copied first) and a view one
+    element into a buffer give each row the bits it has alone."""
+    rng = np.random.default_rng(5)
+    x = torch.tensor(rng.normal(0, 1, (3, 7, 576)),
+                     dtype=torch.bfloat16).to(dev)
+    g = torch.tensor(rng.uniform(0.5, 1.5, 576), dtype=torch.float32,
+                     device=dev)
+    b = torch.zeros_like(g) if layer else None
+    whole = ops.row_norm(x, g, b)
+    assert whole.shape == x.shape
+    for i in range(3):
+        assert torch.equal(whole[i], ops.row_norm(x[i], g, b))
+    xt = x.transpose(0, 1)
+    assert torch.equal(ops.row_norm(xt, g, b), whole.transpose(0, 1))
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+    shifted = flat[1:].view(x.shape)
+    shifted.copy_(x)
+    assert torch.equal(ops.row_norm(shifted, g, b), whole)
+
+
+def test_row_norm_gradient_is_the_plain_versions(dev):
+    """Under autograd the kernel's forward and the plain version's
+    gradient (fit_affine_lm on the card)."""
+    rng = np.random.default_rng(6)
+    x = torch.tensor(rng.normal(0, 1, (8, 64)), dtype=torch.float32,
+                     device=dev, requires_grad=True)
+    g = torch.tensor(rng.uniform(0.5, 1.5, 64), dtype=torch.float32,
+                     device=dev, requires_grad=True)
+    b = torch.zeros(64, dtype=torch.float32, device=dev, requires_grad=True)
+    dy = torch.tensor(rng.normal(0, 1, (8, 64)), dtype=torch.float32,
+                      device=dev)
+    n0 = ops.launches["row_norm"]
+    got = torch.autograd.grad(ops.row_norm(x, g, b), (x, g, b), dy)
+    assert ops.launches["row_norm"] == n0 + 1
+    want = torch.autograd.grad(ref.layernorm(x, g, b), (x, g, b), dy)
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+
+
+def test_row_norm_wrapper_refuses_what_it_cannot_run(dev):
+    x = torch.zeros((4, 64), dtype=torch.bfloat16, device=dev)
+    g = torch.ones(64, dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        ops.row_norm(x, g.bfloat16())
+    with pytest.raises(ValueError, match="cpu"):
+        ops.row_norm(x, g.cpu())
+    with pytest.raises(ValueError, match="bf16 or float32"):
+        ops.row_norm(x.half(), g)
+    with pytest.raises(ValueError, match=r"\(D,\)"):
+        ops.row_norm(x, g[:32])

@@ -10,13 +10,16 @@ between languages: floor division of negative numbers, right shifts by 32
 or more, int32 wrap, float32 constants, round half away from zero, and
 log2 at powers of two.
 """
+import math
+import os
+
 import numpy as np
 import pytest
 import torch
 
 import jax.numpy as jnp
 
-from ibert_rows import row_with_sum
+from ibert_rows import ceil_log2_args, row_with_sum
 from repro.core import ibert_ops as jio
 from repro.core.quant import quantize as jquantize
 from repro.kernels import ops as jops
@@ -168,6 +171,30 @@ def test_i_softmax_rows_whose_sum_is_a_power_of_two(target):
     e, _ = tio.i_exp(torch.from_numpy(q), scale)
     assert e.sum().item() == target
     _softmax_same(q, scale)
+
+
+def test_kernels_ceil_log2_matches_the_reference_beside_powers_of_two():
+    """The card kernels' ceil_log2 (csrc/ibert_int.cuh) takes the float32
+    of a double log, the correctly rounded float32 log, then the
+    reference's float32 division by ln 2: at every argument the seeded
+    card cases reach (tests/test_torch_cuda.py), it equals the port's and
+    JAX's ceil(log2(x)).  With a float32 log one ulp high, as CUDA's logf
+    gave at x = 2^26 (i_gelu's shift one too large on the card), 2^26
+    flips to 27."""
+    xs = ceil_log2_args()
+    ln2 = np.float32(tio._LN2)
+    kernel = np.array([np.ceil(np.float32(math.log(float(x))) / ln2)
+                       for x in xs])
+    assert (kernel == torch.ceil(tio._log2(torch.from_numpy(xs))).numpy()
+            ).all()
+    assert (kernel == np.asarray(jnp.ceil(jnp.log2(jnp.asarray(xs))))).all()
+    x = np.float32(2.0 ** 26)
+    assert kernel[list(xs).index(x)] == 26
+    up = np.nextafter(np.float32(math.log(float(x))), np.float32(np.inf))
+    assert np.ceil(up / ln2) == 27
+    src = open(os.path.join(os.path.dirname(tops.__file__), "csrc",
+                            "ibert_int.cuh")).read()
+    assert "ceilf((float)log((double)x) / kLn2)" in src
 
 
 # The card kernel (csrc/i_softmax.cu) divides by q_ln2 as a multiply-high

@@ -10,6 +10,8 @@ fused decode loop's (n, B) token block must be identical on the fitted
 model (`fit_affine_lm`, 300 steps): random-init logits carry near-ties
 that any summation reorder flips.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -97,14 +99,23 @@ def test_layers_match_jax(dtype):
          tl.act_fn("gelu")(torch.tensor(x).to(tdt))),
         (jax.nn.silu(jnp.asarray(x, jdt)),
          tl.act_fn("silu")(torch.tensor(x).to(tdt))),
+        (jnp.square(jax.nn.relu(jnp.asarray(x, jdt))),
+         tl.act_fn("relu2")(torch.tensor(x).to(tdt))),
     ]
     w = {n: rng.normal(0, 0.25, s) for n, s in
          (("wi", (16, 32)), ("wg", (16, 32)), ("wo", (32, 16)))}
-    pairs.append((jl.mlp(jnp.asarray(x, jdt),
-                         {n: jnp.asarray(a, jdt) for n, a in w.items()}, CFG),
-                  tl.mlp(torch.tensor(x).to(tdt),
-                         {n: torch.tensor(a).to(tdt) for n, a in w.items()},
-                         TCFG)))
+    # SwiGLU (smollm-135m), and the 2-matrix MLP under tanh GELU
+    # (musicgen-medium) and squared ReLU (minitron-8b)
+    for style, act in (("swiglu", "silu"), ("mlp", "gelu"), ("mlp", "relu2")):
+        jc, tc = (dataclasses.replace(c, mlp_style=style, act=act)
+                  for c in (CFG, TCFG))
+        wp = {n: a for n, a in w.items() if style == "swiglu" or n != "wg"}
+        pairs.append((jl.mlp(jnp.asarray(x, jdt),
+                             {n: jnp.asarray(a, jdt) for n, a in wp.items()},
+                             jc),
+                      tl.mlp(torch.tensor(x).to(tdt),
+                             {n: torch.tensor(a).to(tdt)
+                              for n, a in wp.items()}, tc)))
     emb = {"tok": rng.normal(0, 1, (32, 16))}
     pairs.append((jl.lm_head(jnp.asarray(x, jdt),
                              {"tok": jnp.asarray(emb["tok"], jdt)}),
