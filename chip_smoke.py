@@ -86,10 +86,22 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    layers (as phase 6, paged), 8 requests of 32 tokens served through the
    paged cb engine at full depth (deepseek-coder-33b cut to 8 of its 62
    layers), exact paged_flash_decode and row_norm launch counts, and the
-   verify block's difference from its chained decode steps (logged);
+   verify block equal to its chained decode steps bit for bit (each
+   product runs at a decode step's M = B rows);
    then reduced musicgen-medium and minitron-8b fitted and gated card vs
    CPU at token match 1.0 (paged);
-11. encode: the integer I-BERT encoder (ibert-base at full width, 12
+11. recurrent: recurrentgemma-2b (RG-LRU blocks, sliding-window MQA
+   attention at hd 256 / G 10, W8A8 tail MLPs) and xlstm-1.3b (mLSTM and
+   sLSTM blocks) at full width on random weights: card vs CPU on one
+   period of layers (dense slot rows; xlstm's 8-layer period logged
+   beside the CPU's own 1-thread spread, and gated on 2 layers, an mLSTM
+   then an sLSTM), 8 requests of 32 tokens served
+   through the dense-slot cb engine at full depth (recurrentgemma with
+   bf16 and with W8A8 weights), exact flash_decode, int8_matmul and
+   row_norm launch counts, 8 fused decode steps under torch.profiler;
+   then both reduced, fitted and gated card vs CPU at token match 1.0
+   (dense slot rows);
+12. encode: the integer I-BERT encoder (ibert-base at full width, 12
    layers, random float weights from seed 0, calibrated at batch 1, seq
    128) through `repro_torch.launch.ibert_encoder`: one forward must
    launch exactly 72 / 12 / 24 / 12 int8_matmul / i_softmax / i_layernorm
@@ -98,10 +110,11 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    tests/test_ibert_model.py's bounds, 12 within the reference's own
    12-layer error on these weights); then one forward under
    torch.profiler, and the entry point's time at seq 1, 8, 32, 64, 128;
-12. summary: a JSON line of the kernels (the decode kernels' launches
-   include the gate's, the spec phase's and the families'; row_norm's
-   are the serve phases' and the families' served streams), then the
-   device line.
+13. summary: a JSON line of the kernels (the decode kernels' launches
+   include the gate's, the spec phase's, the families' and the recurrent
+   phase's; row_norm's are the serve phases' and the families' and
+   recurrent models' served streams; int8_matmul's the encoder's and
+   recurrentgemma's W8A8 stream), then the device line.
 
 Each phase logs its wall seconds ("phase ...").
 """
@@ -129,6 +142,8 @@ from repro_torch.launch import ibert_encoder  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models import ibert as ib  # noqa: E402
 from repro_torch.models import synthetic  # noqa: E402
+from repro_torch.models.quantized import (  # noqa: E402
+    is_quantized, quantize_leaf)
 from repro_torch.models.transformer import init_params, make_model  # noqa: E402
 from repro_torch.serving.engine import (  # noqa: E402
     ContinuousBatchingEngine, Request)
@@ -179,9 +194,10 @@ LOSS_TOL = 1e-2    # mean cross-entropy of those logits, card vs CPU
 # moves by more
 FA_TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (4e-3, 2 ** -7)}
 # row_norm's widths: the reduced configs, smollm-135m, internvl2-1b,
-# musicgen-medium, minitron-8b, deepseek-coder-33b; its row counts: one
-# lane, a decode step (B=8), a verify pass (8 x 5), a long prompt
-ROW_NORM_DS = (64, 576, 896, 1536, 4096, 7168)
+# musicgen-medium, xlstm-1.3b, recurrentgemma-2b, minitron-8b,
+# deepseek-coder-33b; its row counts: one lane, a decode step (B=8), a
+# verify pass (8 x 5), a long prompt
+ROW_NORM_DS = (64, 576, 896, 1536, 2048, 2560, 4096, 7168)
 ROW_NORM_ROWS = (1, 8, 40, 4096)
 # row_norm vs its plain version: a bf16 output within one bf16 ulp of the
 # plain one (the two round f32 values a few f32 ulps apart), an f32 one
@@ -202,6 +218,23 @@ FAMILY_GATES = ("musicgen-medium", "minitron-8b")
 # the spec phase's page pool (16-row pages): ~5 lanes' worth at its
 # budgets, so B=8 lanes starve, preempt and (speculating) catch drafts up
 SPEC_PAGES = 30
+# the paged serve profile's window: 8 requests (16 before the recurrent
+# phase came; the profiler's handling of the window's events took ~100 s)
+PROFILE_REQUESTS = 8
+# the recurrent phase: each model at full width, card vs CPU on one
+# period of its layers (every block kind: recurrentgemma's rglru, rglru,
+# attn; xlstm's 7 mLSTM and 1 sLSTM), then served at full depth
+RECURRENT_CUT = {"recurrentgemma-2b": 3, "xlstm-1.3b": 8}
+# their reduced fits for the gate: Adam steps.  The sLSTM's sequential
+# scan makes an xlstm step ~3x a recurrentgemma one on the card (122 s
+# and 41 s for 1,000 steps on an H100 80GB HBM3 at 700 W), so xlstm
+# takes fewer
+RECURRENT_FIT_STEPS = {"recurrentgemma-2b": 1000, "xlstm-1.3b": 400}
+# recurrentgemma-2b's decode-step int8_matmul shapes (its tail MLPs: K
+# 2560 -> N 7680 for wi and wg, 7680 -> 2560 for wo) at a decode step's
+# 8 lanes and a 128-token prefill bucket
+INT8_DECODER_SHAPES = ((8, 2560, 7680), (8, 7680, 2560), (128, 2560, 7680),
+                       (128, 7680, 2560))
 
 
 def log(msg: str) -> None:
@@ -691,6 +724,37 @@ def ibert_kernel_phase(dev, flush) -> dict:
     return res
 
 
+def int8_decoder_phase(dev, flush) -> None:
+    """int8_matmul at recurrentgemma-2b's W8A8 tail-MLP shapes
+    (INT8_DECODER_SHAPES), the weight quantized per channel and stored
+    column-major as `models/quantized.quantize_leaf` keeps it, the int32
+    product only (qdense scales it afterwards): bit-exact against the
+    plain version, timed beside torch._int_mm (whose M must exceed 16:
+    at M = 8 its rows are padded to 32 with zeros, and the time is of
+    that padded call)."""
+    rng = np.random.default_rng(13)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for m, k, n in INT8_DECODER_SHAPES:
+        a = torch.tensor(rng.integers(-127, 128, (m, k)), dtype=torch.int8,
+                         device=dev)
+        w = torch.tensor(rng.normal(0, 0.02, (k, n)), dtype=torch.bfloat16,
+                         device=dev)
+        q = quantize_leaf(w)["q"]
+        brow = q.contiguous()
+        pad = 32 if m <= 16 else m
+        ap = torch.zeros((pad, k), dtype=torch.int8, device=dev)
+        ap[:m] = a
+        _ibert_case(
+            "int8_matmul", f"{m}x{k}x{n} int32, recurrentgemma-2b W8A8 "
+            f"(B column-major; split-K {ops.int8_matmul_split(m, n, k, sms)};"
+            f" library torch._int_mm on row-major B"
+            f"{', rows padded to 32' if pad != m else ''})",
+            lambda: ops.int8_matmul(a, q, 1.0, 1.0),
+            lambda: ref.int8_matmul(a, q, 1.0, 1.0), flush,
+            m * k + k * n + 4 * m * n, 2 * m * n * k, INT8_OPS_S,
+            library=lambda: torch._int_mm(ap, brow))
+
+
 def _bf16_ulp(t: torch.Tensor) -> torch.Tensor:
     """The spacing of bf16 values at each |t| (t holds bf16 values, as f32):
     2^(e - 8) for |t| in [2^(e-1), 2^e)."""
@@ -856,14 +920,24 @@ def serve_phase(stream: str, n: int, engine: str = "cb",
     return dict(kernel=kernel, launches=launches, row_norm=norms)
 
 
+def _norms_per_call(cfg) -> int:
+    """Row norms of one backbone call: 2 a layer (1 in the xLSTM family,
+    whose blocks carry no MLP) and the final one."""
+    return (1 if cfg.family == "ssm" else 2) * cfg.n_layers + 1
+
+
+def _attn_layers(cfg) -> int:
+    return sum(cfg.block_kind(i) == "attn" for i in range(cfg.n_layers))
+
+
 def _require_norms(route: str, norms: int, eng) -> None:
-    """The row norm's launches over a served stream: 2 per layer and the
-    final one, at every backbone call (one per prefill or wave, one per
-    fused decode step)."""
-    s, n = eng.stats, eng.model.cfg.n_layers
+    """The row norm's launches over a served stream: `_norms_per_call` at
+    every backbone call (one per prefill or wave, one per fused decode
+    step)."""
+    s, per = eng.stats, _norms_per_call(eng.model.cfg)
     calls = s["decode_steps"] + s.get("prefills", 0) + s.get("waves", 0)
-    require(norms == (2 * n + 1) * calls, f"{route}: {norms} row_norm "
-            f"launches != {2 * n + 1} x {calls} backbone calls")
+    require(norms == per * calls, f"{route}: {norms} row_norm "
+            f"launches != {per} x {calls} backbone calls")
 
 
 def _device_spans(fn) -> tuple:
@@ -902,8 +976,9 @@ def profile_phase(dev) -> None:
     The profiler's own host cost lowers the busy share somewhat, and its
     handling of the window's events takes far longer than the stream, so
     only this route is profiled."""
-    args = serve_cli.parse_args(["--requests", "16", "--max-batch", "8",
-                                 "--max-new", "32", "--seed", "3"])
+    args = serve_cli.parse_args(["--requests", str(PROFILE_REQUESTS),
+                                 "--max-batch", "8", "--max-new", "32",
+                                 "--seed", "3"])
     cfg = get_config(args.arch)
     engine = ContinuousBatchingEngine(make_model(cfg, device=dev),
                                       init_params(cfg, seed=0, device=dev),
@@ -926,7 +1001,8 @@ def profile_phase(dev) -> None:
             f"profile cb paged bf16: {len(kern)} paged_flash_decode and "
             f"{len(norms)} row_norm spans, want {n} x {steps} and "
             f"{2 * n + 1} x {calls}")
-    log(f"profile cb paged bf16 poisson x16 (B=8, max_new 32): "
+    log(f"profile cb paged bf16 poisson x{PROFILE_REQUESTS} (B=8, "
+        f"max_new 32): "
         f"wall_ms={wall_us / 1e3:.2f} "
         f"device_busy_share={_busy_us(spans) / wall_us:.4f} "
         f"device_kernel_ms={dev_total / 1e3:.2f} "
@@ -1136,23 +1212,27 @@ def phi3_forward_phase(dev) -> int:
     return got["flash_attention"]
 
 
-def model_phase(kind: str, cfg=None, note: str = "") -> None:
+def model_phase(kind: str, cfg=None, note: str = "",
+                gated: bool = True) -> None:
     """Same weights on card and CPU, on a bf16 page arena ("paged"), an
     int8 one ("int8") or dense slot rows ("dense"): prefill two prompts,
     then 8 decode steps fed the same tokens on both; then 8 fused greedy
     steps.  On the int8 arena, kv_quantize of the card's K/V rows must
     equal the CPU's of the same rows bit for bit.  `cfg`: smollm-135m
-    unless given; `note` says how a given one was cut."""
+    unless given; `note` says how a given one was cut.  gated=False logs
+    the error without requiring LOGIT_TOL, beside the CPU's own spread:
+    the same CPU run once more on one thread (another summation order
+    of its bf16 products), and that run's distance from the first."""
     cfg = cfg or get_config("smollm-135m")
     ps, maxp, steps = 16, 6, 8
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in (21, 37)]
     gpu_params = init_params(cfg, seed=0, device="cuda")
+    cpu_params = {k: _to(v, "cpu") for k, v in gpu_params.items()}
     runs = {}
     for name in ("cpu", "cuda"):
-        params = gpu_params if name == "cuda" else {
-            k: _to(v, "cpu") for k, v in gpu_params.items()}
+        params = gpu_params if name == "cuda" else cpu_params
         model = make_model(cfg, device=name)
         with torch.no_grad():
             runs[name] = _model_run(model, params, prompts, ps, maxp, steps,
@@ -1162,13 +1242,25 @@ def model_phase(kind: str, cfg=None, note: str = "") -> None:
                                                        gpu["logits"])]
     scale = max(c.abs().max().item() for c in cpu["logits"])
     match = (cpu["block"] == gpu["block"]).float().mean().item()
+    spread = ""
+    if not gated:
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        with torch.no_grad():
+            one = _model_run(make_model(cfg, device="cpu"), cpu_params,
+                             prompts, ps, maxp, steps, cpu, kind)
+        torch.set_num_threads(threads)
+        own = max((a - b).abs().max().item()
+                  for a, b in zip(cpu["logits"], one["logits"]))
+        spread = (f" (logged, not gated; the CPU on 1 thread vs on "
+                  f"{threads}: {own:.4g})")
     log(f"model {cfg.name}{note} {kind} cache, prefill+{steps} decode "
         f"steps, card vs CPU: max_abs_logit_err={max(errs):.4g} (tol {LOGIT_TOL}, "
-        f"|logit| max {scale:.3g}) per step={['%.3g' % e for e in errs]} "
-        f"fused {steps}-step token match={match:.3f}; "
-        f"{_first_divergence(cpu, gpu)}")
-    require(max(errs) <= LOGIT_TOL, f"{cfg.name} {kind}: card vs CPU logits:"
-            f" {errs}")
+        f"|logit| max {scale:.3g}){spread} per step="
+        f"{['%.3g' % e for e in errs]} fused {steps}-step token match="
+        f"{match:.3f}; {_first_divergence(cpu, gpu)}")
+    require(not gated or max(errs) <= LOGIT_TOL, f"{cfg.name} {kind}: card "
+            f"vs CPU logits: {errs}")
     if kind == "int8":
         rows = gpu["kv_rows"]
         same = [torch.equal(a.cpu(), b) for x in rows
@@ -1240,7 +1332,7 @@ def _admitted(model, params, prompts, ps, maxp, kind, out=None):
             torch.tensor(toks, device=dev),
             positions=torch.tensor(pos, device=dev),
             last_idx=torch.tensor([len(p) - 1], device=dev))
-        if out is not None:
+        if out is not None and "k" in small["scan"].get("b0", {}):
             out["kv_rows"] = [small["scan"]["b0"][n] for n in ("k", "v")]
         if kind == "dense":
             model.insert_prefill_cache(big, small, i)
@@ -1332,7 +1424,7 @@ def gate_phase(model, params, kind: str) -> dict:
                                        cfg.vocab_size)
     kernel = {"paged": "paged_flash_decode", "int8": "paged_flash_decode_q",
               "dense": "flash_decode"}[kind]
-    n = cfg.n_layers * 2 * steps
+    n = _attn_layers(cfg) * 2 * steps
     with torch.no_grad():
         cpu = _model_run(make_model(cfg, device="cpu"), _to(params, "cpu"),
                          prompts, ps, maxp, steps, None, kind)
@@ -1518,8 +1610,15 @@ def _spec_profile(model, params, requests) -> None:
             f"{n} launches")
     dev_total = sum(e - s for s, e, _ in spans)
     disp = eng.stats["decode_dispatches"]
+    # cuBLAS's GEMM kernels (sm90 xmma / nvjet names): the verify pass
+    # runs each product once per query column
+    gemms = sum(1 for _, _, name in spans
+                if "gemm" in name.lower() or "nvjet" in name.lower())
     log(f"profile spec smollm-135m self-draft bf16 x{len(requests)} (B=8, "
-        f"spec_k {SPEC_K}): wall_ms={wall_us / 1e3:.2f} "
+        f"spec_k {SPEC_K}): gemm_ops_per_dispatch="
+        f"{gemms / max(disp, 1):.1f} (draft steps and verify columns; "
+        f"{eng.stats.get('spec_dispatches', 0)} spec dispatches) "
+        f"wall_ms={wall_us / 1e3:.2f} "
         f"device_busy_share={_busy_us(spans) / wall_us:.4f} "
         f"device_kernel_ms={dev_total / 1e3:.2f} "
         f"paged_flash_decode_share_of_device="
@@ -1656,9 +1755,10 @@ def families_phase(dev) -> dict:
     """The attention-only families on the card, each at full width: card
     vs CPU on 2 of its layers (model_phase, paged); then served through
     the paged cb engine at full depth (deepseek-coder-33b at FAMILY_LAYERS'
-    depth) and its verify block held against its chained decode steps (d
-    logged, not gated, beside the products whose rows part between 40 and
-    8 rows); then reduced musicgen-medium and minitron-8b,
+    depth) and its verify block required equal to its chained decode
+    steps (d = 0; logged beside the products whose rows would part
+    between one 40-row product and 8-row ones); then reduced
+    musicgen-medium and minitron-8b,
     fitted with fit_affine_lm, gated card vs CPU at token match 1.0.
     Returns the paged kernel's and row_norm's launches."""
     launches = {"paged_flash_decode": 0, "row_norm": 0}
@@ -1685,8 +1785,11 @@ def families_phase(dev) -> dict:
         log(f"families {arch} {depth}: max |verify_block - {SPEC_K + 1} "
             f"chained decode_step| logits = {d:.4g} (chained top-2 gap at "
             f"the first differing row: {gap}); outputs that differ between "
-            f"40 and 8 rows, per product: "
+            f"one (40, D) product and the 8-row products the verify pass "
+            f"now runs, per product: "
             f"{_gemm_rows(params, cfg.tie_embeddings)}")
+        require(d == 0, f"families {arch}: the verify pass parts from the "
+                "chained decode steps")
         del model, params
         torch.cuda.empty_cache()
         log(f"families {arch}: {time.perf_counter() - t0:.1f} s")
@@ -1703,6 +1806,181 @@ def families_phase(dev) -> dict:
             f"{synthetic.greedy_accuracy(model, params, prompts):.4f}")
         launches["paged_flash_decode"] += gate_phase(
             model, params, "paged")["paged_flash_decode"]
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families
+# ---------------------------------------------------------------------------
+
+
+def _n_params(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_n_params(v) for v in tree.values())
+    return tree.numel()
+
+
+def _quantized_leaves(tree) -> int:
+    if is_quantized(tree):
+        return 1
+    if isinstance(tree, dict):
+        return sum(_quantized_leaves(v) for v in tree.values())
+    return 0
+
+
+def recurrent_serve(model, params, seed: int, quant: bool) -> dict:
+    """8 Poisson requests of 32 new tokens through the dense-slot cb
+    engine (the only route these models have), the launch counts set to 0
+    just before and read just after: flash_decode once per attention
+    layer per fused decode step and no other attention kernel,
+    int8_matmul once per quantized projection per backbone call (W8A8),
+    row_norm `_norms_per_call` per backbone call.  Returns the three
+    kernels' launches."""
+    cfg = model.cfg
+    args = serve_cli.parse_args(["--requests", "8", "--max-new", "32",
+                                 "--seed", str(seed)])
+    eng = ContinuousBatchingEngine(model, params, max_batch=8,
+                                   buckets=serve_cli.BUCKETS,
+                                   quant_weights=quant)
+    require(not eng.paged, f"{cfg.name}: took the paged route")
+    n_q = _quantized_leaves(eng.executor.params)
+    for r in serve_cli.make_stream(args, cfg.vocab_size, args.seed):
+        eng.submit(r)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    s = eng.stats
+    calls = s["decode_steps"] + s["prefills"]
+    what = (f"recurrent {cfg.name} x{cfg.n_layers} serve "
+            f"{'W8A8' if quant else 'bf16'}")
+    require(len(done) == 8 and all(
+        r.done and (len(r.tokens_out) == r.max_new_tokens
+                    or r.tokens_out[-1] == r.eos_id) for r in done),
+        f"{what}: a request stopped short of its budget")
+    got = {k: ops.launches[k] for k in ATTN_KERNELS}
+    want = {k: _attn_layers(cfg) * s["decode_steps"]
+            if k == "flash_decode" else 0 for k in ATTN_KERNELS}
+    require(got == want, f"{what}: launches {got} != {want}")
+    i8, norms = ops.launches["int8_matmul"], ops.launches["row_norm"]
+    require((n_q > 0) == quant and i8 == n_q * calls,
+            f"{what}: {i8} int8_matmul launches, want {n_q} quantized "
+            f"products x {calls} backbone calls")
+    _require_norms(what, norms, eng)
+    toks = sum(len(r.tokens_out) for r in done)
+    log(f"{what} cb dense poisson x8 (B=8, max_new 32): tokens={toks} "
+        f"wall_s={wall:.4f} tok_s={toks / wall:.1f} "
+        f"decode_steps={s['decode_steps']} prefills={s['prefills']} "
+        f"flash_decode_launches={got['flash_decode']} (= "
+        f"{_attn_layers(cfg)} x {s['decode_steps']}) "
+        f"int8_matmul_launches={i8} (= {n_q} x {calls}) "
+        f"row_norm_launches={norms} (= {_norms_per_call(cfg)} x {calls}) "
+        f"peak_mem_gib={torch.cuda.max_memory_allocated() / 2 ** 30:.2f}")
+    return {"flash_decode": got["flash_decode"], "int8_matmul": i8,
+            "row_norm": norms}
+
+
+def _recurrent_profile(model, params) -> None:
+    """8 fused decode steps over 8 admitted prompts on dense slot rows,
+    warm, under torch.profiler: the device's busy share, device ops per
+    step and one kernel's share of device time (flash_decode; xlstm has
+    none, so row_norm).  At these models' event rates (30-40 thousand
+    device ops a second) the profiler can lose a few events (12,427 and
+    12,459 ops recorded for the same recurrentgemma window in two runs on
+    an H100), so the kernel's spans are required present and at most its
+    launches, and both counts are logged."""
+    cfg = model.cfg
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in rng.integers(8, 60, 8)]
+    act = torch.ones((8,), dtype=torch.bool, device=model.device)
+    what = (f"recurrent {cfg.name} x{cfg.n_layers} 8 fused decode steps "
+            "(B=8, dense slots)")
+    with torch.no_grad():
+        big, lg = _admitted(model, params, prompts, 16, 12, "dense")
+        first = lg.argmax(-1).to(torch.int32)
+        model.decode_steps(params, big, first, act, 8)  # warm
+        big, lg = _admitted(model, params, prompts, 16, 12, "dense")
+        n_attn = _attn_layers(cfg)
+        kernel, n = (("flash_decode", n_attn * 8) if n_attn else
+                     ("row_norm", _norms_per_call(cfg) * 8))
+        spans, wall_us = _device_spans(
+            lambda: model.decode_steps(params, big, first, act, 8))
+    if not spans:
+        log(f"profile {what}: the profiler recorded no device time (not "
+            "measured)")
+        return
+    dev_total = sum(e - s for s, e, _ in spans)
+    ks = [e - s for s, e, name in spans if f"{kernel}_kernel" in name]
+    require(0 < len(ks) <= n, f"profile {what}: {len(ks)} {kernel} kernel "
+            f"spans, {n} launches")
+    log(f"profile {what}: wall_ms={wall_us / 1e3:.2f} "
+        f"device_busy_share={_busy_us(spans) / wall_us:.4f} "
+        f"device_kernel_ms={dev_total / 1e3:.3f} {kernel}_ms="
+        f"{sum(ks) / 1e3:.3f} ({len(ks)} spans of {n} launches) "
+        f"{kernel}_share_of_device={sum(ks) / dev_total:.4f} "
+        f"device_ops={len(spans)}")
+
+
+def recurrent_phase(dev) -> dict:
+    """recurrentgemma-2b and xlstm-1.3b on the card at full width on
+    init_params weights (seed 0): card vs CPU on one period of layers
+    (model_phase, dense slot rows); served at full depth through the
+    dense-slot cb engine (recurrentgemma with bf16 and W8A8 weights),
+    with exact launch counts; 8 fused decode steps profiled; then both
+    reduced, fitted with fit_affine_lm and gated card vs CPU at token
+    match 1.0 (dense slot rows).  Returns flash_decode's, int8_matmul's
+    and row_norm's launches."""
+    launches = {"flash_decode": 0, "int8_matmul": 0, "row_norm": 0}
+    for i, (arch, cut) in enumerate(RECURRENT_CUT.items()):
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        if arch == "xlstm-1.3b":
+            # one period, 8 layers, is logged beside the CPU's own spread
+            # (random-init mLSTM layers amplify a summation order's
+            # rounding layer by layer); the gate runs both block kinds in
+            # 2 full-width layers, the sLSTM every 2nd
+            model_phase("dense", dataclasses.replace(cfg, n_layers=cut),
+                        note=f" (full width, {cut} of {cfg.n_layers} "
+                        "layers, one period)", gated=False)
+            model_phase("dense", dataclasses.replace(
+                cfg, n_layers=2, slstm_every=2), note=" (full width, 2 "
+                "layers: mLSTM, then sLSTM with slstm_every=2)")
+        else:
+            model_phase("dense", dataclasses.replace(cfg, n_layers=cut),
+                        note=f" (full width, depth cut to {cut} of "
+                        f"{cfg.n_layers} layers, one period)")
+        torch.cuda.reset_peak_memory_stats()
+        model = make_model(cfg, device=dev)
+        params = init_params(cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        log(f"recurrent {arch} x{cfg.n_layers}: "
+            f"{_n_params(params) / 1e9:.3f} B parameters, init peak "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+        for quant in ((False, True) if arch == "recurrentgemma-2b"
+                      else (False,)):
+            torch.cuda.reset_peak_memory_stats()
+            for k, v in recurrent_serve(model, params, i, quant).items():
+                launches[k] += v
+        _recurrent_profile(model, params)
+        del model, params
+        torch.cuda.empty_cache()
+        log(f"recurrent {arch}: {time.perf_counter() - t0:.1f} s")
+    prompts = synthetic.affine_prompts(np.random.default_rng(123), 64, 256)
+    for arch, steps in RECURRENT_FIT_STEPS.items():
+        cfg = get_config(arch).reduced()
+        model = make_model(cfg, device=dev)
+        t0 = time.perf_counter()
+        params = synthetic.fit_affine_lm(model, steps=steps)
+        torch.cuda.synchronize()
+        log(f"fit {cfg.name} (x{cfg.n_layers}, {cfg.family}): {steps} steps"
+            f" in {time.perf_counter() - t0:.1f} s, greedy accuracy on 64 "
+            f"affine prompts="
+            f"{synthetic.greedy_accuracy(model, params, prompts):.4f}")
+        launches["flash_decode"] += gate_phase(
+            model, params, "dense")["flash_decode"]
     return launches
 
 
@@ -1839,7 +2117,14 @@ def kernels_phase(dev) -> dict:
     kernel_phase(dev, flush, maxp=128, kvh=10, g=4, hd=128)
     paged_q_phase(dev, flush, maxp=128, kvh=10, g=4, hd=128)
     flash_decode_phase(dev, flush, sk=2048, kvh=10, g=4, hd=128)
+    # flash_decode at recurrentgemma-2b's decode heads: hd 256, MQA at
+    # G = 10 (two head chunks of 5, each reading the kv head's rows), its
+    # window of 2048 over a serve lane's 192 slots, and a window of 512
+    # over 2048 slots
+    flash_decode_phase(dev, flush, sk=192, window=2048, kvh=1, g=10, hd=256)
+    flash_decode_phase(dev, flush, sk=2048, window=512, kvh=1, g=10, hd=256)
     main_shape.update(ibert_kernel_phase(dev, flush))
+    int8_decoder_phase(dev, flush)
     main_shape["row_norm"] = row_norm_phase(dev, flush)
     bf, f32 = torch.bfloat16, torch.float32
     main_shape["flash_attention"] = flash_attention_phase(
@@ -1913,11 +2198,14 @@ def main() -> None:
     gated.append(timed("spec", lambda: spec_phase(dev, fits)))
     family = timed("families", lambda: families_phase(dev))
     gated.append(family)
+    recurrent = timed("recurrent", lambda: recurrent_phase(dev))
+    gated.append(recurrent)
     launches = {k: sum(s["launches"] for s in served if s["kernel"] == k)
                 + sum(g.get(k, 0) for g in gated) for k in DECODE_KERNELS}
     launches["row_norm"] = (sum(s["row_norm"] for s in served)
-                            + family["row_norm"])
+                            + family["row_norm"] + recurrent["row_norm"])
     launches.update(timed("encode", encode_phase))
+    launches["int8_matmul"] += recurrent["int8_matmul"]
     launches["flash_attention"] = fa_launches
 
     # row_norm has no TPU kernel: it replaces the reference's plain jnp

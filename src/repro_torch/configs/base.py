@@ -258,7 +258,8 @@ def _load_all():
     # with their blocks (ROADMAP.md, port queue)
     from repro_torch.configs import (  # noqa: F401
         deepseek_coder_33b, ibert_base, internvl2_1b, minitron_8b,
-        musicgen_medium, phi3_medium_14b, smollm_135m,
+        musicgen_medium, phi3_medium_14b, recurrentgemma_2b, smollm_135m,
+        xlstm_1_3b,
     )
 
     _LOADED = True

@@ -29,11 +29,20 @@
 // ragged Sk is masked here (slots past Sk hold no key), so the wrapper
 // pads nothing.
 //
+// Head chunks: a lane holds q and acc of GMAX query heads in registers
+// (8 floats of each per head), so a group wider than kMaxG = 8 heads
+// (recurrentgemma-2b: MQA, G = 10) would spill.  Its heads are cut into
+// ceil(G / 8) chunks of at most 8 (10 -> 5 + 5); each chunk is a cluster
+// of its own and reads the same kv head, so that head's K/V rows are read
+// once per chunk.  hd 256 (recurrentgemma) stages 512-byte rows in one
+// ring stage: 4 warps x 32 slots x 2 x 512 B = 128 KiB, plus 5 x 8 x 258
+// f32 partials, ~169 KiB a block.
+//
 // Known limits: every slot's kpos up to Sk is read, also past qpos and
 // outside the window (the skip trusts no invariant of the caller); the
 // split is 8 whatever the lane's length, so a short lane leaves most of
-// its cluster idle; hd 128 keeps one tile in flight per warp (one ring
-// stage, for three blocks per SM).
+// its cluster idle; hd 128 and 256 keep one tile in flight per warp (one
+// ring stage); a group of more than 8 heads reads its K/V once per chunk.
 #include "decode_split.cuh"
 
 namespace {
@@ -77,59 +86,71 @@ __global__ void __cluster_dims__(kSplit, 1, 1) __launch_bounds__(kThreads, 1)
 flash_decode_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v, const int* __restrict__ kpos,
                     const int* __restrict__ qpos, const unsigned char* __restrict__ active,
-                    __nv_bfloat16* __restrict__ out, int kvh, int g, int sk, int window) {
+                    __nv_bfloat16* __restrict__ out, int kvh, int g, int n_chunks,
+                    int sk, int window) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int item = blockIdx.x / kSplit;  // one cluster per (b, h)
-  const int b = item / kvh;
-  const int h = item % kvh;
-  const size_t head0 = ((size_t)b * kvh + h) * g * HD;  // this group's q/out rows
+  const int item = blockIdx.x / kSplit;  // one cluster per (b, h, head chunk)
+  const int chunk = item % n_chunks;
+  const int b = item / n_chunks / kvh;
+  const int h = item / n_chunks % kvh;
+  const int gc = (g + n_chunks - 1) / n_chunks;  // heads per chunk, <= GMAX
+  const int g0 = chunk * gc;
+  const int gn = min(gc, g - g0);  // this chunk's heads
+  const size_t head0 = (((size_t)b * kvh + h) * g + g0) * HD;  // its q/out rows
   if (!active[b]) {
-    decode_split::write_zeros<HD>(out + head0, g);
+    decode_split::write_zeros<HD>(out + head0, gn);
     return;
   }
   const DenseLoader<HD> ld{k, v, kpos, b * sk, h, kvh, sk};
-  decode_split::decode<HD, GMAX, true>(q + head0, out + head0, g, qpos[b], window, ld, smem);
+  decode_split::decode<HD, GMAX, true>(q + head0, out + head0, gn, qpos[b], window, ld, smem);
 }
 
 template <int HD, int GMAX>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* kpos,
                    const void* qpos, const void* active, void* out, int b, int kvh, int g,
-                   int sk, int window, cudaStream_t stream) {
+                   int n_chunks, int sk, int window, cudaStream_t stream) {
   constexpr size_t smem = decode_split::Smem<HD, GMAX, DenseLoader<HD>>::kBytes;
   auto kernel = flash_decode_kernel<HD, GMAX>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<kSplit * b * kvh, kThreads, smem, stream>>>(
+  kernel<<<kSplit * b * kvh * n_chunks, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(kpos),
       static_cast<const int*>(qpos), static_cast<const unsigned char*>(active),
-      static_cast<__nv_bfloat16*>(out), kvh, g, sk, window);
+      static_cast<__nv_bfloat16*>(out), kvh, g, n_chunks, sk, window);
   return cudaGetLastError();
 }
 
-// G rounds up to a compiled group width: 2, 4 or 8
+// G is cut into chunks of at most kMaxG heads; the chunk width rounds up
+// to a compiled group width: 2, 4 or 8
 template <int HD>
 cudaError_t launch_hd(const void* q, const void* k, const void* v, const void* kpos,
                       const void* qpos, const void* active, void* out, int b, int kvh, int g,
                       int sk, int window, cudaStream_t stream) {
-  if (g <= 2) return launch<HD, 2>(q, k, v, kpos, qpos, active, out, b, kvh, g, sk, window, stream);
-  if (g <= 4) return launch<HD, 4>(q, k, v, kpos, qpos, active, out, b, kvh, g, sk, window, stream);
-  return launch<HD, 8>(q, k, v, kpos, qpos, active, out, b, kvh, g, sk, window, stream);
+  const int n = (g + kMaxG - 1) / kMaxG;
+  const int gc = (g + n - 1) / n;
+  if (gc <= 2)
+    return launch<HD, 2>(q, k, v, kpos, qpos, active, out, b, kvh, g, n, sk, window, stream);
+  if (gc <= 4)
+    return launch<HD, 4>(q, k, v, kpos, qpos, active, out, b, kvh, g, n, sk, window, stream);
+  return launch<HD, 8>(q, k, v, kpos, qpos, active, out, b, kvh, g, n, sk, window, stream);
 }
 
 }  // namespace
 
 // C interface, loaded with ctypes.  q: (B, KVH*G, hd) bf16, pre-scaled;
 // k/v: (B, Sk, KVH, hd) bf16; kpos: (B, Sk) int32; qpos: (B,) int32;
-// active: (B,) bool (one byte each); out: like q; window: 0 = none.  All
-// contiguous, 16-byte aligned.  Launches on `stream`, does not synchronise,
-// and returns cudaGetLastError() (0 on success).
+// active: (B,) bool (one byte each); out: like q; window: 0 = none; G of
+// any width (chunks of at most 8 heads).  All contiguous, 16-byte
+// aligned.  Launches on `stream`, does not synchronise, and returns
+// cudaGetLastError() (0 on success).
 extern "C" int flash_decode_bf16(const void* q, const void* k, const void* v, const void* kpos,
                                  const void* qpos, const void* active, void* out, int b,
                                  int kvh, int g, int hd, int sk, int window, void* stream) {
-  if (b < 1 || kvh < 1 || g < 1 || g > kMaxG || sk < 1 || window < 0 ||
-      (long long)b * sk >= (1LL << 31) || (long long)b * kvh * kSplit >= (1LL << 31))
+  const long long chunks = (g + kMaxG - 1) / kMaxG;
+  if (b < 1 || kvh < 1 || g < 1 || sk < 1 || window < 0 || (long long)b * sk >= (1LL << 31) ||
+      (long long)b * kvh * chunks * kSplit >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
@@ -139,6 +160,8 @@ extern "C" int flash_decode_bf16(const void* q, const void* k, const void* v, co
       return (int)launch_hd<64>(q, k, v, kpos, qpos, active, out, b, kvh, g, sk, window, st);
     case 128:
       return (int)launch_hd<128>(q, k, v, kpos, qpos, active, out, b, kvh, g, sk, window, st);
+    case 256:
+      return (int)launch_hd<256>(q, k, v, kpos, qpos, active, out, b, kvh, g, sk, window, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -24,8 +24,12 @@ launches = {"paged_flash_decode": 0, "paged_flash_decode_q": 0,
             "flash_decode": 0, "flash_attention": 0, "int8_matmul": 0,
             "i_softmax": 0, "i_layernorm": 0, "i_gelu": 0, "row_norm": 0}
 
-HEAD_DIMS = (16, 64, 128)  # the decode kernels' compiled head_dim instances
-MAX_GROUP = 8  # query heads per kv head the decode kernels take
+HEAD_DIMS = (16, 64, 128)  # the paged decode kernels' head_dim instances
+MAX_GROUP = 8  # query heads per kv head the paged decode kernels take
+# flash_decode (dense slot rows) also has hd 256 (recurrentgemma-2b), and
+# takes any group: its heads are cut into chunks of at most MAX_GROUP,
+# one cluster each (`decode_group_chunks`)
+FLASH_DECODE_HEAD_DIMS = (16, 64, 128, 256)
 # the decode kernels' schedule (the bf16 ones and the int8 one share it),
 # as csrc/decode_split.cuh's kTile, kSplit and kWarps (a CPU test holds
 # them equal): a lane's key slots are walked in tiles of DECODE_TILE
@@ -139,12 +143,23 @@ def _decode_shapes(kernel: str, q: torch.Tensor, k: torch.Tensor,
     return b, kvh, active
 
 
+def decode_group_chunks(g: int) -> list:
+    """flash_decode's cut of a group of g query heads into chunks of at
+    most MAX_GROUP, as even as the count allows (10 -> [5, 5], 9 -> [5,
+    4]): one cluster of the kernel per chunk, as csrc/flash_decode.cu
+    cuts it."""
+    n = -(-g // MAX_GROUP)
+    gc = -(-g // n)
+    return [min(gc, g - i * gc) for i in range(n)]
+
+
 def _check_decode_cuda(kernel: str, kv_dtype: torch.dtype,
+                       head_dims=HEAD_DIMS, max_group=MAX_GROUP,
                        **tensors) -> None:
     """The decode kernels' contract on the card: bf16 q, k/v in kv_dtype,
     f32 scales, int32 positions and tables, a bool lane gate, all
-    contiguous on one device; hd in HEAD_DIMS, at most MAX_GROUP query
-    heads per kv head, q/k/v 16-byte aligned."""
+    contiguous on one device; hd in `head_dims`, at most `max_group`
+    query heads per kv head (None: any), q/k/v 16-byte aligned."""
     dtypes = dict(q=torch.bfloat16, k=kv_dtype, v=kv_dtype,
                   k_scale=torch.float32, v_scale=torch.float32,
                   kpos=torch.int32, page_table=torch.int32,
@@ -152,9 +167,9 @@ def _check_decode_cuda(kernel: str, kv_dtype: torch.dtype,
     _check_cuda(kernel, dtypes, **tensors)
     q, k = tensors["q"], tensors["k"]
     hd, kvh = q.shape[2], k.shape[2]
-    _check(hd in HEAD_DIMS, f"head_dim {hd} not in {HEAD_DIMS}", kernel)
-    _check(q.shape[1] // kvh <= MAX_GROUP,
-           f"group {q.shape[1] // kvh} > {MAX_GROUP}", kernel)
+    _check(hd in head_dims, f"head_dim {hd} not in {head_dims}", kernel)
+    _check(max_group is None or q.shape[1] // kvh <= max_group,
+           f"group {q.shape[1] // kvh} > {max_group}", kernel)
     for name in ("q", "k", "v"):
         _check(tensors[name].data_ptr() % 16 == 0,
                f"{name} is not 16-byte aligned", kernel)
@@ -254,7 +269,9 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns (B, H, hd) in q.dtype; an inactive lane is exact zeros.
 
     On the card: bf16 q/k/v, int32 kpos/qpos, contiguous, hd in
-    HEAD_DIMS, any Sk >= 1 (the kernel masks the ragged last tile).
+    FLASH_DECODE_HEAD_DIMS, any Sk >= 1 (the kernel masks the ragged last
+    tile) and any group width (chunks of at most MAX_GROUP heads, each
+    reading the kv head's rows).
     """
     name = "flash_decode"
     b, kvh, active = _decode_shapes(name, q, k, v, qpos, active)
@@ -266,8 +283,8 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return _ref.flash_decode(q, k, v, kpos, qpos, active=active,
                                  window=int(window))
-    _check_decode_cuda(name, torch.bfloat16, q=q, k=k, v=v, kpos=kpos,
-                       qpos=qpos, active=active)
+    _check_decode_cuda(name, torch.bfloat16, FLASH_DECODE_HEAD_DIMS, None,
+                       q=q, k=k, v=v, kpos=kpos, qpos=qpos, active=active)
     out = torch.empty_like(q)
     _launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             kpos.data_ptr(), qpos.data_ptr(), active.data_ptr(),

@@ -4,8 +4,10 @@ the default) serves from a paged KV arena, bf16 or `--kv-dtype int8` (or,
 through `serve(args, paged=False)`, from dense slot rows), and with
 `--draft-config` speculates greedily (a draft proposes, the target
 verifies); `--engine wave` is the batch-synchronous baseline on dense
-slot rows.  The summary line ends with the engine's stats (`spec_*` under
-speculation).
+slot rows.  Models with recurrent blocks or sliding windows
+(recurrentgemma-2b, xlstm-1.3b) serve from dense slot rows.
+`--quant-weights` serves W8A8 weights.  The summary line ends with the
+engine's stats (`spec_*` under speculation).
 
 Runs on the CUDA device unless ``--device cpu`` is given; without a card
 it stops with an error instead of falling back to the CPU.
@@ -16,6 +18,8 @@ it stops with an error instead of falling back to the CPU.
   PYTHONPATH=src python -m repro_torch.launch.serve --engine wave
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-medium
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
+      --arch recurrentgemma-2b --quant-weights
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
       --draft-config smollm-135m --spec-k 4
 """
@@ -44,7 +48,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--arch", default="smollm-135m",
                     help="a decoder of the registry: smollm-135m, "
                          "phi3-medium-14b, minitron-8b, musicgen-medium, "
-                         "internvl2-1b, deepseek-coder-33b")
+                         "internvl2-1b, deepseek-coder-33b, "
+                         "recurrentgemma-2b, xlstm-1.3b (the last two on "
+                         "dense slot rows)")
     ap.add_argument("--engine", choices=["cb", "wave"], default="cb",
                     help="cb: continuous batching; wave: the batch-"
                          "synchronous baseline (dense slot rows)")
@@ -78,6 +84,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="most drafted tokens per speculative dispatch; "
                          "each lane walks a depth ladder below it on low "
                          "acceptance")
+    ap.add_argument("--quant-weights", action="store_true",
+                    help="serve W8A8: the 2-d projections (a model's tail "
+                         "layers) run int8 x int8 -> int32 through "
+                         "int8_matmul (models/quantized.py)")
     ap.add_argument("--warmup", action="store_true",
                     help="first serve, unmeasured, a stream drawn from "
                          "seed + 1")
@@ -122,7 +132,8 @@ def serve(args: argparse.Namespace, paged="auto"):
     cls = ContinuousBatchingEngine if args.engine == "cb" else WaveEngine
     engine = cls(model, params, max_batch=args.max_batch, buckets=BUCKETS,
                  monitor=StragglerMonitor(),
-                 decode_horizon=args.decode_horizon, **kw)
+                 decode_horizon=args.decode_horizon,
+                 quant_weights=args.quant_weights, **kw)
     if args.warmup:  # another seed: the measured prompts stay uncached
         for r in make_stream(args, cfg.vocab_size, args.seed + 1):
             engine.submit(r)
@@ -173,6 +184,7 @@ def main(argv=None):
     ttft = sorted((r.t_first_token - r.t_enqueue) * 1e3 for r in done)
     print(f"serve[{args.engine}]: arch={engine.model.cfg.name} "
           f"device={args.device} kv_dtype={args.kv_dtype} "
+          f"quant_weights={args.quant_weights} "
           f"requests={len(done)} tokens={toks} wall={wall*1e3:.0f}ms "
           f"throughput={toks/wall:.1f}tok/s "
           f"ttft_p50={ttft[len(ttft)//2]:.0f}ms "

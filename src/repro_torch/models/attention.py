@@ -18,8 +18,21 @@ buffer donation; this port updates the cache tensors in place
 
 A paged cache with T > 1 queries per lane is speculative decoding's
 verify pass: the T queries fold into B*T lanes of one paged decode
-launch.  Not ported yet: sliding windows (the other families), which
-raise NotImplementedError.
+launch, and every projection runs one query column at a time
+(`layers.dense`'s ``columns``), at the decode step's M = B.
+
+Sliding windows (`cfg.local_window`, recurrentgemma-2b) keep a ring
+buffer of ``min(seq_len, window)`` slots per lane: a prefill writes its
+last ``take`` rows at ``arange(s - take, s) % slots``, a decode step at
+``qpos % slots``, and flash_decode masks ``qpos - kpos < window``.  A
+windowed prompt attends densely up to `DENSE_ATTN_MAX_KV` tokens, then
+through `_windowed_attention` when S > 2 * window, else the chunked
+route; it never reaches flash_attention.  Paged caches have no windows.
+
+A prefill bucket wider than the window writes only the bucket's last
+`window` rows: for a short prompt with trailing pads, real rows still
+inside the window are dropped.  That is the reference's rule, and the
+port keeps it.
 """
 from __future__ import annotations
 
@@ -27,6 +40,7 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.quant import kv_quantize
 from repro_torch.models.layers import COMPUTE_DTYPE, apply_rope, dense
@@ -117,6 +131,45 @@ def _chunked_attention(q, k, v, q_pos, k_pos, causal, window,
     return out.transpose(1, 2).to(q.dtype)  # (B,Sq,H,hd)
 
 
+def _windowed_attention(q, k, v, q_pos, k_pos, window,
+                        q_seg=None, k_seg=None) -> torch.Tensor:
+    """Causal sliding-window attention in O(S * 2W): query blocks of W
+    rows attend to their own KV block and the one before (block -1 is
+    zeros at the never-written position).  q (B,S,H,hd), k/v
+    (B,S,KVH,hd); q_pos/k_pos (B,S)."""
+    b, s, h, hd = q.shape
+    blk = window
+    pad = (-s) % blk
+    if pad:
+        q, k, v = (F.pad(a, (0, 0, 0, 0, 0, pad)) for a in (q, k, v))
+        q_pos = F.pad(q_pos, (0, pad), value=KPOS_SENTINEL)
+        k_pos = F.pad(k_pos, (0, pad), value=KPOS_SENTINEL)
+        if q_seg is not None:
+            q_seg = F.pad(q_seg, (0, pad), value=-2)
+            k_seg = F.pad(k_seg, (0, pad), value=-3)
+    nb = q.shape[1] // blk
+
+    def blocks(a):  # (B, nb, blk, ...)
+        return a.reshape(b, nb, blk, *a.shape[2:])
+
+    def with_prev(a, fill):  # (B, nb, 2*blk, ...): block i-1, then i
+        prev = torch.cat([torch.full_like(a[:, :1], fill), a[:, :-1]], 1)
+        return torch.cat([prev, a], 2)
+
+    def fold(a):  # (B, nb, ...) -> (B*nb, ...)
+        return a.reshape(b * nb, *a.shape[2:])
+
+    qb, qpb = blocks(q), blocks(q_pos)
+    k2, v2 = with_prev(blocks(k), 0), with_prev(blocks(v), 0)
+    kp2 = with_prev(blocks(k_pos), KPOS_SENTINEL)
+    qs2 = ks2 = None
+    if q_seg is not None:
+        qs2, ks2 = fold(blocks(q_seg)), fold(with_prev(blocks(k_seg), -3))
+    msk = _mask(blk, 2 * blk, fold(qpb), fold(kp2), True, window, qs2, ks2)
+    out = _dense_attention(fold(qb), fold(k2), fold(v2), msk)
+    return out.reshape(b, nb * blk, h, hd)[:, :s]
+
+
 def attention(x: torch.Tensor, p: Params, cfg, positions: torch.Tensor,
               segment_ids: Optional[torch.Tensor] = None,
               cache: Optional[Dict[str, torch.Tensor]] = None,
@@ -135,19 +188,20 @@ def attention(x: torch.Tensor, p: Params, cfg, positions: torch.Tensor,
     arena holds `k_scale`/`v_scale`); inactive lanes write to the trash
     page 0 with sentinel kpos, so a parked lane never touches a live page.
     Dense slot decode: cache={'k','v','kpos'} with rows (B, slots, ...)
-    and no page table; the new row goes to slot min(q, slots - 1) of each
-    active lane.  Returns (output (B, S, d_model), the same cache dict).
+    and no page table; the new row goes to slot q % slots of each active
+    lane when windowed (a ring buffer), else min(q, slots - 1).  Returns
+    (output (B, S, d_model), the same cache dict).
     """
     from repro_torch.kernels import ops as kops
 
-    if cfg.local_window:
-        raise NotImplementedError(
-            "sliding-window attention arrives with the other-families "
-            "slice")
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = _split_heads(dense(x, p["wq"]), nh)
-    k = _split_heads(dense(x, p["wk"]), nkv)
-    v = _split_heads(dense(x, p["wv"]), nkv)
+    window = cfg.local_window
+    # a paged pass (a decode step, or the verify pass's T columns) runs
+    # its products at M = B, one query column at a time
+    cols = page_table is not None
+    q = _split_heads(dense(x, p["wq"], cols), nh)
+    k = _split_heads(dense(x, p["wk"], cols), nkv)
+    v = _split_heads(dense(x, p["wv"], cols), nkv)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     # bf16, as the reference scales it (the flash_attention route alone
@@ -155,36 +209,46 @@ def attention(x: torch.Tensor, p: Params, cfg, positions: torch.Tensor,
     qs = q * (1.0 / math.sqrt(hd))
 
     if cache is not None and page_table is not None:
+        if window:
+            raise ValueError("paged KV does not support sliding windows")
         out = _paged_decode(qs, k, v, cache, page_table, positions, active)
     elif cache is None or x.shape[1] > 1:
         s = x.shape[1]
         if s <= DENSE_ATTN_MAX_KV:
-            msk = _mask(s, s, positions, positions, cfg.causal, 0,
+            msk = _mask(s, s, positions, positions, cfg.causal, window,
                         segment_ids, segment_ids)
             out = _dense_attention(qs, k, v, msk)
-        elif pos_contiguous and segment_ids is None:
+        elif pos_contiguous and segment_ids is None and not window:
             out = kops.flash_attention(q, k, v, causal=cfg.causal)
+        elif window and cfg.causal and s > 2 * window:
+            out = _windowed_attention(qs, k, v, positions, positions,
+                                      window, segment_ids, segment_ids)
         else:
             out = _chunked_attention(qs, k, v, positions, positions,
-                                     cfg.causal, 0, segment_ids, segment_ids)
+                                     cfg.causal, window, segment_ids,
+                                     segment_ids)
         if cache is not None:
-            # prefill: write the (first `slots`) KV + absolute positions
-            take = min(s, cache["k"].shape[1])
-            cache["k"][:, :take] = k[:, -take:].to(cache["k"].dtype)
-            cache["v"][:, :take] = v[:, -take:].to(cache["v"].dtype)
-            cache["kpos"][:, :take] = positions[:, -take:].to(torch.int32)
+            # prefill: write the last `slots` rows + absolute positions,
+            # at their ring slots when windowed
+            slots = cache["k"].shape[1]
+            take = min(s, slots)
+            idx = (torch.arange(s - take, s, device=x.device) % slots
+                   if window else slice(0, take))
+            cache["k"][:, idx] = k[:, -take:].to(cache["k"].dtype)
+            cache["v"][:, idx] = v[:, -take:].to(cache["v"].dtype)
+            cache["kpos"][:, idx] = positions[:, -take:].to(torch.int32)
     else:
-        # dense slot decode: lane b's row for position q is slot
-        # min(q, slots - 1) (ring buffers, q % slots, arrive with the
-        # windowed families).  The reference writes every lane and
-        # where-masks the cache tree afterwards; here an inactive lane
-        # writes its slot's old contents back, so its rows and kpos are
-        # untouched in place.
+        # dense slot decode: lane b's row for position q is slot q % slots
+        # of a ring buffer (windowed), else min(q, slots - 1).  The
+        # reference writes every lane and where-masks the cache tree
+        # afterwards; here an inactive lane writes its slot's old
+        # contents back, so its rows and kpos are untouched in place.
         b = x.shape[0]
         ck, cv, ckpos = cache["k"], cache["v"], cache["kpos"]
         slots = ck.shape[1]
         cpos = positions[:, 0].to(torch.int32)
-        slot = torch.clamp(cpos, max=slots - 1).long()
+        slot = (cpos % slots if window
+                else torch.clamp(cpos, max=slots - 1)).long()
         lane = torch.arange(b, device=x.device)
         act = (torch.ones((b,), dtype=torch.bool, device=x.device)
                if active is None else active.bool())
@@ -195,10 +259,10 @@ def attention(x: torch.Tensor, p: Params, cfg, positions: torch.Tensor,
                                      cv[lane, slot])
         ckpos[lane, slot] = torch.where(act, cpos, ckpos[lane, slot])
         out = kops.flash_decode(qs[:, 0].contiguous(), ck, cv, ckpos, cpos,
-                                active=act)[:, None]
+                                active=act, window=window)[:, None]
 
     out = out.reshape(x.shape[0], x.shape[1], nh * hd)
-    return dense(out, p["wo"]), cache
+    return dense(out, p["wo"], cols), cache
 
 
 def _paged_decode(qs, k, v, cache, page_table, positions, active):
@@ -287,12 +351,14 @@ def init_paged_attn_cache(cfg, num_pages: int, page_size: int,
 
 def init_attn_cache(cfg, batch: int, seq_len: int, dtype=COMPUTE_DTYPE,
                     device=None):
-    """Dense per-lane KV cache (the prefill bucket cache)."""
-    shape = (batch, seq_len, cfg.n_kv_heads, cfg.head_dim)
+    """Dense per-lane KV cache (the prefill bucket cache); a ring buffer
+    of min(seq_len, window) slots when windowed."""
+    slots = min(seq_len, cfg.local_window) if cfg.local_window else seq_len
+    shape = (batch, slots, cfg.n_kv_heads, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
         # 2^30 marks never-written slots so the causal mask excludes them
-        "kpos": torch.full((batch, seq_len), KPOS_SENTINEL,
+        "kpos": torch.full((batch, slots), KPOS_SENTINEL,
                            dtype=torch.int32, device=device),
     }

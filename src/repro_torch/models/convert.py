@@ -9,13 +9,17 @@ kinds are carried:
 * I-BERT's float tree (`init_ibert_params`) and its quantized tree
   (`quantize_ibert`): int8 weights, int32 biases, `LNParams` named tuples
   (which become the port's `LNParams`), 0-d float32 scales and the
-  calibrated `act` dict.
+  calibrated `act` dict;
+* a decoder tree quantized for W8A8 serving
+  (`quantize_params_for_serving`), whose {"q", "s"} leaves keep their
+  values.
 
 The layout is kept as it is; only the leaves become tensors of the same
-dtype.  A 0-d leaf (a scale) stays on the CPU, where the port keeps scale
-arithmetic.  numpy's bfloat16 (ml_dtypes) does not go through
-``torch.from_numpy``, so bf16 leaves travel as their raw 16-bit patterns
-and are reinterpreted, bit for bit.
+dtype.  A W8A8 weight's 2-d `q` becomes column-major, as the port's own
+`models/quantized.quantize_leaf` stores it.  A 0-d leaf (a scale) stays
+on the CPU, where the port keeps scale arithmetic.  numpy's bfloat16
+(ml_dtypes) does not go through ``torch.from_numpy``, so bf16 leaves
+travel as their raw 16-bit patterns and are reinterpreted, bit for bit.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.ibert_ops import LNParams
+from repro_torch.models.quantized import column_major
 
 
 def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
@@ -42,7 +47,10 @@ def params_from_jax(tree: Any, device="cuda") -> Any:
     CPU), the layout `repro_torch.models.transformer` and
     `repro_torch.models.ibert` read."""
     if isinstance(tree, dict):
-        return {k: params_from_jax(v, device) for k, v in tree.items()}
+        out = {k: params_from_jax(v, device) for k, v in tree.items()}
+        if set(out) == {"q", "s"} and out["q"].dim() == 2:
+            out["q"] = column_major(out["q"])
+        return out
     if isinstance(tree, tuple):
         if type(tree).__name__ != "LNParams":
             raise TypeError(f"no port type for {type(tree).__name__}")

@@ -6,8 +6,17 @@ Parameters are plain nested dicts of tensors in the JAX package's layout
 RoPE compute in f32 and cast back, matmuls round their result to bf16.
 The norms go through the `row_norm` kernel wrapper (`kernels/ops.py`):
 the kernel on the card, its plain version (`kernels/ref.py`) on the CPU.
-`cross_entropy_chunked` is the evaluation loss (f32 logsumexp over
-sequence chunks).
+A `dense` weight that is a {"q", "s"} leaf (`models/quantized.py`) runs
+W8A8 through the `int8_matmul` wrapper.  `cross_entropy_chunked` is the
+evaluation loss (f32 logsumexp over sequence chunks).
+
+Query columns: a speculative verify pass computes T query columns per
+lane in one backbone call, where a decode step computes one.  cuBLAS
+picks its GEMM kernel (and its split of K) by shape, so a row of a
+(B*T, D) product can come out in other bits than the same row of a
+(B, D) one.  `dense` and `lm_head` with ``columns=True`` therefore run a
+(B, T, D) input as T products of a contiguous (B, 1, D) column each: the
+decode step's own product, at M = B.
 """
 from __future__ import annotations
 
@@ -23,8 +32,23 @@ Params = Dict[str, Any]
 COMPUTE_DTYPE = torch.bfloat16
 
 
-def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (..., d) @ w (d, f) in the working dtype."""
+def by_column(fn, x: torch.Tensor, *args) -> torch.Tensor:
+    """fn over a (B, T, ...) x one query column at a time, each column a
+    contiguous (B, 1, ...) tensor as a decode step holds it; the results
+    joined on axis 1."""
+    return torch.cat([fn(x[:, j:j + 1].contiguous(), *args)
+                      for j in range(x.shape[1])], 1)
+
+
+def dense(x: torch.Tensor, w, columns: bool = False) -> torch.Tensor:
+    """x (..., d) @ w (d, f) in the working dtype; W8A8 (`quantized.qdense`)
+    when w is a {"q", "s"} leaf.  columns: x is (B, T, d) and runs as T
+    products at M = B (see the module docstring)."""
+    if columns and x.dim() == 3 and x.shape[1] > 1:
+        return by_column(dense, x, w)
+    if isinstance(w, dict):
+        from repro_torch.models.quantized import qdense
+        return qdense(x, w)
     return torch.matmul(x, w)
 
 
@@ -74,14 +98,15 @@ def act_fn(name: str):
     }[name]
 
 
-def mlp(x: torch.Tensor, p: Params, cfg) -> torch.Tensor:
+def mlp(x: torch.Tensor, p: Params, cfg, columns: bool = False
+        ) -> torch.Tensor:
     a = act_fn(cfg.act)
-    h = dense(x, p["wi"])
+    h = dense(x, p["wi"], columns)
     if cfg.mlp_style == "swiglu":
-        h = a(dense(x, p["wg"])) * h
+        h = a(dense(x, p["wg"], columns)) * h
     else:
         h = a(h)
-    return dense(h, p["wo"])
+    return dense(h, p["wo"], columns)
 
 
 # -- embedding / head -------------------------------------------------------
@@ -91,8 +116,12 @@ def embed(tokens: torch.Tensor, p: Params) -> torch.Tensor:
     return p["tok"][tokens.long()]
 
 
-def lm_head(h: torch.Tensor, p: Params) -> torch.Tensor:
-    """f32 logits of a bf16 product: rounded to bf16 first, then cast."""
+def lm_head(h: torch.Tensor, p: Params, columns: bool = False
+            ) -> torch.Tensor:
+    """f32 logits of a bf16 product: rounded to bf16 first, then cast.
+    columns: as `dense`'s."""
+    if columns and h.dim() == 3 and h.shape[1] > 1:
+        return by_column(lm_head, h, p)
     w = p.get("head")
     if w is None:
         w = p["tok"].t()

@@ -16,7 +16,9 @@ The numpy draws are the reference's, call for call, so the same seed gives
 the same corpus and prompts.  The update is the reference's plain Adam
 (f32 moments, betas 0.9 / 0.99, bias correction, eps 1e-8 after the
 sqrt), with gradients from torch.autograd through `Model.loss` at S = 32,
-the dense attention route (no kernel).
+the dense attention route (no kernel).  Every family of the port fits
+this way: recurrent blocks (RG-LRU, mLSTM, sLSTM) differentiate through
+their plain torch forms, as the reference's through its jnp ones.
 """
 from __future__ import annotations
 

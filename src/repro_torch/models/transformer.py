@@ -1,15 +1,20 @@
 """Decoder backbone, prefill, the fused greedy decode loop and greedy
-speculative decoding (port of `repro/models/transformer.py`,
-attention-only families).
+speculative decoding (port of `repro/models/transformer.py`; every family
+but MoE).
 
 Parameters keep the JAX package's layout: {"embed", "scan", "tail",
 "final_norm"}, with every "scan" leaf stacked on a leading layer-period
-axis.  The backbone is a Python loop over the periods, indexing one
-period's parameter and cache views at a time.  Caches follow the same
-layout; the serving path updates them in place (models/attention.py).
+axis (1 for the attention-only families, 3 for recurrentgemma's rglru,
+rglru, attn, 8 for xLSTM's 7 mLSTM : 1 sLSTM); the remainder layers
+(recurrentgemma's 26 = 8 x 3 + 2) sit unstacked under "tail".  The
+backbone is a Python loop over the periods, indexing one period's
+parameter and cache views at a time.  Caches follow the same layout: an
+attention block holds KV rows (models/attention.py), a recurrent one its
+state (models/recurrent.py), and the serving path updates both in place.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -17,6 +22,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.quant import kv_quantize
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import recurrent as rec_mod
 from repro_torch.models.layers import (
     COMPUTE_DTYPE, cross_entropy_chunked, embed, lm_head, mlp, norm,
 )
@@ -49,11 +55,11 @@ def layer_plan(cfg: ModelConfig) -> Tuple[int, int, List[str]]:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    _, _, kinds = layer_plan(cfg)
-    if any(k != "attn" for k in kinds) or cfg.n_experts:
+    if cfg.n_experts:
         raise NotImplementedError(
-            f"{cfg.name}: recurrent and MoE blocks arrive with the "
-            "other-families slice; the port runs attention-only models")
+            f"{cfg.name}: MoE blocks are not ported yet (ROADMAP.md, port "
+            "queue); the port runs attention, RG-LRU, mLSTM and sLSTM "
+            "blocks")
 
 
 # ---------------------------------------------------------------------------
@@ -61,18 +67,46 @@ def _check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def block_apply(cfg: ModelConfig, p: Params, h: torch.Tensor,
+_RECURRENT = {"rglru": rec_mod.rglru_block, "mlstm": rec_mod.mlstm_block,
+              "slstm": rec_mod.slstm_block}
+
+
+def _write_state(state, new, active) -> None:
+    """A recurrent block's new state into its cache leaves, in place; an
+    inactive lane keeps its old state."""
+    for name, leaf in state.items():
+        val = new[name].to(leaf.dtype)
+        if active is not None:
+            gate = active.reshape((-1,) + (1,) * (leaf.dim() - 1))
+            val = torch.where(gate, val, leaf)
+        leaf.copy_(val)
+
+
+def block_apply(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
                 positions: torch.Tensor, segment_ids, state,
                 pos_contiguous: bool = False, page_table=None, active=None):
-    """One attention block: pre-norm attention + pre-norm MLP, residual.
-    `state` (a cache) is updated in place."""
+    """One block of `kind` ("attn", "rglru", "mlstm", "slstm"): the
+    pre-norm mixer, then (all but the xLSTM family's blocks) a pre-norm
+    MLP, each added to the residual.  `state` (a KV cache or a recurrent
+    state) is updated in place; a recurrent state keeps an inactive lane's
+    values, and pad steps (positions at 2^30, or segment -1) leave it
+    alone."""
     z = norm(h, p["norm1"], cfg)
-    y, _ = attn_mod.attention(z, p["mix"], cfg, positions, segment_ids,
-                              cache=state, pos_contiguous=pos_contiguous,
-                              page_table=page_table, active=active)
+    if kind == "attn":
+        y, _ = attn_mod.attention(z, p["mix"], cfg, positions, segment_ids,
+                                  cache=state, pos_contiguous=pos_contiguous,
+                                  page_table=page_table, active=active)
+    else:
+        valid = positions < 2 ** 29
+        if segment_ids is not None:
+            valid = valid & (segment_ids >= 0)
+        y, new = _RECURRENT[kind](z, p["mix"], cfg, state, valid)
+        if state is not None:
+            _write_state(state, new, active)
     h = h + y
     if "ffn" in p:
-        h = h + mlp(norm(h, p["norm2"], cfg), p["ffn"], cfg)
+        h = h + mlp(norm(h, p["norm2"], cfg), p["ffn"], cfg,
+                    columns=page_table is not None)
     return h
 
 
@@ -181,14 +215,52 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
             p["b"] = torch.zeros_like(p["g"])
         return p
 
-    def block(lead):
+    def f32(shape):
+        return torch.randn(shape, generator=gen, device=device,
+                           dtype=torch.float32)
+
+    def mixer(kind, lead):
         d, hd = cfg.d_model, cfg.head_dim
-        p = {"norm1": norm_p(lead, d),
-             "mix": {"wq": dense_w(lead, d, cfg.n_heads * hd),
-                     "wk": dense_w(lead, d, cfg.n_kv_heads * hd),
-                     "wv": dense_w(lead, d, cfg.n_kv_heads * hd),
-                     "wo": dense_w(lead, cfg.n_heads * hd, d)},
-             "norm2": norm_p(lead, d)}
+        if kind == "attn":
+            return {"wq": dense_w(lead, d, cfg.n_heads * hd),
+                    "wk": dense_w(lead, d, cfg.n_kv_heads * hd),
+                    "wv": dense_w(lead, d, cfg.n_kv_heads * hd),
+                    "wo": dense_w(lead, cfg.n_heads * hd, d)}
+        if kind == "rglru":
+            w = cfg.rnn_width or d
+            # lam such that a = sigmoid(lam)^c lies in [0.9, 0.999]
+            u = 0.9 + 0.099 * torch.rand(lead + (w,), generator=gen,
+                                         device=device)
+            uc = u ** (1 / rec_mod._RGLRU_C)
+            return {"w_gate_in": dense_w(lead, d, w),
+                    "w_x_in": dense_w(lead, d, w),
+                    "conv": f32(lead + (cfg.conv_width, w)) * 0.02,
+                    "w_rgate": dense_w(lead, w, w),
+                    "w_igate": dense_w(lead, w, w),
+                    "w_out": dense_w(lead, w, d),
+                    "lam": torch.log(uc / (1 - uc))}
+        nh = cfg.n_heads
+        if kind == "mlstm":
+            inner, _, ih, dk = rec_mod._mlstm_dims(cfg, d)
+            return {"up_z": dense_w(lead, d, inner),
+                    "up_g": dense_w(lead, d, inner),
+                    "wq": normal(lead + (nh, ih, dk), ih ** -0.5),
+                    "wk": normal(lead + (nh, ih, dk), ih ** -0.5),
+                    "wv": normal(lead + (nh, ih, ih), ih ** -0.5),
+                    "w_if": dense_w(lead, d, 2 * nh),
+                    "down": dense_w(lead, inner, d)}
+        dh, glu_d = d // nh, int(4 * d / 3)  # slstm
+        return {"w_in": dense_w(lead, d, 4 * d),
+                "r": f32(lead + (4, nh, dh, dh)) / math.sqrt(dh),
+                "glu_wi": dense_w(lead, d, 2 * glu_d),
+                "glu_wo": dense_w(lead, glu_d, d)}
+
+    def block(kind, lead):
+        d = cfg.d_model
+        p = {"norm1": norm_p(lead, d), "mix": mixer(kind, lead)}
+        if cfg.family == "ssm":  # xLSTM blocks carry no MLP
+            return p
+        p["norm2"] = norm_p(lead, d)
         if cfg.mlp_style != "none" and cfg.d_ff:
             p["ffn"] = {"wi": dense_w(lead, d, cfg.d_ff),
                         "wo": dense_w(lead, cfg.d_ff, d)}
@@ -201,9 +273,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
         emb["head"] = normal((cfg.d_model, cfg.vocab_size), 0.02)
     return {
         "embed": emb,
-        "scan": ({f"b{i}": block((n_rep,)) for i in range(len(kinds))}
-                 if n_rep else {}),
-        "tail": {str(t): block(()) for t in range(tail)},
+        "scan": ({f"b{i}": block(kinds[i], (n_rep,))
+                  for i in range(len(kinds))} if n_rep else {}),
+        "tail": {str(t): block(kinds[t], ()) for t in range(tail)},
         "final_norm": norm_p((), cfg.d_model),
     }
 
@@ -287,32 +359,42 @@ class Model:
             pp = _index(params["scan"], i)
             pc = None if caches is None else _index(caches["scan"], i)
             for j in range(len(kinds)):
-                h = block_apply(cfg, pp[f"b{j}"], h, positions, segment_ids,
+                h = block_apply(cfg, kinds[j], pp[f"b{j}"], h, positions,
+                                segment_ids,
                                 None if pc is None else pc[f"b{j}"], **kw)
         for t in range(tail):
             st = None if caches is None else caches["tail"][str(t)]
-            h = block_apply(cfg, params["tail"][str(t)], h, positions,
-                            segment_ids, st, **kw)
+            h = block_apply(cfg, kinds[t], params["tail"][str(t)], h,
+                            positions, segment_ids, st, **kw)
         return norm(h, params["final_norm"], cfg)
 
     # -- caches ------------------------------------------------------------
 
     def init_cache(self, batch: int, seq_len: int):
         """Dense per-lane cache (the prefill bucket cache), JAX layout:
-        {"scan": {"b0": {"k","v": (n_rep, B, S, KVH, hd), "kpos":
-        (n_rep, B, S)}}, "tail": {...}, "pos": (B,)}."""
+        {"scan": {"b<i>": leaves stacked on the period axis}, "tail":
+        {...}, "pos": (B,)}; an attention block's leaves are {"k", "v":
+        (B, slots, KVH, hd), "kpos": (B, slots)} (a ring buffer of
+        min(seq_len, window) slots when windowed), a recurrent block's its
+        state ({"h", "conv"}, {"C", "n", "m"} or {"h", "c", "n", "m"}),
+        batch first."""
         cfg, dev = self.cfg, self.device
         n_rep, tail, kinds = layer_plan(cfg)
 
-        def stacked():
-            one = attn_mod.init_attn_cache(cfg, batch, seq_len, device=dev)
-            return {k: v[None].repeat((n_rep,) + (1,) * v.dim())
-                    for k, v in one.items()}
+        def one(kind):
+            if kind == "attn":
+                return attn_mod.init_attn_cache(cfg, batch, seq_len,
+                                                device=dev)
+            return getattr(rec_mod, f"init_{kind}_state")(cfg, batch,
+                                                          device=dev)
 
-        return {"scan": ({f"b{i}": stacked() for i in range(len(kinds))}
-                         if n_rep else {}),
-                "tail": {str(t): attn_mod.init_attn_cache(
-                    cfg, batch, seq_len, device=dev) for t in range(tail)},
+        def stacked(kind):
+            return {k: v[None].repeat((n_rep,) + (1,) * v.dim())
+                    for k, v in one(kind).items()}
+
+        return {"scan": ({f"b{i}": stacked(kinds[i])
+                          for i in range(len(kinds))} if n_rep else {}),
+                "tail": {str(t): one(kinds[t]) for t in range(tail)},
                 "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
 
     def init_paged_cache(self, batch: int, num_pages: int, page_size: int,
@@ -321,11 +403,15 @@ class Model:
         axis) + per-lane position counters "pos" (B,) and page tables
         "pt" (B, max_pages) (0 = the allocator's trash page).
         kv_dtype="int8" stores int8 k/v plus f32 `k_scale`/`v_scale`
-        planes per arena."""
+        planes per arena.  Only unwindowed all-attention models qualify:
+        recurrent state and ring buffers have no paged form."""
         if kv_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_dtype {kv_dtype!r}: want 'bf16' or 'int8'")
         cfg, dev = self.cfg, self.device
         n_rep, tail, kinds = layer_plan(cfg)
+        if any(k != "attn" for k in kinds) or cfg.local_window:
+            raise ValueError(f"{cfg.name}: paged KV needs an unwindowed "
+                             "all-attention model")
 
         def arena():
             return attn_mod.init_paged_attn_cache(
@@ -531,11 +617,13 @@ class Model:
 
         tokens: (B, T), column j at position ``caches['pos'][b] + j``.  One
         backbone call with S = T takes the paged verify branch
-        (models/attention.py): every row's logits are what T chained
-        single-step `decode_step` calls with the same inputs give, which
-        is what makes greedy verification lossless.  Returns (logits (B,
-        T, V) f32, caches), the position counters untouched: the caller
-        advances them by the accepted length only.
+        (models/attention.py), and every product (projections, MLP, head)
+        runs one query column at a time, at the decode step's M = B
+        (`layers.dense`): every row's logits are what T chained
+        single-step `decode_step` calls with the same inputs give, bit for
+        bit, which is what makes greedy verification lossless.  Returns
+        (logits (B, T, V) f32, caches), the position counters untouched:
+        the caller advances them by the accepted length only.
         """
         if "pt" not in caches:
             raise ValueError("verify_block needs a paged cache")
@@ -546,7 +634,7 @@ class Model:
                                     device=x.device)[None, :])
         h = self.backbone(params, x, positions, caches=caches,
                           page_table=caches["pt"], active=active)
-        return lm_head(h, params["embed"]), caches
+        return lm_head(h, params["embed"], columns=True), caches
 
     def spec_decode_step(self, params, caches, token: torch.Tensor,
                          active: torch.Tensor, n_draft: int,
@@ -599,7 +687,8 @@ class Model:
         dense slot cache `big`, in place, "pos" included.  A shorter
         bucket leaves a gap past its slots, refilled with zeros (k/v) and
         the never-written sentinel (kpos), so the lane's previous
-        occupant can never be attended to."""
+        occupant can never be attended to.  A recurrent state has no slot
+        axis: its leaves match but for the batch and are copied whole."""
 
         def leaf(axis, b, s):
             s = s.to(b.dtype)

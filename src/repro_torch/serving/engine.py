@@ -46,9 +46,14 @@ def _unported(**options) -> None:
 class EngineBase:
     """Shared composition: scheduler + executor, stats, prefill plumbing.
 
-    Not ported yet (each raises NotImplementedError): a ClusterPlan, and
-    W8A8 weights (`quant_weights`), which for smollm the reference serves
-    as the bf16 path."""
+    ``quant_weights=True`` serves W8A8 (`models/quantized.py`): the
+    executor quantizes the params once, at construction, as the
+    reference's does.  Only 2-d projections are quantized, i.e. those of
+    the tail layers: for recurrentgemma-2b its two tail MLPs, which then
+    run through `int8_matmul`; for smollm-135m and the other
+    attention-only families every projection is stacked over layers (3-d),
+    so nothing changes.  Not ported yet (raises NotImplementedError): a
+    ClusterPlan."""
 
     def __init__(self, model: Model, params, max_batch: int = 8,
                  buckets=(32, 64, 128, 256), deadline_s: float = 0.05,
@@ -57,13 +62,6 @@ class EngineBase:
                  monitor: Optional[StragglerMonitor] = None,
                  quant_weights: bool = False):
         _unported(plan=plan is not None)
-        if quant_weights:
-            raise NotImplementedError(
-                "not ported: quant_weights (W8A8).  For smollm the "
-                "reference's quantize_params_for_serving quantizes only 2-d "
-                "leaves and every projection is stacked over layers (3-d), "
-                "so it serves the bf16 path and launches no int8_matmul "
-                "(ROADMAP.md §3)")
         self.model = model
         self.max_batch = max_batch
         self.buckets = tuple(sorted(buckets))
@@ -77,7 +75,8 @@ class EngineBase:
                                max_batch)
         self.executor = Executor(model, params, max_batch=max_batch,
                                  cache_len=self.cache_len,
-                                 buckets=self.buckets)
+                                 buckets=self.buckets,
+                                 quant_weights=quant_weights)
         self.stats = {"prefill_tokens": 0, "decode_steps": 0,
                       "decode_dispatches": 0, "device_syncs": 0}
 

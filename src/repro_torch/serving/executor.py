@@ -2,7 +2,8 @@
 `repro/serving/executor.py`: the paged and the dense slot paths, and
 greedy speculative decoding on the paged one).
 
-The executor owns the params and the device decode state: bucketed
+The executor owns the params (quantized once for W8A8 serving when
+asked, the draft's too) and the device decode state: bucketed
 prefill, the fused n-step decode loop (`Model.decode_steps`), and the lane
 admission/park updates.  PyTorch runs eagerly, so there is nothing to
 compile; the state tensors are updated in place.  Each decode dispatch
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.packing import bucket_len
+from repro_torch.models.quantized import quantize_params_for_serving
 from repro_torch.models.transformer import Model
 
 PAD_TOKEN = 0  # fed for finished/free lanes; their logits are never read
@@ -26,8 +28,11 @@ class Executor:
     """Device programs + decode state for one serving engine."""
 
     def __init__(self, model: Model, params, max_batch: int = 8,
-                 cache_len: int = 0, buckets=()):
+                 cache_len: int = 0, buckets=(), quant_weights: bool = False):
         self.model = model
+        self.quant_weights = bool(quant_weights)
+        if self.quant_weights:
+            params = quantize_params_for_serving(params)
         self.params = params
         self.device = model.device
         self.max_batch = max_batch
@@ -39,9 +44,10 @@ class Executor:
         self.draft_params = None
 
     def set_draft(self, draft_model: Model, draft_params) -> None:
-        """Install the speculative-decoding draft model (its params as
-        given: W8A8 serving, which the reference applies to the draft too,
-        is not ported)."""
+        """Install the speculative-decoding draft model; its weights take
+        the target's W8A8 switch, as in the reference."""
+        if self.quant_weights:
+            draft_params = quantize_params_for_serving(draft_params)
         self.draft_model = draft_model
         self.draft_params = draft_params
 

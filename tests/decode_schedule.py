@@ -20,7 +20,11 @@ bodies:
   l = sum l_i e^(m_i - M), acc = sum acc_i e^(m_i - M) (the cluster's
   combine through distributed shared memory);
 * out = acc / max(l, 1e-30) in q's dtype; an inactive lane is exact
-  zeros.
+  zeros;
+* `flash_decode` cuts a group of more than 8 query heads into chunks of
+  at most 8 (`ops.decode_group_chunks`: 10 -> 5 + 5), one cluster each
+  over the same kv head's rows; each chunk runs the schedule above on
+  its own heads.
 
 `paged_schedule` maps slot j of a lane to row j % ps of page
 page_table[b, j // ps], as the paged kernel's loader does.
@@ -73,7 +77,28 @@ def decode_schedule(q, k, v, kpos, qpos, active=None, window=0,
     """Dense-slot decode by the card's schedule.  q: (B, H, hd); k/v:
     (B, Sk, KVH, hd); kpos: (B, Sk); qpos: (B,).  Returns (B, H, hd) in
     q.dtype and, with `with_split_counts`, the (B, DECODE_SPLITS) count of
-    kept keys in each split."""
+    kept keys in each split.  A group wider than 8 heads runs as its head
+    chunks, one after the other."""
+    b, h, hd = q.shape
+    kvh = k.shape[2]
+    chunks = ops.decode_group_chunks(h // kvh)
+    if len(chunks) > 1:
+        q4 = q.reshape(b, kvh, h // kvh, hd)
+        outs, g0 = [], 0
+        for gn in chunks:
+            got = _one_chunk(q4[:, :, g0:g0 + gn].reshape(b, kvh * gn, hd),
+                             k, v, kpos, qpos, active, window,
+                             with_split_counts)
+            outs.append(got)
+            g0 += gn
+        out = torch.cat([(o[0] if with_split_counts else o).reshape(
+            b, kvh, -1, hd) for o in outs], 2).reshape(b, h, hd)
+        return (out, outs[0][1]) if with_split_counts else out
+    return _one_chunk(q, k, v, kpos, qpos, active, window, with_split_counts)
+
+
+def _one_chunk(q, k, v, kpos, qpos, active, window, with_split_counts):
+    """The schedule of one cluster's heads (at most 8 per kv head)."""
     b, h, hd = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     g = h // kvh

@@ -144,6 +144,24 @@ def test_flash_decode_kernel_matches_plain(dev, g, sk, window, hd):
     assert (out[~act] == 0).all()
 
 
+# flash_decode at recurrentgemma-2b's decode heads, hd 256 with MQA at G =
+# 10 (two head chunks of 5, each a cluster reading the same kv head), and
+# other groups wider than 8 (9 -> 5 + 4, 16 -> 8 + 8), windows below Sk
+@pytest.mark.parametrize("g,sk,window", [(10, 192, 2048), (10, 2048, 512),
+                                         (10, 300, 40), (9, 65, 0),
+                                         (16, 100, 30)])
+def test_flash_decode_kernel_hd256_wide_groups(dev, g, sk, window):
+    *args, act = _dense_inputs(g * 100 + sk, 8, 1, g, 256, sk, dev)
+    n0 = ops.launches["flash_decode"]
+    out = ops.flash_decode(*args, active=act, window=window)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_decode"] == n0 + 1
+    want = ref.flash_decode(*args, active=act, window=window)
+    assert out.dtype == torch.bfloat16 and out.shape == want.shape
+    _assert_decode_close(out, want, _dense_spread(*args, act, window))
+    assert (out[~act] == 0).all()
+
+
 # kernels 1 and 3 at more shapes: G = 1-8 at every compiled head_dim,
 # MAXP = 1, 7, 9, 17 and 128 (below, near and far above the 8 splits of a
 # cluster), Sk = 1, 65 and 4096, and B = 64 (more clusters than SMs)
@@ -477,6 +495,40 @@ def test_int8_matmul_encoder_path_takes_no_copy(dev):
 
     assert allocations(w) == 1
     assert allocations(w.contiguous()) == 2
+
+
+# recurrentgemma-2b's W8A8 tail MLPs: K 2560 -> N 7680 (wi, wg) and 7680 ->
+# 2560 (wo), at a decode step's 8 lanes and a 128-token prefill bucket
+@pytest.mark.parametrize("m,k,n", [(8, 2560, 7680), (8, 7680, 2560),
+                                   (128, 2560, 7680), (128, 7680, 2560)])
+def test_int8_matmul_kernel_decoder_shapes(dev, m, k, n):
+    from repro_torch.models.quantized import quantize_leaf
+
+    rng = np.random.default_rng(m + k)
+    a = torch.tensor(rng.integers(-127, 128, (m, k)), dtype=torch.int8,
+                     device=dev)
+    q = quantize_leaf(torch.tensor(rng.normal(0, 0.02, (k, n)),
+                                   dtype=torch.bfloat16, device=dev))["q"]
+    assert q.t().is_contiguous()
+    out = ops.int8_matmul(a, q, 1.0, 1.0)
+    assert torch.equal(out, ref.int8_matmul(a, q, 1.0, 1.0))
+    assert torch.equal(out.cpu(), ref.int8_matmul(a.cpu(), q.cpu(), 1.0,
+                                                  1.0))
+
+
+def test_qdense_card_equals_cpu(dev):
+    """W8A8's activation quantization, scales and output: the card's
+    bits are the CPU's (every division a tensor / tensor one)."""
+    from repro_torch.models.quantized import qdense, quantize_leaf
+
+    rng = np.random.default_rng(5)
+    w = quantize_leaf(torch.tensor(rng.normal(0, 0.02, (2560, 7680)),
+                                   dtype=torch.bfloat16, device=dev))
+    x = torch.tensor(rng.normal(0, 1, (8, 1, 2560)), dtype=torch.bfloat16,
+                     device=dev)
+    got = qdense(x, w)
+    want = qdense(x.cpu(), {k: v.cpu() for k, v in w.items()})
+    assert torch.equal(got.cpu(), want)
 
 
 def _on_card(t, dev, offset):

@@ -161,8 +161,12 @@ def test_engine_option_errors(models):
     with pytest.raises(ValueError, match="paged KV pool"):
         teng.ContinuousBatchingEngine(tm, tp, paged=False, kv_dtype="int8")
     for cls in (teng.ContinuousBatchingEngine, teng.WaveEngine):
-        with pytest.raises(NotImplementedError, match="W8A8"):
-            cls(tm, tp, quant_weights=True)
+        # W8A8 is served since; smollm's projections are all stacked
+        # (3-d), so quant_weights leaves its params as they are
+        eng = cls(tm, tp, quant_weights=True)
+        assert eng.executor.quant_weights
+        assert all(not isinstance(w, dict) for w in
+                   eng.executor.params["scan"]["b0"]["mix"].values())
     eng = teng.ContinuousBatchingEngine(tm, tp, kv_dtype="int8")
     assert eng.paged and eng.kv_page_bytes() < \
         teng.ContinuousBatchingEngine(tm, tp).kv_page_bytes()

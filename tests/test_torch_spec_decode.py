@@ -223,6 +223,67 @@ def test_spec_stream_equals_decode_steps_mid_acceptance():
     assert out == want
 
 
+def test_verify_products_run_at_decode_rows(monkeypatch):
+    """Reduced minitron-8b (squared-ReLU 2-matrix MLP, untied head): every
+    product of a verify pass — q/k/v/o, the MLP and the head — runs on B
+    rows, one contiguous query column at a time, as a decode step runs it
+    (cuBLAS may give a row of a B*T-row product other bits), and its
+    logits equal the chained decode steps'."""
+    cfg = tget("minitron-8b").reduced()
+    model = ttr.make_model(cfg, device="cpu")
+    params = ttr.init_params(cfg, seed=0, device="cpu")
+    t = 5
+    tokens = _i32(np.random.default_rng(4).integers(0, 256, (B, t)))
+    rows = []
+    matmul = torch.matmul
+
+    def spy(a, b, *args, **kw):
+        rows.append((tuple(a.shape), a.is_contiguous()))
+        return matmul(a, b, *args, **kw)
+
+    with torch.no_grad():
+        seq = _paged(model, "bf16")
+        steps = [model.decode_step(params, seq, tokens[:, j])[0]
+                 for j in range(t)]
+        monkeypatch.setattr(torch, "matmul", spy)
+        logits, _ = model.verify_block(params, _paged(model, "bf16"),
+                                       tokens)
+        monkeypatch.setattr(torch, "matmul", matmul)
+    per_column = cfg.n_layers * (4 + 2) + 1  # attention, MLP, head
+    assert len(rows) == t * per_column
+    assert all(shape[:2] == (B, 1) and contiguous
+               for shape, contiguous in rows), rows
+    assert torch.equal(logits, torch.stack(steps, 1))
+
+
+def test_self_draft_spec_engine_equals_plain_minitron():
+    """Reduced minitron-8b drafting for itself through the spec engine:
+    every stream equals the plain engine's (acceptance is 1.0 but for
+    blocks a budget cuts short)."""
+    cfg = tget("minitron-8b").reduced()
+    model = ttr.make_model(cfg, device="cpu")
+    params = ttr.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(5)
+    stream = [(rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32),
+               int(rng.integers(6, 14))) for n in rng.integers(4, 20, 5)]
+
+    def serve(spec):
+        kw = (dict(spec_config=dict(draft_model=model, draft_params=params,
+                                    spec_k=3)) if spec else {})
+        eng = TorchEngine(model, params, max_batch=3, buckets=(16, 32),
+                          deadline_s=0.0, page_size=4, max_decode_len=32,
+                          **kw)
+        for i, (p, b) in enumerate(stream):
+            eng.submit(TorchRequest(rid=i, prompt=p, max_new_tokens=b))
+        return [r.tokens_out for r in eng.run()], eng.stats
+
+    plain, _ = serve(False)
+    spec, stats = serve(True)
+    assert spec == plain
+    assert stats["spec_dispatches"] > 0
+    assert 0 < stats["spec_accepted"] <= stats["spec_proposed"]
+
+
 # ---------------------------------------------------------------------------
 # the port against JAX
 # ---------------------------------------------------------------------------
