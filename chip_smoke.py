@@ -27,7 +27,9 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    plain versions bit for bit; each I-BERT kernel is also timed beside a
    copy of the same bytes (copy_ms), i_softmax at (1536, 128) and at
    ibert-base's max_seq_len, (6144, 512); kernels 1 and 2 also at the
-   speculative verify pass's shape (8 lanes x 5 queries folded into 40);
+   speculative verify pass's shape (8 lanes x 5 queries folded into 40),
+   kernel 1 also at the MoE models' heads (KVH 16, G 1 and KVH 8, G 5,
+   hd 128);
    the port-only row norm (rmsnorm, layernorm) at every served width
    (ROW_NORM_DS) and at 1, 8, 40 and 4096 rows, within ROW_NORM_TOL, in
    bf16 beside F.rms_norm / F.layer_norm, and row-count invariant: a
@@ -101,7 +103,23 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    row_norm launch counts, 8 fused decode steps under torch.profiler;
    then both reduced, fitted and gated card vs CPU at token match 1.0
    (dense slot rows);
-12. encode: the integer I-BERT encoder (ibert-base at full width, 12
+12. moe: moonshot-v1-16b-a3b (64 experts top-6, 2 shared) and
+   llama4-maverick-400b-a17b (a dense layer, then 128 experts top-1 and
+   1 shared) at full width on random weights: card vs CPU (paged) on 2
+   of moonshot's layers and on llama4's 2-layer period, with the routing
+   compared on the card's own rows (a pair may go elsewhere only at a
+   top-k margin of at most MOE_MARGIN) and end to end (logged; logits
+   gated at LOGIT_TOL on each lane up to its first pair routed
+   otherwise); moonshot served at all 48
+   layers and llama4 at its period (depth cut from 48 to 2) through the
+   paged cb engine, 8 requests of 32 tokens, exact paged_flash_decode
+   and row_norm launch counts; one verify block against its chained
+   decode steps, logged (the reference's MoE verify routes the block as
+   one group at its own capacity and parts where it drops a pair), d = 0
+   required on the rows with no drop; 8 fused decode steps profiled (the
+   expert products' share of device time and their bytes against the
+   bound); then both reduced, fitted and gated at token match 1.0;
+13. encode: the integer I-BERT encoder (ibert-base at full width, 12
    layers, random float weights from seed 0, calibrated at batch 1, seq
    128) through `repro_torch.launch.ibert_encoder`: one forward must
    launch exactly 72 / 12 / 24 / 12 int8_matmul / i_softmax / i_layernorm
@@ -110,11 +128,11 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    tests/test_ibert_model.py's bounds, 12 within the reference's own
    12-layer error on these weights); then one forward under
    torch.profiler, and the entry point's time at seq 1, 8, 32, 64, 128;
-13. summary: a JSON line of the kernels (the decode kernels' launches
-   include the gate's, the spec phase's, the families' and the recurrent
-   phase's; row_norm's are the serve phases' and the families' and
-   recurrent models' served streams; int8_matmul's the encoder's and
-   recurrentgemma's W8A8 stream), then the device line.
+14. summary: a JSON line of the kernels (the decode kernels' launches
+   include the gate's, the spec phase's, the families', the recurrent
+   phase's and the moe phase's; row_norm's are the serve phases' and the
+   families', recurrent and MoE models' served streams; int8_matmul's the
+   encoder's and recurrentgemma's W8A8 stream), then the device line.
 
 Each phase logs its wall seconds ("phase ...").
 """
@@ -141,7 +159,7 @@ from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.launch import ibert_encoder  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models import ibert as ib  # noqa: E402
-from repro_torch.models import synthetic  # noqa: E402
+from repro_torch.models import moe, synthetic  # noqa: E402
 from repro_torch.models.quantized import (  # noqa: E402
     is_quantized, quantize_leaf)
 from repro_torch.models.transformer import init_params, make_model  # noqa: E402
@@ -194,10 +212,11 @@ LOSS_TOL = 1e-2    # mean cross-entropy of those logits, card vs CPU
 # moves by more
 FA_TOL = {torch.float32: (2e-5, 0.0), torch.bfloat16: (4e-3, 2 ** -7)}
 # row_norm's widths: the reduced configs, smollm-135m, internvl2-1b,
-# musicgen-medium, xlstm-1.3b, recurrentgemma-2b, minitron-8b,
-# deepseek-coder-33b; its row counts: one lane, a decode step (B=8), a
-# verify pass (8 x 5), a long prompt
-ROW_NORM_DS = (64, 576, 896, 1536, 2048, 2560, 4096, 7168)
+# musicgen-medium, xlstm-1.3b and moonshot-v1-16b-a3b, recurrentgemma-2b,
+# minitron-8b, llama4-maverick-400b-a17b, deepseek-coder-33b; its row
+# counts: one lane, a decode step (B=8), a verify pass (8 x 5), a long
+# prompt
+ROW_NORM_DS = (64, 576, 896, 1536, 2048, 2560, 4096, 5120, 7168)
 ROW_NORM_ROWS = (1, 8, 40, 4096)
 # row_norm vs its plain version: a bf16 output within one bf16 ulp of the
 # plain one (the two round f32 values a few f32 ulps apart), an f32 one
@@ -230,6 +249,20 @@ RECURRENT_CUT = {"recurrentgemma-2b": 3, "xlstm-1.3b": 8}
 # and 41 s for 1,000 steps on an H100 80GB HBM3 at 700 W), so xlstm
 # takes fewer
 RECURRENT_FIT_STEPS = {"recurrentgemma-2b": 1000, "xlstm-1.3b": 400}
+# the moe phase: moonshot-v1-16b-a3b served at all 48 layers (28.9 B
+# parameters, 57.8 GB in bf16) and llama4-maverick-400b-a17b at its
+# 2-layer period (a dense layer, then a MoE layer of 128 experts: 18.6 B,
+# 37.1 GB; two periods do not fit beside the arenas), both at full width
+MOE_ARCHS = ("moonshot-v1-16b-a3b", "llama4-maverick-400b-a17b")
+MOE_LAYERS = {"llama4-maverick-400b-a17b": 2}
+# on the same input rows, card and CPU may route a (token, choice) pair
+# to other experts only where the CPU's top-k margin (the choice's
+# probability minus the next one's) is at most this: their f32 router
+# products sum in other orders.  End to end the hidden rows themselves
+# part by bf16 ulps (on 2 of moonshot's layers on an H100 the first flip
+# came at a margin of 5.4e-5), and its capacity ranks carry a flip on,
+# so that comparison is logged
+MOE_MARGIN = 1e-5
 # recurrentgemma-2b's decode-step int8_matmul shapes (its tail MLPs: K
 # 2560 -> N 7680 for wi and wg, 7680 -> 2560 for wo) at a decode step's
 # 8 lanes and a 128-token prefill bucket
@@ -940,9 +973,10 @@ def _require_norms(route: str, norms: int, eng) -> None:
             f"launches != {per} x {calls} backbone calls")
 
 
-def _device_spans(fn) -> tuple:
+def _device_spans(fn, out=None) -> tuple:
     """fn() under torch.profiler: the device's (start, end, name) spans in
-    start order, and the window's wall time on the host clock (us)."""
+    start order, and the window's wall time on the host clock (us);
+    `out["prof"]` gets the profile when `out` is given."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -955,6 +989,8 @@ def _device_spans(fn) -> tuple:
         wall_us = (time.perf_counter() - t0) * 1e6
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if out is not None:
+        out["prof"] = prof
     return spans, wall_us
 
 
@@ -1222,7 +1258,11 @@ def model_phase(kind: str, cfg=None, note: str = "",
     unless given; `note` says how a given one was cut.  gated=False logs
     the error without requiring LOGIT_TOL, beside the CPU's own spread:
     the same CPU run once more on one thread (another summation order
-    of its bf16 products), and that run's distance from the first."""
+    of its bf16 products), and that run's distance from the first.  A
+    MoE model's routing is compared too (`_route_diff`), and LOGIT_TOL
+    holds on each lane up to its first step that card and CPU route
+    otherwise: from there the lane's tokens take other experts or drop
+    other pairs, and its logits part by design."""
     cfg = cfg or get_config("smollm-135m")
     ps, maxp, steps = 16, 6, 8
     rng = np.random.default_rng(1)
@@ -1230,16 +1270,28 @@ def model_phase(kind: str, cfg=None, note: str = "",
                for n in (21, 37)]
     gpu_params = init_params(cfg, seed=0, device="cuda")
     cpu_params = {k: _to(v, "cpu") for k, v in gpu_params.items()}
-    runs = {}
+    runs, routes = {}, {}
     for name in ("cpu", "cuda"):
         params = gpu_params if name == "cuda" else cpu_params
         model = make_model(cfg, device=name)
-        with torch.no_grad():
+        t0 = time.perf_counter()
+        with torch.no_grad(), _RouteTally(on_cpu=True) as tally:
             runs[name] = _model_run(model, params, prompts, ps, maxp, steps,
                                     runs.get("cpu"), kind)
+        routes[name] = tally.calls
+        if cfg.n_experts:
+            log(f"model {cfg.name}{note}: the {name} run took "
+                f"{time.perf_counter() - t0:.1f} s")
+    del gpu_params
     cpu, gpu = runs["cpu"], runs["cuda"]
     errs = [(g - c).abs().max().item() for c, g in zip(cpu["logits"],
                                                        gpu["logits"])]
+    held = errs  # the errors LOGIT_TOL holds
+    if cfg.n_experts:
+        agree = _route_diff(routes, cfg, prompts, ps, steps)
+        held = [(g - c)[lane].abs().max().item()
+                for t, (c, g) in enumerate(zip(cpu["logits"], gpu["logits"]))
+                for lane in range(len(prompts)) if t < agree[lane]]
     scale = max(c.abs().max().item() for c in cpu["logits"])
     match = (cpu["block"] == gpu["block"]).float().mean().item()
     spread = ""
@@ -1254,13 +1306,18 @@ def model_phase(kind: str, cfg=None, note: str = "",
                   for a, b in zip(cpu["logits"], one["logits"]))
         spread = (f" (logged, not gated; the CPU on 1 thread vs on "
                   f"{threads}: {own:.4g})")
+    elif cfg.n_experts:
+        spread = (f" (gated per lane up to its first routing difference: "
+                  f"{len(held)} of {len(errs) * len(prompts)} lane-steps, "
+                  f"max {max(held, default=0.0):.4g})")
+    del cpu_params
     log(f"model {cfg.name}{note} {kind} cache, prefill+{steps} decode "
         f"steps, card vs CPU: max_abs_logit_err={max(errs):.4g} (tol {LOGIT_TOL}, "
         f"|logit| max {scale:.3g}){spread} per step="
         f"{['%.3g' % e for e in errs]} fused {steps}-step token match="
         f"{match:.3f}; {_first_divergence(cpu, gpu)}")
-    require(not gated or max(errs) <= LOGIT_TOL, f"{cfg.name} {kind}: card "
-            f"vs CPU logits: {errs}")
+    require(not gated or max(held, default=0.0) <= LOGIT_TOL,
+            f"{cfg.name} {kind}: card vs CPU logits: {held}")
     if kind == "int8":
         rows = gpu["kv_rows"]
         same = [torch.equal(a.cpu(), b) for x in rows
@@ -1691,7 +1748,7 @@ def spec_phase(dev, fits: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def family_serve(model, params, seed: int) -> dict:
+def family_serve(model, params, seed: int, phase: str = "families") -> dict:
     """8 Poisson requests of 32 new tokens through the paged bf16 cb
     engine, the launch counts set to 0 just before and read just after:
     paged_flash_decode once per layer per fused decode step and no other
@@ -1712,7 +1769,7 @@ def family_serve(model, params, seed: int) -> dict:
     wall = time.perf_counter() - t0
     got = {k: ops.launches[k] for k in ATTN_KERNELS}
     norms, steps = ops.launches["row_norm"], eng.stats["decode_steps"]
-    what = f"families {cfg.name} x{cfg.n_layers} serve"
+    what = f"{phase} {cfg.name} x{cfg.n_layers} serve"
     require(len(done) == 8 and all(
         r.done and (len(r.tokens_out) == r.max_new_tokens
                     or r.tokens_out[-1] == r.eos_id) for r in done),
@@ -1983,6 +2040,313 @@ def recurrent_phase(dev) -> dict:
             model, params, "dense")["flash_decode"]
     return launches
 
+# ---------------------------------------------------------------------------
+# the MoE families
+# ---------------------------------------------------------------------------
+
+
+class _RouteTally:
+    """Records every `moe.route` call while installed (a pass-through
+    around the port's function, which `moe_ffn` looks up at each call):
+    the expert ids (B, S, k), the keep mask (B, S*k) and each choice's
+    top-k margin (B, S, k): the j-th minus the (j+1)-th sorted router
+    probability, the distance a choice has from trading places with the
+    next expert.  With `on_cpu`, each call also routes copies of its input
+    rows on the CPU (`cpu_experts`, `cpu_margin`).  The margins cost
+    a softmax and a sort a call, so the tally is installed only around
+    runs it reads, never a timed one."""
+
+    def __init__(self, on_cpu: bool = False):
+        self.on_cpu = on_cpu
+
+    def __enter__(self):
+        self.calls = []
+        self.orig = moe.route
+
+        def margins(x, router, k):
+            probs = torch.softmax(torch.matmul(x.float(), router), -1)
+            srt = torch.sort(probs, -1, descending=True).values
+            return (srt[..., :k] - srt[..., 1:k + 1]).cpu()
+
+        def spy(x, p, cfg, columns=False):
+            r = self.orig(x, p, cfg, columns)
+            k = cfg.top_k
+            call = dict(experts=r.experts.cpu(), keep=r.keep.cpu(),
+                        margin=margins(x, p["router"], k))
+            if self.on_cpu:
+                xc, wc = x.cpu(), {"router": p["router"].cpu()}
+                call.update(cpu_experts=self.orig(xc, wc, cfg).experts,
+                            cpu_margin=margins(xc, wc["router"], k))
+            self.calls.append(call)
+            return r
+
+        moe.route = spy
+        return self
+
+    def __exit__(self, *exc):
+        moe.route = self.orig
+
+
+def _route_diff(routes: dict, cfg, prompts, ps: int, steps: int) -> bool:
+    """Card against CPU routing in model_phase, two ways.
+
+    Same rows: each route call on the card routed again on the CPU from
+    the card's own input rows; an assignment may differ only at a CPU
+    top-k margin of at most MOE_MARGIN (the f32 router product summed in
+    another order), and this is required.  End to end, logged: the
+    teacher-fed calls (each prompt's prefill, the teacher-fed decode
+    steps, the prefills once more), where both devices see the same
+    tokens, real tokens only (a bucket's pad rows sit at position 2^30,
+    where the two devices' RoPE differs).  There the router reads hidden
+    rows a few bf16 ulps apart, and one near-tie flip moves the capacity
+    ranks of the later pairs of its expert, so a dropped pair on one
+    device and not the other changes that token's rows, its later layers'
+    routing and the keys later tokens read: the first call that differs
+    and its smallest margin are logged beside the totals.  Returns, per
+    lane, the index of the first logits row (0: the prefill, t: decode
+    step t) whose call routed one of the lane's real pairs otherwise
+    (steps + 1 where none did)."""
+    gpu_all = routes["cuda"]
+    same = [(c["experts"] != c["cpu_experts"], c["cpu_margin"])
+            for c in gpu_all]
+    same_diff = sum(int(d.sum()) for d, _ in same)
+    same_m = [m for d, mg in same for m in mg[d].tolist()]
+    n_moe = sum(map(cfg.is_moe_layer, range(cfg.n_layers)))
+    real = [torch.arange(-(-len(p) // ps) * ps)[None, :, None] < len(p)
+            for p in prompts]
+    masks = real + [torch.ones((len(prompts), 1, 1), dtype=torch.bool)
+                    ] * steps + real
+    calls = len(masks) * n_moe
+    cpu, gpu = routes["cpu"][:calls], gpu_all[:calls]
+    require(len(cpu) == len(gpu) == calls, f"model {cfg.name}: {len(cpu)} "
+            f"CPU and {len(gpu)} card route calls, want {calls}")
+    n_pairs = n_diff = drops = 0
+    margins, first = [], None
+    agree = [steps + 1] * len(prompts)
+    for i, (c, g) in enumerate(zip(cpu, gpu)):
+        real_i = masks[i // n_moe].expand_as(c["experts"])
+        differ = (c["experts"] != g["experts"]) & real_i
+        call = i // n_moe  # prefill of prompt `call`, or a decode step
+        for row in differ.any(-1).any(-1).nonzero().flatten().tolist():
+            lane, t = ((call, 0) if call < len(prompts) else
+                       (row, call - len(prompts) + 1))
+            if t <= steps:  # not the second admission's prefills
+                agree[lane] = min(agree[lane], t)
+        n_pairs += int(real_i.sum())
+        n_diff += int(differ.sum())
+        margins += c["margin"][differ].tolist()
+        if differ.any() and first is None:
+            first = (f"call {i} (backbone call {i // n_moe}, MoE layer "
+                     f"{i % n_moe}), smallest margin there "
+                     f"{c['margin'][differ].min().item():.3g}")
+        drops += int((c["keep"] != g["keep"]).reshape(real_i.shape)[
+            real_i].sum())
+    log(f"model {cfg.name} routing, card vs CPU: on the card's own rows "
+        f"({len(gpu_all)} calls) {same_diff} assignments differ (CPU "
+        f"margins there: largest {max(same_m, default=float('nan')):.3g}; "
+        f"limit {MOE_MARGIN:g}); end to end over {calls} teacher-fed calls "
+        f"{n_diff} of {n_pairs} (token, choice) assignments of real tokens "
+        f"differ (first at {first}; CPU margins there: smallest "
+        f"{min(margins, default=float('nan')):.3g}, largest "
+        f"{max(margins, default=float('nan')):.3g}), keep masks at {drops} "
+        f"pairs; each lane's logits rows before its first difference: "
+        f"{agree} of {steps + 1}")
+    if same_diff:
+        require(max(same_m) <= MOE_MARGIN, f"model {cfg.name}: on the same "
+                f"rows card and CPU route a pair otherwise at a top-k "
+                f"margin of {max(same_m):.3g} > {MOE_MARGIN:g}")
+    return agree
+
+
+def _moe_verify(model, params, seed: int) -> dict:
+    """One verify block (T = SPEC_K + 1) after 8 admitted prompts against
+    T chained decode_step calls from an identical cache, as
+    `_verify_vs_chained`, with the block's routing tallied: a MoE layer
+    routes each lane's T tokens as one group at the capacity of S = T
+    (the reference's verify pass), so a dropped pair parts its row from
+    the chained steps, which never drop.  A (lane, column) row is clean
+    when its lane dropped no pair at that column or before it in any
+    layer: its routing and its inputs are the chained steps', so it must
+    equal them bit for bit."""
+    cfg = model.cfg
+    ps, maxp, t = 16, 4, SPEC_K + 1
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in rng.integers(6, 40, 8)]
+    tokens = torch.tensor(rng.integers(0, cfg.vocab_size, (8, t)),
+                          dtype=torch.int32, device=model.device)
+    with torch.no_grad():
+        cache, _ = _admitted(model, params, prompts, ps, maxp, "paged")
+        steps = []
+        for j in range(t):
+            lg, cache = model.decode_step(params, cache, tokens[:, j])
+            steps.append(lg)
+        chained = torch.stack(steps, 1)
+        cache, _ = _admitted(model, params, prompts, ps, maxp, "paged")
+        with _RouteTally() as tally:
+            ver, _ = model.verify_block(params, cache, tokens)
+    drop = torch.zeros((8, t), dtype=torch.bool)
+    for c in tally.calls:
+        drop |= ~c["keep"].reshape(8, t, cfg.top_k).all(-1)
+    dirty = torch.cummax(drop.to(torch.int32), 1).values.bool()
+    diff = (ver - chained).abs().amax(-1).cpu()
+    return dict(d=float(diff.max()), clean=int((~dirty).sum()),
+                d_clean=float(diff[~dirty].max()) if (~dirty).any() else 0.0,
+                d_dirty=float(diff[dirty].max()) if dirty.any() else 0.0,
+                dropped=sum(int((~c["keep"]).sum()) for c in tally.calls),
+                pairs=sum(c["keep"].numel() for c in tally.calls))
+
+
+def _bmm_device_us(prof) -> float:
+    """Device time (us) of the window's aten::bmm ops, the MoE expert
+    products (a decode step's other products are 2-d matmuls)."""
+    for row in prof.key_averages():
+        if row.key == "aten::bmm":
+            return float(getattr(row, "device_time_total", None)
+                         or getattr(row, "cuda_time_total", 0.0))
+    return 0.0
+
+
+def _moe_profile(model, params) -> None:
+    """8 fused decode steps over 8 admitted prompts on a paged bf16
+    arena, warm, under torch.profiler: device ops a step, the device's
+    busy share, the expert products' share of device time, and the
+    expert bytes a step reads against their bound.  The dispatch is
+    dense (the reference's): every expert computes its capacity's slots
+    at every step, so a step reads every expert's three matrices."""
+    cfg = model.cfg
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in rng.integers(8, 60, 8)]
+    act = torch.ones((8,), dtype=torch.bool, device=model.device)
+    n_moe = sum(map(cfg.is_moe_layer, range(cfg.n_layers)))
+    nbytes = n_moe * cfg.n_experts * cfg.ffn_params() * 2
+    what = (f"moe {cfg.name} x{cfg.n_layers} 8 fused decode steps (B=8, "
+            "paged bf16)")
+    out = {}
+    with torch.no_grad():
+        big, lg = _admitted(model, params, prompts, 16, 12, "paged")
+        first = lg.argmax(-1).to(torch.int32)
+        model.decode_steps(params, big, first, act, 8)  # warm
+        big, lg = _admitted(model, params, prompts, 16, 12, "paged")
+        spans, wall_us = _device_spans(
+            lambda: model.decode_steps(params, big, first, act, 8), out)
+    if not spans:
+        log(f"profile {what}: the profiler recorded no device time (not "
+            "measured)")
+        return
+    dev_total = sum(e - s for s, e, _ in spans)
+    ks = [e - s for s, e, name in spans if "paged_flash_decode_kernel" in name]
+    n = cfg.n_layers * 8
+    require(0 < len(ks) <= n, f"profile {what}: {len(ks)} paged_flash_decode"
+            f" kernel spans, {n} launches")
+    bmm_us = _bmm_device_us(out["prof"])
+    busy = _busy_us(spans) / wall_us
+    bound_ms = nbytes / HBM_BYTES_S * 1e3
+    step_ms = bmm_us / 8 / 1e3
+    log(f"profile {what}: wall_ms={wall_us / 1e3:.2f} wall_ms_per_step="
+        f"{wall_us / 8e3:.3f} device_busy_share={busy:.4f} "
+        f"device_kernel_ms={dev_total / 1e3:.3f} device_ops_per_step="
+        f"{len(spans) / 8:.1f} expert_gemm_ms_per_step={step_ms:.3f} "
+        f"expert_gemm_share_of_device={bmm_us / dev_total:.4f} "
+        f"expert_bytes_per_step={nbytes} ({n_moe} MoE layers x "
+        f"{cfg.n_experts} experts x 3 matrices; bound {bound_ms:.3f} ms at "
+        f"{HBM_BYTES_S:.3g} B/s, read at "
+        f"{nbytes / max(step_ms, 1e-9) / 1e9:.4g} TB/s = "
+        f"{bound_ms / max(step_ms, 1e-9):.3f} of the bound) "
+        f"paged_flash_decode_spans={len(ks)} of {n} launches")
+
+
+def moe_phase(dev) -> dict:
+    """moonshot-v1-16b-a3b and llama4-maverick-400b-a17b on the card at
+    full width on init_params weights (seed 0): card vs CPU (model_phase,
+    paged; routing compared); served through the paged cb engine
+    (moonshot at all 48 layers, llama4 at its 2-layer period) with exact
+    launch counts; one verify block against its chained decode steps,
+    logged, d = 0 required on its clean rows; 8 fused decode steps
+    profiled; then both reduced, fitted with fit_affine_lm and gated card
+    vs CPU at token match 1.0 (paged).  Returns paged_flash_decode's and
+    row_norm's launches."""
+    launches = {"paged_flash_decode": 0, "row_norm": 0}
+    torch.cuda.empty_cache()
+    log(f"moe: card memory allocated before the phase "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB (peak so far "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB); host "
+        f"{_mem_available_gib():.1f} GiB available")
+    for i, arch in enumerate(MOE_ARCHS):
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        _moe_card_vs_cpu(cfg)
+        n = MOE_LAYERS.get(arch, cfg.n_layers)
+        cut = dataclasses.replace(cfg, n_layers=n)
+        depth = f"x{n}" + (f" (depth cut from {cfg.n_layers})"
+                           if n != cfg.n_layers else "")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        model = make_model(cut, device=dev)
+        params = init_params(cut, seed=0, device=dev)
+        torch.cuda.synchronize()
+        log(f"moe {arch} {depth}: {_n_params(params) / 1e9:.3f} B "
+            f"parameters, init {time.perf_counter() - t1:.1f} s, init peak "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+        for k, v in family_serve(model, params, i, "moe").items():
+            launches[k] += v
+        v = _moe_verify(model, params, 2)
+        log(f"moe {arch} {depth}: max |verify_block - {SPEC_K + 1} chained "
+            f"decode_step| logits = {v['d']:.4g} (logged: the reference's "
+            f"MoE verify routes the block's {SPEC_K + 1} tokens as one "
+            f"group at capacity {moe._capacity(cut, SPEC_K + 1)} and parts "
+            f"from its chained steps by design); the block dropped "
+            f"{v['dropped']} of {v['pairs']} (token, choice) pairs; "
+            f"{v['clean']} of {8 * (SPEC_K + 1)} (lane, column) rows clean "
+            f"(no drop there or before), d there = {v['d_clean']:.4g} "
+            f"(want 0); d on the others = {v['d_dirty']:.4g}")
+        require(v["d_clean"] == 0, f"moe {arch}: a verify row with no "
+                "dropped pair parts from the chained decode steps")
+        _moe_profile(model, params)
+        del model, params
+        torch.cuda.empty_cache()
+        log(f"moe {arch}: {time.perf_counter() - t0:.1f} s; card peak "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+    prompts = synthetic.affine_prompts(np.random.default_rng(123), 64, 256)
+    for arch in MOE_ARCHS:
+        cfg = get_config(arch).reduced()
+        model = make_model(cfg, device=dev)
+        t0 = time.perf_counter()
+        params = synthetic.fit_affine_lm(model)
+        torch.cuda.synchronize()
+        log(f"fit {cfg.name} (x{cfg.n_layers}, {cfg.n_experts} experts "
+            f"top-{cfg.top_k}): 1000 steps in {time.perf_counter() - t0:.1f}"
+            f" s, greedy accuracy on 64 affine prompts="
+            f"{synthetic.greedy_accuracy(model, params, prompts):.4f}")
+        launches["paged_flash_decode"] += gate_phase(
+            model, params, "paged")["paged_flash_decode"]
+    return launches
+
+
+def _moe_card_vs_cpu(cfg) -> None:
+    """Card against CPU at full width on the same weights (model_phase,
+    paged): 2 of moonshot's 48 layers (a 3.7 GB host copy) and llama4's
+    2-layer period whole, a dense layer then a MoE one: its 37 GB host
+    copy fits the card machine's 96 GiB (about 35 GiB of the ~95 GiB
+    available) and one CPU decode step through it takes ~2 s (it reads
+    the 32 GB of experts), so the whole period runs on both devices."""
+    model_phase("paged", dataclasses.replace(cfg, n_layers=2),
+                note=f" (full width, 2 of {cfg.n_layers} layers"
+                + (", one period: dense, then MoE)" if cfg.moe_every == 2
+                   else ")"))
+
+
+def _mem_available_gib() -> float:
+    """The host's MemAvailable (/proc/meminfo), GiB."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 2 ** 20
+    return float("nan")
+
+
 
 def _first_difference(qp, qp_cpu, cfg, x) -> str:
     """The first layer and site where the card's encoder and the CPU's
@@ -2117,6 +2481,11 @@ def kernels_phase(dev) -> dict:
     kernel_phase(dev, flush, maxp=128, kvh=10, g=4, hd=128)
     paged_q_phase(dev, flush, maxp=128, kvh=10, g=4, hd=128)
     flash_decode_phase(dev, flush, sk=2048, kvh=10, g=4, hd=128)
+    # kernel 1 at the MoE models' heads, hd 128, at the serve path's 12
+    # pages: moonshot-v1-16b-a3b's 16 kv heads of one query head each,
+    # llama4-maverick-400b-a17b's 8 of five
+    kernel_phase(dev, flush, maxp=12, kvh=16, g=1, hd=128)
+    kernel_phase(dev, flush, maxp=12, kvh=8, g=5, hd=128)
     # flash_decode at recurrentgemma-2b's decode heads: hd 256, MQA at
     # G = 10 (two head chunks of 5, each reading the kv head's rows), its
     # window of 2048 over a serve lane's 192 slots, and a window of 512
@@ -2200,10 +2569,13 @@ def main() -> None:
     gated.append(family)
     recurrent = timed("recurrent", lambda: recurrent_phase(dev))
     gated.append(recurrent)
+    moe_launches = timed("moe", lambda: moe_phase(dev))
+    gated.append(moe_launches)
     launches = {k: sum(s["launches"] for s in served if s["kernel"] == k)
                 + sum(g.get(k, 0) for g in gated) for k in DECODE_KERNELS}
     launches["row_norm"] = (sum(s["row_norm"] for s in served)
-                            + family["row_norm"] + recurrent["row_norm"])
+                            + family["row_norm"] + recurrent["row_norm"]
+                            + moe_launches["row_norm"])
     launches.update(timed("encode", encode_phase))
     launches["int8_matmul"] += recurrent["int8_matmul"]
     launches["flash_attention"] = fa_launches

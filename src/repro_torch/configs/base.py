@@ -3,8 +3,8 @@
 
 The registry maps ``--arch <id>`` names to config factories.  Every config
 is a frozen dataclass, hashable and immutable.  ``reduced()`` returns a
-small same-family config for CPU tests.  The registry lists only the
-families whose model code the port already has.
+small same-family config for CPU tests.  The registry lists the same
+architectures as the reference's.
 """
 from __future__ import annotations
 
@@ -254,10 +254,10 @@ def _load_all():
     global _LOADED
     if _LOADED:
         return
-    # only the families whose model code the port has; the others arrive
-    # with their blocks (ROADMAP.md, port queue)
+    # every decoder family of the reference, and ibert-base
     from repro_torch.configs import (  # noqa: F401
-        deepseek_coder_33b, ibert_base, internvl2_1b, minitron_8b,
+        deepseek_coder_33b, ibert_base, internvl2_1b,
+        llama4_maverick_400b_a17b, minitron_8b, moonshot_v1_16b_a3b,
         musicgen_medium, phi3_medium_14b, recurrentgemma_2b, smollm_135m,
         xlstm_1_3b,
     )

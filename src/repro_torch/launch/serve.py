@@ -5,9 +5,12 @@ through `serve(args, paged=False)`, from dense slot rows), and with
 `--draft-config` speculates greedily (a draft proposes, the target
 verifies); `--engine wave` is the batch-synchronous baseline on dense
 slot rows.  Models with recurrent blocks or sliding windows
-(recurrentgemma-2b, xlstm-1.3b) serve from dense slot rows.
-`--quant-weights` serves W8A8 weights.  The summary line ends with the
-engine's stats (`spec_*` under speculation).
+(recurrentgemma-2b, xlstm-1.3b) serve from dense slot rows; the MoE
+models (moonshot-v1-16b-a3b, llama4-maverick-400b-a17b) from the paged
+arena.  `--quant-weights` serves W8A8 weights (2-d leaves only, as in
+the reference, so a MoE model, all of whose weights are stacked, stays
+bf16).  The summary line ends with the engine's stats (`spec_*` under
+speculation).
 
 Runs on the CUDA device unless ``--device cpu`` is given; without a card
 it stops with an error instead of falling back to the CPU.
@@ -20,6 +23,8 @@ it stops with an error instead of falling back to the CPU.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-medium
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
       --arch recurrentgemma-2b --quant-weights
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
+      --arch moonshot-v1-16b-a3b
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
       --draft-config smollm-135m --spec-k 4
 """
@@ -49,8 +54,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="a decoder of the registry: smollm-135m, "
                          "phi3-medium-14b, minitron-8b, musicgen-medium, "
                          "internvl2-1b, deepseek-coder-33b, "
-                         "recurrentgemma-2b, xlstm-1.3b (the last two on "
-                         "dense slot rows)")
+                         "moonshot-v1-16b-a3b, llama4-maverick-400b-a17b "
+                         "(MoE), recurrentgemma-2b, xlstm-1.3b (the last "
+                         "two on dense slot rows)")
     ap.add_argument("--engine", choices=["cb", "wave"], default="cb",
                     help="cb: continuous batching; wave: the batch-"
                          "synchronous baseline (dense slot rows)")

@@ -1,0 +1,151 @@
+"""Mixture-of-Experts FFN: top-k routing with capacity-dropping dense
+dispatch (port of `repro/models/moe.py`).
+
+Each batch row is one routing group.  The router runs in f32; the top k
+experts of a token are taken in descending probability, the lower expert
+index first on equal probabilities (`jax.lax.top_k`'s order, which
+`torch.topk` does not promise), and their gates renormalised to sum to
+1.  Every (token, choice) pair is ranked within its expert by an
+exclusive running count in routing order (token-major, choice-minor); a
+pair ranked at or past the expert's capacity is dropped and reaches the
+block's output only through the residual.  The capacity is set per call
+from that call's sequence length, ``ceil(top_k * S * capacity_factor /
+E)``, so a prefill bucket or a verify block of T tokens routes otherwise
+than T single-token decode steps: the reference's semantics, kept.
+
+Dispatch is dense, as in the reference: every expert computes all of its
+`cap` slots, filled or not, in three bf16 batched products over the
+experts.  The slots of all groups sit in one expert-major buffer, (E, B *
+cap) rows and one overflow row last, filled by one `index_put`; dropped
+pairs all land on the overflow row, which is cut off, so the order of
+those duplicate writes does not matter.  The combine gathers each pair's
+row back (the overflow row reads zeros), weights it by its gate times
+its keep mask in bf16 and sums over the k choices (f32 accumulation,
+rounded once).  Shared experts are a plain bf16 MLP of width
+``n_shared_experts * d_ff`` added to the routed sum.
+
+The experts' SiLU is the reference's on a bf16 array, ``x *
+logistic(x)``, whose lowering rounds each of its ops to bf16 (negate,
+exp, add 1, reciprocal, multiply); `F.silu` rounds once and gives ~40%
+of the routed outputs other bits, up to 0.03 off.  With the same chain
+the routed and shared products equal the reference's bit for bit
+(tests/test_torch_moe.py).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import act_fn, by_column, dense
+
+Params = Dict[str, Any]
+
+
+class Routing(NamedTuple):
+    """One call's routing, groups = batch rows.  gates, experts: (B, S, k)
+    renormalised gate values (f32) and expert ids (int64); rank: (B, S*k)
+    each pair's rank within its expert, in routing order; keep: (B, S*k)
+    rank < cap; aux: the load-balance loss (0-d f32); cap: the capacity."""
+    gates: torch.Tensor
+    experts: torch.Tensor
+    rank: torch.Tensor
+    keep: torch.Tensor
+    aux: torch.Tensor
+    cap: int
+
+
+def _capacity(cfg, tokens_per_group: int) -> int:
+    c = int(math.ceil(cfg.top_k * tokens_per_group * cfg.capacity_factor
+                      / cfg.n_experts))
+    return max(c, 1)
+
+
+def _router_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(x.float(), w)
+
+
+def _silu_bf16(x: torch.Tensor) -> torch.Tensor:
+    """x * logistic(x), each op rounded to x's dtype."""
+    return x * torch.reciprocal(1 + torch.exp(-x))
+
+
+def _act(cfg):
+    return _silu_bf16 if cfg.act == "silu" else act_fn(cfg.act)
+
+
+def route(x: torch.Tensor, p: Params, cfg, columns: bool = False
+          ) -> Routing:
+    """The router, top-k, the aux loss and the capacity ranks of x (B, S,
+    D).  columns: run the router's product one query column at a time (a
+    verify pass; `layers.dense`)."""
+    b, s, _ = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    cap = _capacity(cfg, s)
+    if columns and s > 1:
+        logits = by_column(_router_logits, x, p["router"])
+    else:
+        logits = _router_logits(x, p["router"])
+    probs = torch.softmax(logits, dim=-1)
+    srt, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, experts = srt[..., :k], idx[..., :k]
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+
+    # load-balance aux loss (Switch): e * sum_e f_e * p_e
+    me = probs.mean(dim=(0, 1))
+    ce = F.one_hot(experts[..., 0], e).float().mean(dim=(0, 1))
+    aux = e * torch.sum(me * ce)
+
+    flat = experts.reshape(b, s * k)
+    onehot = F.one_hot(flat, e).to(torch.int32)  # (B, S*k, E)
+    before = torch.cumsum(onehot, dim=1, dtype=torch.int32) - onehot
+    rank = before.gather(-1, flat[..., None])[..., 0]
+    return Routing(gates, experts, rank, rank < cap, aux, cap)
+
+
+def moe_ffn(x: torch.Tensor, p: Params, cfg, columns: bool = False
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, D) bf16 -> (y (B, S, D) bf16, aux 0-d f32).  columns: a
+    verify pass, whose router and shared-expert products run one query
+    column at a time as a decode step's do; the routed experts group
+    each row's S tokens together, as the reference's verify pass does."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    r = route(x, p, cfg, columns)
+    cap = r.cap
+    act = _act(cfg)
+
+    # expert-major dispatch: pair -> row e * (B * cap) + b * cap + rank,
+    # dropped pairs -> the overflow row E * B * cap
+    flat = r.experts.reshape(b, s * k)
+    lane = torch.arange(b, device=x.device)[:, None]
+    n_rows = e * b * cap
+    dest = torch.where(r.keep, flat * (b * cap) + lane * cap + r.rank,
+                       torch.full_like(flat, n_rows))
+    src = x.repeat_interleave(k, dim=1)  # (B, S*k, D), routing order
+    buf = torch.zeros((n_rows + 1, d), dtype=x.dtype, device=x.device)
+    buf = buf.index_put((dest.reshape(-1),), src.reshape(-1, d))
+    xe = buf[:n_rows].view(e, b * cap, d)
+
+    hi = torch.bmm(xe, p["wi"])
+    if cfg.mlp_style == "swiglu":
+        hi = act(torch.bmm(xe, p["wg"])) * hi
+    else:
+        hi = act(hi)
+    ye = torch.bmm(hi, p["wo"]).reshape(n_rows, d)
+
+    ye = torch.cat([ye, ye.new_zeros((1, d))])
+    back = ye[dest]  # (B, S*k, D)
+    w = (r.gates.reshape(b, s * k) * r.keep).to(x.dtype)
+    y = torch.sum((back * w[..., None]).reshape(b, s, k, d), dim=2)
+
+    if cfg.n_shared_experts:
+        hs = dense(x, p["shared_wi"], columns)
+        if cfg.mlp_style == "swiglu":
+            hs = act(dense(x, p["shared_wg"], columns)) * hs
+        else:
+            hs = act(hs)
+        y = y + dense(hs, p["shared_wo"], columns)
+    return y, r.aux

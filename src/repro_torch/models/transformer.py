@@ -1,10 +1,11 @@
 """Decoder backbone, prefill, the fused greedy decode loop and greedy
-speculative decoding (port of `repro/models/transformer.py`; every family
-but MoE).
+speculative decoding (port of `repro/models/transformer.py`; every
+family).
 
 Parameters keep the JAX package's layout: {"embed", "scan", "tail",
 "final_norm"}, with every "scan" leaf stacked on a leading layer-period
-axis (1 for the attention-only families, 3 for recurrentgemma's rglru,
+axis (1 for the attention-only families and moonshot's all-MoE layers,
+2 for llama4's dense then MoE layer, 3 for recurrentgemma's rglru,
 rglru, attn, 8 for xLSTM's 7 mLSTM : 1 sLSTM); the remainder layers
 (recurrentgemma's 26 = 8 x 3 + 2) sit unstacked under "tail".  The
 backbone is a Python loop over the periods, indexing one period's
@@ -23,6 +24,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.quant import kv_quantize
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import recurrent as rec_mod
+from repro_torch.models.moe import moe_ffn
 from repro_torch.models.layers import (
     COMPUTE_DTYPE, cross_entropy_chunked, embed, lm_head, mlp, norm,
 )
@@ -54,14 +56,6 @@ def layer_plan(cfg: ModelConfig) -> Tuple[int, int, List[str]]:
     return cfg.n_layers // p, cfg.n_layers % p, kinds
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE blocks are not ported yet (ROADMAP.md, port "
-            "queue); the port runs attention, RG-LRU, mLSTM and sLSTM "
-            "blocks")
-
-
 # ---------------------------------------------------------------------------
 # one block
 # ---------------------------------------------------------------------------
@@ -82,15 +76,18 @@ def _write_state(state, new, active) -> None:
         leaf.copy_(val)
 
 
-def block_apply(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
-                positions: torch.Tensor, segment_ids, state,
+def block_apply(cfg: ModelConfig, pos_in_period: int, p: Params,
+                h: torch.Tensor, positions: torch.Tensor, segment_ids, state,
                 pos_contiguous: bool = False, page_table=None, active=None):
-    """One block of `kind` ("attn", "rglru", "mlstm", "slstm"): the
-    pre-norm mixer, then (all but the xLSTM family's blocks) a pre-norm
-    MLP, each added to the residual.  `state` (a KV cache or a recurrent
+    """The block at `pos_in_period` of a layer period: the pre-norm mixer
+    of its kind ("attn", "rglru", "mlstm", "slstm"), then (all but the
+    xLSTM family's blocks) a pre-norm MLP, or the MoE FFN on a MoE layer,
+    each added to the residual.  Returns (h, aux): the MoE layer's
+    load-balance loss, else None.  `state` (a KV cache or a recurrent
     state) is updated in place; a recurrent state keeps an inactive lane's
     values, and pad steps (positions at 2^30, or segment -1) leave it
     alone."""
+    kind = cfg.block_kind(pos_in_period)
     z = norm(h, p["norm1"], cfg)
     if kind == "attn":
         y, _ = attn_mod.attention(z, p["mix"], cfg, positions, segment_ids,
@@ -104,10 +101,15 @@ def block_apply(cfg: ModelConfig, kind: str, p: Params, h: torch.Tensor,
         if state is not None:
             _write_state(state, new, active)
     h = h + y
+    aux = None
     if "ffn" in p:
-        h = h + mlp(norm(h, p["norm2"], cfg), p["ffn"], cfg,
-                    columns=page_table is not None)
-    return h
+        z = norm(h, p["norm2"], cfg)
+        if cfg.is_moe_layer(pos_in_period):
+            y, aux = moe_ffn(z, p["ffn"], cfg, columns=page_table is not None)
+        else:
+            y = mlp(z, p["ffn"], cfg, columns=page_table is not None)
+        h = h + y
+    return h, aux
 
 
 def greedy_token_update(logits, cur, active, remaining, eos_id, pad_token):
@@ -189,12 +191,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     """Random parameters in the JAX layout, drawn from a torch.Generator.
 
     Same shapes, dtypes and scales as `repro.models.transformer
-    .init_params` (normal weights scaled 1/sqrt(d_in), embeddings 0.02,
-    norm gains 1 and layernorm biases 0), but torch's generator gives
-    other numbers than jax.random from the same seed; load JAX weights
-    with `models.convert.params_from_jax` to compare with the reference.
+    .init_params` (normal weights scaled 1/sqrt(d_in), embeddings and the
+    f32 MoE router 0.02, norm gains 1 and layernorm biases 0), but torch's
+    generator gives other numbers than jax.random from the same seed; load
+    JAX weights with `models.convert.params_from_jax` to compare with the
+    reference.  Stacked expert weights are drawn one (d_in, d_out) expert
+    slice at a time into their bf16 leaf, so no f32 copy of a whole leaf
+    (35 GB for moonshot-v1-16b-a3b's `wi`) is ever made.
     """
-    _check_supported(cfg)
     n_rep, tail, kinds = layer_plan(cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -255,13 +259,36 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
                 "glu_wi": dense_w(lead, d, 2 * glu_d),
                 "glu_wo": dense_w(lead, glu_d, d)}
 
-    def block(kind, lead):
-        d = cfg.d_model
+    def experts(lead, d_in, d_out):
+        w = torch.empty(lead + (cfg.n_experts, d_in, d_out),
+                        dtype=COMPUTE_DTYPE, device=device)
+        for one in w.view(-1, d_in, d_out):
+            one.copy_(dense_w((), d_in, d_out))
+        return w
+
+    def moe(lead):
+        d, f = cfg.d_model, cfg.d_ff
+        p = {"router": f32(lead + (d, cfg.n_experts)) * 0.02,
+             "wi": experts(lead, d, f), "wo": experts(lead, f, d)}
+        if cfg.mlp_style == "swiglu":
+            p["wg"] = experts(lead, d, f)
+        if cfg.n_shared_experts:
+            fs = f * cfg.n_shared_experts
+            p["shared_wi"] = dense_w(lead, d, fs)
+            p["shared_wo"] = dense_w(lead, fs, d)
+            if cfg.mlp_style == "swiglu":
+                p["shared_wg"] = dense_w(lead, d, fs)
+        return p
+
+    def block(pos_in_period, lead):
+        d, kind = cfg.d_model, cfg.block_kind(pos_in_period)
         p = {"norm1": norm_p(lead, d), "mix": mixer(kind, lead)}
         if cfg.family == "ssm":  # xLSTM blocks carry no MLP
             return p
         p["norm2"] = norm_p(lead, d)
-        if cfg.mlp_style != "none" and cfg.d_ff:
+        if cfg.is_moe_layer(pos_in_period):
+            p["ffn"] = moe(lead)
+        elif cfg.mlp_style != "none" and cfg.d_ff:
             p["ffn"] = {"wi": dense_w(lead, d, cfg.d_ff),
                         "wo": dense_w(lead, cfg.d_ff, d)}
             if cfg.mlp_style == "swiglu":
@@ -273,9 +300,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
         emb["head"] = normal((cfg.d_model, cfg.vocab_size), 0.02)
     return {
         "embed": emb,
-        "scan": ({f"b{i}": block(kinds[i], (n_rep,))
+        "scan": ({f"b{i}": block(i, (n_rep,))
                   for i in range(len(kinds))} if n_rep else {}),
-        "tail": {str(t): block(kinds[t], ()) for t in range(tail)},
+        "tail": {str(t): block(t, ()) for t in range(tail)},
         "final_norm": norm_p((), cfg.d_model),
     }
 
@@ -340,7 +367,6 @@ class Model:
     """Binds a ModelConfig and a device to the apply functions."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
-        _check_supported(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
 
@@ -349,24 +375,36 @@ class Model:
     def backbone(self, params: Params, h: torch.Tensor,
                  positions: torch.Tensor, segment_ids=None, caches=None,
                  pos_contiguous: bool = False, page_table=None, active=None):
-        """h (B,S,D) embeddings -> final-normed h.  Cache leaves are
-        updated in place; the page table is shared by every layer."""
+        """h (B,S,D) embeddings -> (final-normed h, aux): aux is the sum
+        of the MoE layers' load-balance losses (0-d f32, summed per period
+        and then over periods, as the reference's scan does), None in a
+        model without them.  Cache leaves are updated in place; the page
+        table is shared by every layer."""
         cfg = self.cfg
         n_rep, tail, kinds = layer_plan(cfg)
         kw = dict(pos_contiguous=pos_contiguous, page_table=page_table,
                   active=active)
+        aux = None
+
+        def add(total, a):
+            return a if total is None else (total if a is None else total + a)
+
         for i in range(n_rep):
             pp = _index(params["scan"], i)
             pc = None if caches is None else _index(caches["scan"], i)
+            period = None
             for j in range(len(kinds)):
-                h = block_apply(cfg, kinds[j], pp[f"b{j}"], h, positions,
-                                segment_ids,
-                                None if pc is None else pc[f"b{j}"], **kw)
+                h, a = block_apply(cfg, j, pp[f"b{j}"], h, positions,
+                                   segment_ids,
+                                   None if pc is None else pc[f"b{j}"], **kw)
+                period = add(period, a)
+            aux = add(aux, period)
         for t in range(tail):
             st = None if caches is None else caches["tail"][str(t)]
-            h = block_apply(cfg, kinds[t], params["tail"][str(t)], h,
-                            positions, segment_ids, st, **kw)
-        return norm(h, params["final_norm"], cfg)
+            h, a = block_apply(cfg, t, params["tail"][str(t)], h,
+                               positions, segment_ids, st, **kw)
+            aux = add(aux, a)
+        return norm(h, params["final_norm"], cfg), aux
 
     # -- caches ------------------------------------------------------------
 
@@ -448,18 +486,20 @@ class Model:
                             device=x.device).expand(b, s), True
 
     def loss(self, params, batch) -> torch.Tensor:
-        """Mean next-token cross-entropy (0-d f32) of a batch dict:
-        "tokens" (B, S) or "embeds" (B, S, D), "labels" (B, S) (< 0 =
-        ignored), optional "positions" and "segment_ids".  Without
-        positions, S > 1024 runs flash_attention, which is forward-only:
-        call this under torch.no_grad() there.  Attention-only families
-        have no auxiliary loss (the reference adds 0.01 x its MoE aux)."""
+        """Mean next-token cross-entropy (0-d f32) of a batch dict, plus
+        0.01 x the MoE layers' load-balance loss in a MoE model, as the
+        reference's: "tokens" (B, S) or "embeds" (B, S, D), "labels" (B,
+        S) (< 0 = ignored), optional "positions" and "segment_ids".
+        Without positions, S > 1024 runs flash_attention, which is
+        forward-only: call this under torch.no_grad() there."""
         x = self.embed_inputs(params, batch.get("tokens"),
                               batch.get("embeds"))
         positions, contiguous = self._positions(x, batch.get("positions"))
-        h = self.backbone(params, x, positions, batch.get("segment_ids"),
-                          pos_contiguous=contiguous)
-        return cross_entropy_chunked(h, batch["labels"], params["embed"])
+        h, aux = self.backbone(params, x, positions,
+                               batch.get("segment_ids"),
+                               pos_contiguous=contiguous)
+        ce = cross_entropy_chunked(h, batch["labels"], params["embed"])
+        return ce if aux is None else ce + 0.01 * aux
 
     def forward_logits(self, params, tokens=None, embeds=None,
                        positions=None) -> torch.Tensor:
@@ -467,7 +507,7 @@ class Model:
         S > 1024 runs flash_attention once per layer."""
         x = self.embed_inputs(params, tokens, embeds)
         positions, contiguous = self._positions(x, positions)
-        h = self.backbone(params, x, positions, pos_contiguous=contiguous)
+        h, _ = self.backbone(params, x, positions, pos_contiguous=contiguous)
         return lm_head(h, params["embed"])
 
     def prefill(self, params, caches, tokens=None, embeds=None,
@@ -488,8 +528,8 @@ class Model:
             last_idx = torch.full((b,), s - 1, dtype=torch.long,
                                   device=x.device)
         last_idx = last_idx.long()
-        h = self.backbone(params, x, positions, caches=caches,
-                          pos_contiguous=contiguous)
+        h, _ = self.backbone(params, x, positions, caches=caches,
+                             pos_contiguous=contiguous)
         bidx = torch.arange(b, device=x.device)
         caches["pos"] = positions[bidx, last_idx].to(torch.int32) + 1
         h_last = h[bidx, last_idx][:, None]
@@ -507,8 +547,8 @@ class Model:
         x = (embed(token[:, None], params["embed"]) if token.dim() == 1
              else token[:, None, :].to(COMPUTE_DTYPE))
         positions = caches["pos"][:, None]
-        h = self.backbone(params, x, positions, caches=caches,
-                          page_table=caches.get("pt"), active=active)
+        h, _ = self.backbone(params, x, positions, caches=caches,
+                             page_table=caches.get("pt"), active=active)
         pos = caches["pos"]
         caches["pos"] = (pos + 1 if active is None
                          else torch.where(active, pos + 1, pos))
@@ -621,7 +661,12 @@ class Model:
         runs one query column at a time, at the decode step's M = B
         (`layers.dense`): every row's logits are what T chained
         single-step `decode_step` calls with the same inputs give, bit for
-        bit, which is what makes greedy verification lossless.  Returns
+        bit, which is what makes greedy verification lossless.  A MoE
+        layer routes each row's T tokens as one group with the capacity of
+        S = T (the reference's verify pass): where a pair is dropped there,
+        the row parts from its chained steps, which route one token a call
+        and never drop; speculation on a MoE model is therefore not
+        lossless, in the reference as here (models/moe.py).  Returns
         (logits (B, T, V) f32, caches), the position counters untouched:
         the caller advances them by the accepted length only.
         """
@@ -632,8 +677,8 @@ class Model:
         positions = (caches["pos"][:, None]
                      + torch.arange(t, dtype=torch.int32,
                                     device=x.device)[None, :])
-        h = self.backbone(params, x, positions, caches=caches,
-                          page_table=caches["pt"], active=active)
+        h, _ = self.backbone(params, x, positions, caches=caches,
+                             page_table=caches["pt"], active=active)
         return lm_head(h, params["embed"], columns=True), caches
 
     def spec_decode_step(self, params, caches, token: torch.Tensor,

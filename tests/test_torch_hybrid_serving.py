@@ -36,7 +36,6 @@ from repro.models.synthetic import affine_prompts, fit_affine_lm
 from repro.models.transformer import make_model as jmake
 from repro.serving import engine as jeng
 from repro_torch.configs import get_config as tget
-from repro_torch.configs.base import ModelConfig
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.quantized import is_quantized
 from repro_torch.models.transformer import make_model as tmake
@@ -185,12 +184,3 @@ def test_refusals(fitted):
         teng.ContinuousBatchingEngine(
             tm, tp, spec_config={"draft_model": tm, "draft_params": tp})
 
-
-@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b",
-                                  "llama4-maverick-400b-a17b"])
-def test_moe_is_still_refused(arch):
-    """MoE blocks are not ported: a model of the reference's MoE config
-    raises NotImplementedError."""
-    cfg = ModelConfig(**get_config(arch).reduced().__dict__)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tmake(cfg, device="cpu")
