@@ -33,7 +33,12 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    the port-only row norm (rmsnorm, layernorm) at every served width
    (ROW_NORM_DS) and at 1, 8, 40 and 4096 rows, within ROW_NORM_TOL, in
    bf16 beside F.rms_norm / F.layer_norm, and row-count invariant: a
-   row's output is the same bits at every row count;
+   row's output is the same bits at every row count; the port-only gemm
+   (every served `layers.dense` product and the head, f32 sums in an
+   order fixed by K) at the served product shapes, within 2^-8 |want| + 1e-5
+   |x||w| of its plain version, timed beside it and torch.matmul, and a
+   column block of w or a row block of x equal to the whole product bit
+   for bit (where torch.matmul parts);
 4. long forward: smollm-135m at full width (30 layers, random weights
    from seed 0) through `Model.forward_logits` at B=2, S=4096, `loss` on
    the same tokens and `prefill` without positions at S=1536 into 1,600
@@ -60,11 +65,12 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    torch.profiler says where the main route's time goes (the decode
    kernel's and the row norm's shares of device time);
 6. model: the same weights run prefill and 8 decode steps on the card and
-   on the CPU (plain versions), on a bf16 page arena, dense slot rows and
-   an int8 page arena; logits must agree within a stated bound, and
-   kv_quantize of the card's K/V rows must equal the CPU's bit for bit;
-   where 8 fused greedy steps part, the CPU's top-2 logit gap is logged
-   beside the card's logit error at that step;
+   on the CPU (plain versions), on a bf16 page arena; logits must agree
+   within a stated bound; where 8 fused greedy steps part, the CPU's
+   top-2 logit gap is logged beside the card's logit error at that step;
+   on dense slot rows and an int8 page arena the card half alone
+   (finite logits; kv_quantize of the card's K/V rows equal to the
+   CPU's bit for bit), their CPU halves cut for chip time;
 7. fit: `models.synthetic.fit_affine_lm` on the card at its defaults
    (1,000 Adam steps) for reduced smollm-135m (the gate's instrument:
    the full-width fit does not reach the accuracy a gate needs, PERF.md),
@@ -89,7 +95,7 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    paged cb engine at full depth (deepseek-coder-33b cut to 8 of its 62
    layers), exact paged_flash_decode and row_norm launch counts, and the
    verify block equal to its chained decode steps bit for bit (each
-   product runs at a decode step's M = B rows);
+   product runs once over the B*T rows on the K-ordered gemm kernel);
    then reduced musicgen-medium and minitron-8b fitted and gated card vs
    CPU at token match 1.0 (paged);
 11. recurrent: recurrentgemma-2b (RG-LRU blocks, sliding-window MQA
@@ -119,7 +125,28 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    required on the rows with no drop; 8 fused decode steps profiled (the
    expert products' share of device time and their bytes against the
    bound); then both reduced, fitted and gated at token match 1.0;
-13. encode: the integer I-BERT encoder (ibert-base at full width, 12
+13. plans: the multi-device serve plans on the single-controller mesh,
+   every shard on the one card (shards share it, so this checks the
+   program and its contract, not multi-card scaling): the GMI
+   collectives and pipelined_apply on 8 CUDA shards equal the CPU's bit
+   for bit; kernels 1-3 at the per-shard shapes (1 kv head of 3 query
+   heads at hd 64, smollm-135m's on 3 shards; 2 of 4 at hd 128,
+   minitron-8b's on 4); smollm-135m x30 through the paged cb engine
+   under a mode="serve" plan on a (1, 3) mesh, bf16 and int8, a cold
+   pass then one of radix hits on the sharded arena, every stream equal
+   to the plan-free engine's, kernel 1 (2) 3 x 30 launches a decode
+   step, each shard's arena one kv head, and the logits of a prefill and
+   4 decode steps equal one device's bit for bit on paged, int8 and
+   dense-slot caches; the two routes profiled (4 fused steps); the
+   --no-exact psum form (logits and token match logged on random
+   weights; the band, token match >= 0.98, required on a fitted reduced
+   model with 3 kv heads); smollm-135m's 30 layers on a 6-stage
+   serve_pipeline plan: the pipelined loop equal to Model.decode_steps,
+   the engine's streams equal to the dense-slot engine's, 11 ticks and
+   30 x 6 flash_decode launches a step, Eq. 1 from the stage time;
+   minitron-8b at full width, 8 of its 32 layers, on (1, 4): streams and
+   logits equal one device's; the --dryrun CLI's markers;
+14. encode: the integer I-BERT encoder (ibert-base at full width, 12
    layers, random float weights from seed 0, calibrated at batch 1, seq
    128) through `repro_torch.launch.ibert_encoder`: one forward must
    launch exactly 72 / 12 / 24 / 12 int8_matmul / i_softmax / i_layernorm
@@ -128,11 +155,13 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    tests/test_ibert_model.py's bounds, 12 within the reference's own
    12-layer error on these weights); then one forward under
    torch.profiler, and the entry point's time at seq 1, 8, 32, 64, 128;
-14. summary: a JSON line of the kernels (the decode kernels' launches
+15. summary: a JSON line of the kernels (the decode kernels' launches
    include the gate's, the spec phase's, the families', the recurrent
-   phase's and the moe phase's; row_norm's are the serve phases' and the
-   families', recurrent and MoE models' served streams; int8_matmul's the
-   encoder's and recurrentgemma's W8A8 stream), then the device line.
+   phase's, the moe phase's and the plans phase's; row_norm's are the
+   serve phases' and the families', recurrent, MoE and plans models'
+   served streams; gemm's the serve phases' and the plans phase's
+   streams; int8_matmul's the encoder's and recurrentgemma's W8A8
+   stream), then the device line.
 
 Each phase logs its wall seconds ("phase ...").
 """
@@ -153,11 +182,13 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.cluster_builder import build_plan  # noqa: E402
 from repro_torch.core import ibert_ops, quant  # noqa: E402
 from repro_torch.core.quant import QTensor  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.launch import ibert_encoder  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models import ibert as ib  # noqa: E402
 from repro_torch.models import moe, synthetic  # noqa: E402
 from repro_torch.models.quantized import (  # noqa: E402
@@ -165,6 +196,7 @@ from repro_torch.models.quantized import (  # noqa: E402
 from repro_torch.models.transformer import init_params, make_model  # noqa: E402
 from repro_torch.serving.engine import (  # noqa: E402
     ContinuousBatchingEngine, Request)
+from repro_torch.serving.executor import Executor  # noqa: E402
 
 SENTINEL = 2 ** 30
 # published peaks of one H100 SXM at 700 W (NVIDIA data sheet, dense): HBM
@@ -202,7 +234,7 @@ ATTN_KERNELS = DECODE_KERNELS + ("flash_attention",)
 # kernels whose every compiled instance must report 0 spill bytes
 SPILL_FREE = ("paged_flash_decode", "flash_decode", "paged_flash_decode_q",
               "int8_matmul", "i_softmax", "i_layernorm", "i_gelu",
-              "row_norm")
+              "row_norm", "gemm")
 LOGIT_TOL = 0.1    # 30 bf16 layers, CPU vs card summation order
 LOSS_TOL = 1e-2    # mean cross-entropy of those logits, card vs CPU
 # flash_attention vs its plain version, (atol, rtol) as |out - want| <=
@@ -237,9 +269,10 @@ FAMILY_GATES = ("musicgen-medium", "minitron-8b")
 # the spec phase's page pool (16-row pages): ~5 lanes' worth at its
 # budgets, so B=8 lanes starve, preempt and (speculating) catch drafts up
 SPEC_PAGES = 30
-# the paged serve profile's window: 8 requests (16 before the recurrent
-# phase came; the profiler's handling of the window's events took ~100 s)
-PROFILE_REQUESTS = 8
+# the paged serve profile's window: 4 requests (16 before the recurrent
+# phase came, 8 before the plans phase; the profiler's handling of the
+# window's events took ~100 s at 16)
+PROFILE_REQUESTS = 4
 # the recurrent phase: each model at full width, card vs CPU on one
 # period of its layers (every block kind: recurrentgemma's rglru, rglru,
 # attn; xlstm's 7 mLSTM and 1 sLSTM), then served at full depth
@@ -937,6 +970,11 @@ def serve_phase(stream: str, n: int, engine: str = "cb",
     require(not any(others.values()), f"{route}: other attention kernels "
             f"launched: {others}")
     _require_norms(route, norms, eng)
+    gemms, s = ops.launches["gemm"], eng.stats
+    calls = s["decode_steps"] + s.get("prefills", 0) + s.get("waves", 0)
+    per = 7 * n_layers + 1  # q, k, v, o, wi, wg, wo a layer; the head
+    require(gemms == per * calls, f"{route}: {gemms} gemm launches != "
+            f"{per} x {calls} backbone calls")
     toks = sum(len(r.tokens_out) for r in done)
     ttft = sorted((r.t_first_token - r.t_enqueue) * 1e3 for r in done)
     s = eng.stats
@@ -944,13 +982,13 @@ def serve_phase(stream: str, n: int, engine: str = "cb",
         f"wall_s={wall:.4f} tok_s={toks / wall:.1f} "
         f"ttft_p50_ms={ttft[len(ttft) // 2]:.2f} decode_steps={steps} "
         f"{kernel}_launches={launches} (= {n_layers} x {steps}) "
-        f"row_norm_launches={norms} "
+        f"row_norm_launches={norms} gemm_launches={gemms} "
         f"prefix_hits={s.get('prefix_hits', 0)} "
         f"pages_peak={s.get('pages_peak', 0)} "
         f"preemptions={s.get('preemptions', 0)}")
     if stream == "shared-prefix":
         require(s["prefix_hits"] > 0, f"no prefix hit: {s}")
-    return dict(kernel=kernel, launches=launches, row_norm=norms)
+    return dict(kernel=kernel, launches=launches, row_norm=norms, gemm=gemms)
 
 
 def _norms_per_call(cfg) -> int:
@@ -1250,15 +1288,14 @@ def phi3_forward_phase(dev) -> int:
 
 def model_phase(kind: str, cfg=None, note: str = "",
                 gated: bool = True) -> None:
-    """Same weights on card and CPU, on a bf16 page arena ("paged"), an
-    int8 one ("int8") or dense slot rows ("dense"): prefill two prompts,
-    then 8 decode steps fed the same tokens on both; then 8 fused greedy
-    steps.  On the int8 arena, kv_quantize of the card's K/V rows must
-    equal the CPU's of the same rows bit for bit.  `cfg`: smollm-135m
-    unless given; `note` says how a given one was cut.  gated=False logs
-    the error without requiring LOGIT_TOL, beside the CPU's own spread:
-    the same CPU run once more on one thread (another summation order
-    of its bf16 products), and that run's distance from the first.  A
+    """Same weights on card and CPU, on a bf16 page arena ("paged") or
+    dense slot rows ("dense"): prefill two prompts, then 8 decode steps
+    fed the same tokens on both; then 8 fused greedy steps.  `cfg`:
+    smollm-135m unless given; `note` says how a given one was cut.
+    gated=False logs the error without requiring LOGIT_TOL, beside the
+    CPU's own spread: the same CPU run once more on one thread (another
+    summation order of its bf16 products), and that run's distance from
+    the first.  A
     MoE model's routing is compared too (`_route_diff`), and LOGIT_TOL
     holds on each lane up to its first step that card and CPU route
     otherwise: from there the lane's tokens take other experts or drop
@@ -1318,8 +1355,30 @@ def model_phase(kind: str, cfg=None, note: str = "",
         f"{match:.3f}; {_first_divergence(cpu, gpu)}")
     require(not gated or max(held, default=0.0) <= LOGIT_TOL,
             f"{cfg.name} {kind}: card vs CPU logits: {held}")
+
+
+def card_model_phase(kind: str) -> None:
+    """model_phase's card half alone on dense slot rows ("dense") or an
+    int8 arena ("int8"), whose CPU halves are cut for chip time (the gate
+    phase holds both caches card vs CPU on the fitted model): smollm-135m
+    prefills two prompts and runs 8 decode steps, then 8 fused greedy
+    steps, all logits finite; on the int8 arena kv_quantize of the card's
+    K/V rows must equal the CPU's of the same rows bit for bit."""
+    cfg = get_config("smollm-135m")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (21, 37)]
+    params = init_params(cfg, seed=0, device="cuda")
+    with torch.no_grad():
+        run = _model_run(make_model(cfg, device="cuda"), params, prompts,
+                         16, 6, 8, None, kind)
+    require(all(bool(torch.isfinite(lg).all()) for lg in run["logits"]),
+            f"model {kind}: logits not finite")
+    log(f"model {cfg.name} {kind} cache (card only), prefill+8 decode "
+        f"steps: finite logits, |logit| max "
+        f"{max(lg.abs().max().item() for lg in run['logits']):.3g}")
     if kind == "int8":
-        rows = gpu["kv_rows"]
+        rows = run["kv_rows"]
         same = [torch.equal(a.cpu(), b) for x in rows
                 for a, b in zip(quant.kv_quantize(x),
                                 quant.kv_quantize(x.cpu()))]
@@ -1642,49 +1701,6 @@ def _verify_vs_chained(model, params, kind: str, seed: int) -> tuple:
     return float(diff.max()), float((top2[..., 0] - top2[..., 1])[differ][0])
 
 
-def _spec_profile(model, params, requests) -> None:
-    """The full-width self-draft spec run once more under torch.profiler:
-    the device's busy share of the window, device ops per dispatch, and
-    the paged kernel's share of device time (its spans must number its
-    launches)."""
-    spec = dict(draft_model=model, draft_params=params, spec_k=SPEC_K)
-    eng = ContinuousBatchingEngine(model, params, max_batch=8,
-                                   buckets=serve_cli.BUCKETS,
-                                   deadline_s=0.0, max_decode_len=40,
-                                   spec_config=spec)
-    for i, (p, b) in enumerate(requests):
-        eng.submit(Request(rid=i, prompt=p, max_new_tokens=b))
-    ops.reset_launches()
-    spans, wall_us = _device_spans(eng.run)
-    if not spans:
-        log("profile spec: the profiler recorded no device time (not "
-            "measured)")
-        return
-    kern = [e - s for s, e, name in spans
-            if "paged_flash_decode_kernel" in name]
-    n = ops.launches["paged_flash_decode"]
-    require(len(kern) == n, f"profile spec: {len(kern)} kernel spans, "
-            f"{n} launches")
-    dev_total = sum(e - s for s, e, _ in spans)
-    disp = eng.stats["decode_dispatches"]
-    # cuBLAS's GEMM kernels (sm90 xmma / nvjet names): the verify pass
-    # runs each product once per query column
-    gemms = sum(1 for _, _, name in spans
-                if "gemm" in name.lower() or "nvjet" in name.lower())
-    log(f"profile spec smollm-135m self-draft bf16 x{len(requests)} (B=8, "
-        f"spec_k {SPEC_K}): gemm_ops_per_dispatch="
-        f"{gemms / max(disp, 1):.1f} (draft steps and verify columns; "
-        f"{eng.stats.get('spec_dispatches', 0)} spec dispatches) "
-        f"wall_ms={wall_us / 1e3:.2f} "
-        f"device_busy_share={_busy_us(spans) / wall_us:.4f} "
-        f"device_kernel_ms={dev_total / 1e3:.2f} "
-        f"paged_flash_decode_share_of_device="
-        f"{sum(kern) / max(dev_total, 1e-9):.4f} ({n} launches) "
-        f"device_ops_per_dispatch={len(spans) / max(disp, 1):.1f} "
-        f"dispatches={disp} decode_steps={eng.stats['decode_steps']} "
-        f"wall_ms_per_dispatch={wall_us / 1e3 / max(disp, 1):.3f}")
-
-
 def spec_phase(dev, fits: dict) -> dict:
     """Speculative serving on the card through the paged cb engine
     (spec_k 4, B=8): the fitted reduced target with its clean and its
@@ -1739,7 +1755,6 @@ def spec_phase(dev, fits: dict) -> dict:
     add(got)
     add(_spec_run("smollm-135m self-draft", model, params, requests, "bf16",
                   model, params, toks, wall, num_pages=None))
-    _spec_profile(model, params, requests[:8])
     return launches
 
 
@@ -1788,9 +1803,10 @@ def family_serve(model, params, seed: int, phase: str = "families") -> dict:
 
 
 def _gemm_rows(params, tied: bool) -> str:
-    """Which of a model's products (torch.matmul, cuBLAS) give a row other
-    bits among 40 rows, a verify pass (B=8 x T=5), than among 8, a decode
-    step: layer 0's weights and the head, on seeded bf16 rows."""
+    """Which of a model's products would give a row other bits among 40
+    rows, a verify pass (B=8 x T=5), than among 8, a decode step, on
+    torch.matmul (cuBLAS), the reason the served products run on the
+    K-ordered gemm: layer 0's weights and the head, on seeded bf16 rows."""
     emb = params["embed"]
     ws = {f"{blk} {k}": v[0] for blk in ("mix", "ffn")
           for k, v in params["scan"]["b0"][blk].items()}
@@ -1841,10 +1857,10 @@ def families_phase(dev) -> dict:
         d, gap = _verify_vs_chained(model, params, "paged", 2)
         log(f"families {arch} {depth}: max |verify_block - {SPEC_K + 1} "
             f"chained decode_step| logits = {d:.4g} (chained top-2 gap at "
-            f"the first differing row: {gap}); outputs that differ between "
-            f"one (40, D) product and the 8-row products the verify pass "
-            f"now runs, per product: "
-            f"{_gemm_rows(params, cfg.tie_embeddings)}")
+            f"the first differing row: {gap}); torch.matmul's outputs that "
+            f"differ between one (40, D) product and five 8-row ones, which "
+            f"the verify pass's K-ordered gemm products do not part, per "
+            f"product: {_gemm_rows(params, cfg.tie_embeddings)}")
         require(d == 0, f"families {arch}: the verify pass parts from the "
                 "chained decode steps")
         del model, params
@@ -2039,6 +2055,552 @@ def recurrent_phase(dev) -> dict:
         launches["flash_decode"] += gate_phase(
             model, params, "dense")["flash_decode"]
     return launches
+
+# ---------------------------------------------------------------------------
+# the K-ordered gemm (port-only) and the multi-device serve plans
+# ---------------------------------------------------------------------------
+
+
+def _gemm_case(label: str, x, w, nk: bool, flush, main: bool = False):
+    """The gemm kernel at one shape against its plain version (the f32
+    product of the same bf16 inputs, rounded to bf16 once): within 2^-8
+    |want| + 1e-5 (|x| @ |w|) (the two sides' rounding and f32 summation
+    order), then timed beside it and beside torch.matmul (cuBLAS, the
+    library yardstick).  Bound: x and w read and out written once over
+    the HBM rate, or 2 M N K operations over the bf16 tensor-core rate."""
+    wk = w.t() if nk else w
+
+    def kernel():
+        return ops.gemm(x, w, w_nk=nk)
+
+    def plain():
+        return (x.float() @ wk.float()).bfloat16()
+
+    out = kernel()
+    want = x.float() @ wk.float()
+    spread = x.float().abs() @ wk.float().abs()
+    diff = (out.float() - want).abs()
+    worst = (diff / (2 ** -8 * want.abs() + 1e-5 * spread + 1e-30)).max()
+    err = diff.max().item()
+    check = (f"max_abs_err={err:.3g} (limit 2^-8 |want| + 1e-5 |x||w|, "
+             f"worst {worst.item():.3f} of it)")
+    require(worst.item() <= 1.0, f"gemm {label}: kernel vs plain {check}")
+    if not main:
+        log(f"kernel gemm {label}: {check}")
+        return None
+    m, k = x.shape
+    n = wk.shape[1]
+    ms = time_ms(kernel, flush)
+    plain_ms = time_ms(plain, flush)
+    library_ms = time_ms(lambda: torch.matmul(x, wk), flush)
+    nbytes = 2 * (m * k + k * n + m * n)
+    bound_ms, bound_by = _bound(nbytes, 2 * m * n * k, BF16_FLOP_S)
+    log(f"kernel gemm {label}: {check} ms={ms:.5f} plain_ms={plain_ms:.5f} "
+        f"library_ms={library_ms:.5f} bound_ms={bound_ms:.6f} ({bound_by}; "
+        f"{nbytes} bytes, {2 * m * n * k:.4g} flop)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+def gemm_phase(dev, flush) -> dict:
+    """The port-only gemm: each served product shape against its plain
+    version and timed (a decode step's M = 8, a prefill bucket's 128, a
+    wave's 1024; smollm-135m, its tensor-parallel shards, minitron-8b's
+    and llama4-maverick's dense layer and head), then its invariance: a
+    column block of w (a shard's) and a row block of x (a microbatch's, a
+    decode step's inside a verify pass) give the whole product's bits,
+    where cuBLAS parts (a
+    1024-column block of minitron-8b's wq at M 1-64 on an H100).  Returns
+    the metrics at a smollm-135m decode step's wi (M 8, K 576, N 1536)."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).bfloat16()
+
+    main = None
+    cases = [(8, 576, 1536, False, "smollm wi, decode"),
+             (8, 576, 576, False, "smollm wq, decode"),
+             (8, 576, 192, False, "smollm wq shard of 3, decode"),
+             (8, 576, 64, False, "smollm wk shard of 3, decode"),
+             (8, 576, 49152, True, "smollm tied head, decode"),
+             (8, 576, 16384, True, "smollm head shard of 3, decode"),
+             (128, 576, 1536, False, "smollm wi, prefill bucket"),
+             (1024, 576, 1536, False, "smollm wi, a wave's prefill "
+              "(EXACT_ROWS_MAX rows, the most the kernel takes)"),
+             (8, 4096, 4096, False, "minitron wq, decode"),
+             (8, 4096, 1024, False, "minitron wq shard of 4, decode"),
+             (8, 4096, 16384, False, "minitron wi, decode"),
+             (8, 4096, 4096, False, "minitron wi shard of 4, decode"),
+             (128, 4096, 16384, False, "minitron wi, prefill bucket"),
+             (8, 5120, 8192, False, "llama4 dense wi, decode"),
+             (8, 5120, 202048, False, "llama4 head, decode")]
+    for m, k, n, nk, what in cases:
+        x = rnd(m, k)
+        w = rnd(n, k, scale=0.02) if nk else rnd(k, n, scale=k ** -0.5)
+        label = f"{what} M={m} K={k} N={n}{' (w as N x K)' if nk else ''}"
+        got = _gemm_case(label, x, w, nk, flush,
+                         main=True)
+        if main is None:
+            main = got
+    for k, n, shards in ((576, 576, 3), (576, 1536, 3), (4096, 4096, 4),
+                         (4096, 1024, 4), (4096, 16384, 4)):
+        x, w = rnd(128, k), rnd(k, n, scale=k ** -0.5)
+        whole = ops.gemm(x, w)
+        cols = n // shards
+        parts = [w[:, i * cols:(i + 1) * cols].contiguous()
+                 for i in range(shards)]
+        cublas = torch.matmul(x, w)
+        parted = []
+        for m in (1, 6, 8, 40, 64, 128):
+            got = torch.cat([ops.gemm(x[:m], p) for p in parts], 1)
+            require(torch.equal(got, whole[:m])
+                    and torch.equal(ops.gemm(x[m - 1:m], w), whole[m - 1:m]),
+                    f"gemm K={k} N={n}: a block parts from the whole at "
+                    f"M={m}")
+            cub = torch.cat([torch.matmul(x[:m], p) for p in parts], 1)
+            parted.append(int((cub != cublas[:m]).sum()))
+        log(f"kernel gemm K={k} N={n} in {shards} column blocks at M 1, 6, "
+            f"8, 40, 64, 128: equal to the whole product bit for bit "
+            f"(torch.matmul parts at {parted} outputs)")
+    return main
+
+
+PLAN_ARCH = "smollm-135m"  # served on a (1, 3) model axis: 1 kv head a shard
+PLAN_TP = (1, 3)
+PLAN_BIG = ("minitron-8b", (1, 4), 8)  # 2 kv heads a shard, 8 of 32 layers
+PLAN_STAGES = 6  # smollm-135m's 30 layers, 5 a stage: the paper's chain
+# the --no-exact band's instrument: Adam steps of its fit (the CPU's
+# 300-step fit of the same config already gives token match 1.0)
+PLAN_FIT_STEPS = 400
+
+
+def _gemms_per_call(cfg, n: int, exact: bool) -> int:
+    """gemm launches of one backbone call and its head under a serve plan
+    on n tensor-parallel shards."""
+    attn_tp = cfg.n_kv_heads % n == 0 and cfg.n_heads % n == 0
+    mlp_tp = cfg.d_ff % n == 0
+    mats = 2 if cfg.mlp_style == "swiglu" else 1
+    attn = 3 * (n if attn_tp else 1) + (n if attn_tp and not exact else 1)
+    mlp = mats * (n if mlp_tp else 1) + (n if mlp_tp and not exact else 1)
+    vocab_tp = cfg.vocab_size % n == 0
+    return cfg.n_layers * (attn + mlp) + (n if vocab_tp else 1)
+
+
+def _plan_engine_pass(eng, reqs, what: str) -> tuple:
+    """One pass of `reqs` through an engine, the launch counts set to 0
+    just before and read just after.  Returns ({rid: tokens}, stats
+    delta, launches, wall seconds)."""
+    for r in reqs:
+        eng.submit(r)
+    s0 = dict(eng.stats)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = dict(ops.launches)
+    require(len(done) == len(reqs) and all(
+        r.done and (len(r.tokens_out) == r.max_new_tokens
+                    or r.tokens_out[-1] == r.eos_id) for r in done),
+        f"{what}: a request stopped short of its budget")
+    ds = {k: v - s0.get(k, 0) for k, v in eng.stats.items()
+          if isinstance(v, int)}
+    return {r.rid: tuple(r.tokens_out) for r in done}, ds, got, wall
+
+
+def _plan_serve(model, params, shape, kv: str, launches: dict,
+                exact: bool = True, passes=("cold", "hits")) -> dict:
+    """smollm-135m (or the model given) through the paged cb engine under
+    a mode="serve" plan on `shape`, beside the plan-free engine, over the
+    shared-prefix stream (8 requests of 32 tokens, B=8): a cold pass,
+    then one whose admissions hit the radix tree on the sharded arena.
+    Each pass: the plan's streams equal the plain engine's (exact),
+    kernel 1 (or 2) launches n_shards x n_layers per decode step, the
+    row norm 2 per layer and 1 per call, gemm as `_gemms_per_call`.
+    Returns the plan's streams per pass."""
+    cfg = model.cfg
+    mesh = make_mesh(shape, ("data", "model"))
+    n = mesh.shape["model"]
+    plan = build_plan(cfg, mesh, mode="serve", exact=exact)
+    kernel = "paged_flash_decode_q" if kv == "int8" else "paged_flash_decode"
+    form = "exact" if exact else "no-exact"
+    what = f"plans serve {form} {cfg.name} x{cfg.n_layers} {kv} mesh {shape}"
+    args = serve_cli.parse_args(["--requests", "8", "--max-new", "32",
+                                 "--stream", "shared-prefix", "--seed", "0"])
+    engines = {name: ContinuousBatchingEngine(
+        model, params, max_batch=8, buckets=serve_cli.BUCKETS, kv_dtype=kv,
+        plan=p) for name, p in (("plain", None), ("plan", plan))}
+    out = {}
+    for pas in passes:
+        streams = {}
+        for name, eng in engines.items():
+            reqs = serve_cli.make_stream(args, cfg.vocab_size, args.seed)
+            streams[name], ds, got, wall = _plan_engine_pass(eng, reqs, what)
+            steps = ds["decode_steps"]
+            if name == "plain":
+                log(f"{what} {pas}: the plain engine: wall_s={wall:.4f} "
+                    f"wall_ms_per_decode_step="
+                    f"{wall * 1e3 / max(steps, 1):.2f}")
+                continue
+            calls = steps + ds["prefills"]
+            want = {k: n * cfg.n_layers * steps if k == kernel else 0
+                    for k in ATTN_KERNELS}
+            have = {k: got[k] for k in ATTN_KERNELS}
+            require(have == want, f"{what} {pas}: launches {have} != {want}")
+            per = _gemms_per_call(cfg, n, exact)
+            require(got["gemm"] == per * calls, f"{what} {pas}: "
+                    f"{got['gemm']} gemm launches != {per} x {calls} calls")
+            require(got["row_norm"] == _norms_per_call(cfg) * calls,
+                    f"{what} {pas}: {got['row_norm']} row_norm launches")
+            for k in (kernel, "row_norm", "gemm"):
+                launches[k] += got[k]
+            toks = sum(len(t) for t in streams[name].values())
+            log(f"{what} {pas}: tokens={toks} wall_s={wall:.4f} "
+                f"tok_s={toks / wall:.1f} decode_steps={steps} "
+                f"wall_ms_per_decode_step={wall * 1e3 / max(steps, 1):.2f} "
+                f"prefix_hits={ds['prefix_hits']} prefills={ds['prefills']} "
+                f"{kernel}_launches={got[kernel]} (= {n} shards x "
+                f"{cfg.n_layers} x {steps}) gemm_launches={got['gemm']} "
+                f"row_norm_launches={got['row_norm']}")
+            if pas == "hits":
+                require(ds["prefix_hits"] >= len(reqs) - 1,
+                        f"{what}: {ds['prefix_hits']} hits in the second "
+                        "pass")
+        if exact:
+            require(streams["plan"] == streams["plain"], f"{what} {pas}: "
+                    "the plan's streams part from one device's")
+        out[pas] = (streams["plan"], streams["plain"])
+    arena = engines["plan"]._slot_caches["scan"]["b0"]
+    if cfg.n_kv_heads % n == 0:
+        heads = [t.shape[3] for t in arena["k"]]
+        require(heads == [cfg.n_kv_heads // n] * n,
+                f"{what}: arena kv heads per shard {heads}")
+        log(f"{what}: each of the {n} shards' arenas holds "
+            f"{heads[0]} kv head(s) (P, ps, KVH/n, hd) = "
+            f"{tuple(arena['k'][0].shape[1:])}")
+    return out
+
+
+def _plan_logits(model, params, shape, kind: str, what: str,
+                 exact: bool = True) -> float:
+    """Prefill two prompts and 4 teacher-fed decode steps on the plain
+    cache and on the same cache placed under a serve plan (paged, int8
+    or dense): the largest |logit| difference (0 = bit for bit)."""
+    plan = build_plan(model.cfg, make_mesh(shape, ("data", "model")),
+                      mode="serve", exact=exact)
+    ex = Executor(model, params, max_batch=2, plan=plan)
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, model.cfg.vocab_size, n).astype(np.int32)
+               for n in (21, 37)]
+    act = torch.ones((2,), dtype=torch.bool, device=model.device)
+    with torch.no_grad():
+        plain, lg = _admitted(model, params, prompts, 16, 6, kind)
+        placed, lg2 = _admitted(model, params, prompts, 16, 6, kind)
+        placed = ex.place_caches(placed, kind != "dense")
+        d = (lg - lg2).abs().max().item()
+        for _ in range(4):
+            tok = lg.argmax(-1).to(torch.int32)
+            lg, plain = model.decode_step(params, plain, tok, active=act)
+            with ex._ctx():
+                lg2, placed = model.decode_step(ex.params, placed, tok,
+                                                active=act)
+            d = max(d, (lg - lg2).abs().max().item())
+    log(f"{what} {kind} cache{'' if exact else ', --no-exact'}: prefill "
+        f"+ 4 decode steps, max |plan - one device| logits = {d:.4g}")
+    return d
+
+
+def _route_profile(what: str, fn, steps: int) -> None:
+    """One fused decode dispatch under torch.profiler: wall ms and device
+    ops per step, and the device's busy share."""
+    spans, wall_us = _device_spans(fn)
+    if not spans:
+        log(f"profile {what}: the profiler recorded no device time (not "
+            "measured)")
+        return
+    log(f"profile {what}: wall_ms_per_step={wall_us / 1e3 / steps:.3f} "
+        f"device_ops_per_step={len(spans) / steps:.1f} "
+        f"device_busy_share={_busy_us(spans) / wall_us:.4f} "
+        f"device_kernel_ms_per_step="
+        f"{sum(e - s for s, e, _ in spans) / 1e3 / steps:.3f}")
+
+
+def _plan_decode_profiles(model, params, shape) -> None:
+    """Route A beside one device: 2 fused decode steps on a paged bf16
+    arena (2 lanes admitted by `_admitted`), plain and under the serve
+    plan, each profiled."""
+    plan = build_plan(model.cfg, make_mesh(shape, ("data", "model")),
+                      mode="serve")
+    ex = Executor(model, params, max_batch=2, plan=plan)
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, model.cfg.vocab_size, n).astype(np.int32)
+               for n in (21, 37)]
+    act = torch.ones((2,), dtype=torch.bool, device=model.device)
+    for label, p in (("one device", params), (f"serve plan {shape}", None)):
+        with torch.no_grad():
+            big, lg = _admitted(model, params, prompts, 16, 6, "paged")
+            if p is None:
+                big, p = ex.place_caches(big, True), ex.params
+            tok = lg.argmax(-1).to(torch.int32)
+            model.decode_steps(p, big, tok, act, 1)  # warm
+
+            def run():
+                with torch.no_grad(), ex._ctx():
+                    model.decode_steps(p, big, tok, act, 2)
+            _route_profile(f"plans route A {model.cfg.name} paged bf16, "
+                           f"{label}, 2 fused steps (B=2)", run, 2)
+
+
+def _plan_gmi(dev) -> None:
+    """Every GMI collective and pipelined_apply on CUDA shards (8 sharing
+    the card, on a (2, 4) pod x data mesh) equal to the same on CPU
+    shards, bit for bit, on integer-valued f32 inputs."""
+    from repro_torch.core import gmi
+    from repro_torch.core.pipeline import pipelined_apply
+    rng = np.random.default_rng(3)
+    x = torch.tensor(rng.integers(-8, 9, (8, 16, 5)), dtype=torch.float32)
+    meshes = {d: make_mesh((2, 4), ("pod", "data"), device=d)
+              for d in ("cpu", "cuda")}
+    cases = [("broadcast", ("data",), {"root": 2}),
+             ("reduce", ("data",), {"root": 1}),
+             ("gather", ("data",), {}), ("scatter", ("data",), {"root": 1}),
+             ("allgather_composed", ("data",), {}),
+             ("allreduce_composed", ("data",), {}),
+             ("allgather", (("pod", "data"),), {}),
+             ("allreduce", (("pod", "data"),), {}),
+             ("reduce_scatter", ("data",), {}),
+             ("hier_allreduce", ("data", "pod"), {}),
+             ("flat_allreduce", ("data", "pod"), {}),
+             ("hier_allgather", ("data", "pod"), {}),
+             ("cluster_send", ("pod",), {})]
+    for name, ax, kw in cases:
+        res = {}
+        for d, mesh in meshes.items():
+            xs = [(t[:4] if name == "scatter" else t).to(d) for t in x]
+            res[d] = getattr(gmi, name)(xs, mesh, *ax, **kw)
+        require(all(torch.equal(a.cpu(), b) and a.device.type == "cuda"
+                    for a, b in zip(res["cuda"], res["cpu"])),
+                f"plans gmi {name}: CUDA shards part from CPU shards")
+    w = torch.tensor(rng.integers(-2, 3, (6, 5, 5)), dtype=torch.float32)
+    xm = torch.tensor(rng.integers(-2, 3, (6, 3, 5)), dtype=torch.float32)
+    pipe = {d: pipelined_apply(lambda p, v: v @ p + 1.0,
+                               make_mesh((6,), ("stage",), device=d), "stage",
+                               w.to(d), xm.to(d)) for d in ("cpu", "cuda")}
+    require(torch.equal(pipe["cuda"].cpu(), pipe["cpu"]),
+            "plans pipelined_apply: CUDA stages part from CPU stages")
+    log(f"plans gmi: {len(cases)} collectives on 8 CUDA shards (sharing "
+        f"{len(set(meshes['cuda'].devices))} card) and pipelined_apply on 6 "
+        "stages equal the CPU's bit for bit")
+
+
+def _plan_pipeline(model, params, launches: dict) -> None:
+    """Route B: smollm-135m's 30 layers on a 6-stage serve_pipeline plan
+    (5 a stage, all 6 stages on the card), dense slot rows, B = 6, so 6
+    microbatches of one lane: the executor's pipelined loop equals
+    `Model.decode_steps` on the same state, the engine's streams equal
+    the plain dense-slot engine's, ticks per step =
+    pipeline_steps(6, 6), flash_decode launches n_layers x n_micro per
+    step; then Eq. 1 from the measured stage time."""
+    from repro_torch.core.latency_model import StageTiming, total_latency
+    from repro_torch.core.pipeline import pipeline_steps
+    cfg, b, steps = model.cfg, PLAN_STAGES, 8
+    plan = build_plan(cfg, make_mesh((PLAN_STAGES,), ("stage",)),
+                      mode="serve_pipeline")
+    n_micro = PLAN_STAGES if b % PLAN_STAGES == 0 else 1
+    ticks = pipeline_steps(n_micro, PLAN_STAGES)
+    what = f"plans serve_pipeline {cfg.name} x{cfg.n_layers} {PLAN_STAGES} stages"
+    ex = Executor(model, params, max_batch=b, cache_len=176,
+                  buckets=serve_cli.BUCKETS, plan=plan)
+    st = ex.fresh_state(ex.init_caches(False), paged=False)
+    rng = np.random.default_rng(13)
+    for sl in range(b):
+        p = rng.integers(0, cfg.vocab_size, 5 + 7 * sl).astype(np.int32)
+        lg, small = ex.prefill_prompts([p], 1, bucket_cache=True)
+        st["caches"] = ex.insert(st["caches"], small, sl)
+        ex.admit_lane(st, sl, int(lg[0].argmax()), -1, 64)
+    k = st["caches"]["scan"]["b0"]["k"]
+    require([t.shape[0] for t in k] == [cfg.n_layers // PLAN_STAGES] * b,
+            f"{what}: stage blocks {[t.shape[0] for t in k]}")
+    whole = {"scan": {"b0": {n_: torch.cat(list(t)) for n_, t
+                             in st["caches"]["scan"]["b0"].items()}},
+             "tail": {}, "pos": st["caches"]["pos"].clone()}
+    with torch.no_grad():
+        want, *_ = model.decode_steps(
+            params, whole, st["cur"].clone(), st["active"].clone(), steps,
+            eos_id=st["eos"], budget=st["budget"].clone(), pad_token=0)
+    t0 = ex.pipeline_ticks
+    (got,), wall, counted = _counted(
+        lambda: (ex.decode(st, steps, paged=False),),
+        {"flash_decode": cfg.n_layers * n_micro * steps}, what)
+    require(torch.equal(got, want), f"{what}: the pipelined loop parts from "
+            "Model.decode_steps")
+    require(ex.pipeline_ticks - t0 == steps * ticks,
+            f"{what}: {ex.pipeline_ticks - t0} ticks != {steps} x {ticks}")
+    stage_ms = wall * 1e3 / steps / (n_micro * PLAN_STAGES)
+    est = total_latency(StageTiming(T=stage_ms, X=stage_ms, d=0.0),
+                        PLAN_STAGES)
+    log(f"{what}: {steps} fused steps equal Model.decode_steps bit for bit; "
+        f"ticks per step {ticks} = pipeline_steps({n_micro}, {PLAN_STAGES}); "
+        f"flash_decode launches {counted['flash_decode']} (= {cfg.n_layers} "
+        f"layers x {n_micro} microbatches x {steps}); wall_ms_per_step="
+        f"{wall * 1e3 / steps:.2f}; one stage on one microbatch "
+        f"{stage_ms:.3f} ms, so Eq. 1 T + (L-1)(X+d) with T = X = "
+        f"{stage_ms:.3f} ms, d = 0 (one card), L = {PLAN_STAGES}: "
+        f"{est:.3f} ms for one microbatch through the chain; the stages "
+        f"share the card, so a step costs n_micro x L stage runs, not "
+        f"{ticks} ticks")
+    launches["flash_decode"] += counted["flash_decode"]
+    _route_profile(f"plans route B {what}, 1 fused step (B={b})",
+                   lambda: ex.decode(st, 1, paged=False), 1)
+    args = serve_cli.parse_args(["--requests", "6", "--max-new", "16",
+                                 "--seed", "4"])
+    streams = {}
+    for name, p in (("plain", None), ("plan", plan)):
+        eng = ContinuousBatchingEngine(model, params, max_batch=b,
+                                       buckets=serve_cli.BUCKETS,
+                                       paged=False, plan=p)
+        reqs = serve_cli.make_stream(args, cfg.vocab_size, args.seed)
+        t0 = eng.executor.pipeline_ticks
+        streams[name], ds, got, wall = _plan_engine_pass(eng, reqs, what)
+        if p is None:
+            log(f"{what}: the plain dense-slot engine (B={b}): wall_s="
+                f"{wall:.4f} wall_ms_per_decode_step="
+                f"{wall * 1e3 / max(ds['decode_steps'], 1):.2f}")
+            continue
+        require(eng.executor.pipeline_ticks - t0 == ds["decode_steps"] * ticks,
+                f"{what}: engine ticks")
+        want_fd = cfg.n_layers * n_micro * ds["decode_steps"]
+        require(got["flash_decode"] == want_fd, f"{what}: engine "
+                f"flash_decode launches {got['flash_decode']} != {want_fd}")
+        for k_ in ("flash_decode", "row_norm", "gemm"):
+            launches[k_] += got[k_]
+        toks = sum(len(t) for t in streams[name].values())
+        log(f"{what} engine (dense slots, B={b}): tokens={toks} "
+            f"wall_s={wall:.4f} tok_s={toks / wall:.1f} decode_steps="
+            f"{ds['decode_steps']} wall_ms_per_decode_step="
+            f"{wall * 1e3 / max(ds['decode_steps'], 1):.2f} "
+            f"flash_decode_launches={got['flash_decode']}")
+    require(streams["plan"] == streams["plain"], f"{what}: the engine's "
+            "streams part from the plain dense-slot engine's")
+
+
+def _plan_no_exact(exact_streams, model, params, launches: dict) -> None:
+    """--no-exact (psum-form TP) on smollm-135m at full width, (1, 3):
+    its teacher-fed logits against one device's and its streams against
+    the exact plan's, token by token (logged: on random weights the top
+    two logits of a step often sit one bf16 ulp apart, and one flipped
+    token parts the rest of its stream); then the band on the fitted
+    instrument: reduced smollm-135m with 6 heads over 3 kv heads (the
+    reduced config's 2 do not divide 3), fitted on the card, exact vs
+    --no-exact streams on (1, 3), required >= 0.98 (the reference's
+    band)."""
+    def match(a, b):
+        pairs = [(x, y) for k in a for x, y in zip(a[k], b[k])]
+        return sum(x == y for x, y in pairs) / len(pairs), len(pairs)
+
+    thr = _plan_serve(model, params, PLAN_TP, "bf16", launches, exact=False,
+                      passes=("cold",))
+    rate, n = match(exact_streams, thr["cold"][0])
+    log(f"plans serve no-exact {model.cfg.name} x{model.cfg.n_layers} "
+        f"(random weights): token match vs the exact plan {rate:.4f} over "
+        f"{n} tokens (logged)")
+    _plan_logits(model, params, PLAN_TP, "paged",
+                 f"plans serve {model.cfg.name}", exact=False)
+    cfg = dataclasses.replace(get_config(PLAN_ARCH).reduced(), n_heads=6,
+                              n_kv_heads=3, name="smollm-135m-reduced-kv3")
+    fm = make_model(cfg, device="cuda")
+    fp = synthetic.fit_affine_lm(fm, steps=PLAN_FIT_STEPS)
+    rng = np.random.default_rng(5)
+    prompts = synthetic.affine_prompts(rng, 12, cfg.vocab_size, (6, 30))
+    res = {}
+    for exact in (True, False):
+        plan = build_plan(cfg, make_mesh(PLAN_TP, ("data", "model")),
+                          mode="serve", exact=exact)
+        eng = ContinuousBatchingEngine(fm, fp, max_batch=4, buckets=(16, 32),
+                                       plan=plan)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=24)
+                for i, p in enumerate(prompts)]
+        res[exact], _, got, _ = _plan_engine_pass(eng, reqs, cfg.name)
+        launches["paged_flash_decode"] += got["paged_flash_decode"]
+    rate, n = match(res[True], res[False])
+    log(f"plans serve no-exact {cfg.name} (fitted, {PLAN_FIT_STEPS} steps): "
+        f"token match "
+        f"vs the exact plan {rate:.4f} over {n} tokens (band >= 0.98)")
+    require(rate >= 0.98, f"no-exact token match {rate:.4f} < 0.98")
+
+
+def plans_phase(dev) -> dict:
+    """Multi-device serve plans on the single-controller mesh, every shard
+    on the one card (see the module docstring).  Returns the decode
+    kernels', row_norm's and gemm's launches."""
+    launches = {k: 0 for k in DECODE_KERNELS + ("row_norm", "gemm")}
+    _plan_gmi(dev)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.int32, device=dev)
+    shard = {}  # kernels 1-3 at the per-shard shapes
+    shard["paged_flash_decode"] = [
+        kernel_phase(dev, flush, maxp=12, kvh=1, g=3, hd=64),
+        kernel_phase(dev, flush, maxp=12, kvh=2, g=4, hd=128)]
+    shard["paged_flash_decode_q"] = [
+        paged_q_phase(dev, flush, maxp=12, kvh=1, g=3, hd=64),
+        paged_q_phase(dev, flush, maxp=12, kvh=2, g=4, hd=128)]
+    shard["flash_decode"] = [flash_decode_phase(dev, flush, sk=176, kvh=3,
+                                                g=3, hd=64)]
+    del flush
+    torch.cuda.empty_cache()
+    cfg = get_config(PLAN_ARCH)
+    model = make_model(cfg, device=dev)
+    params = init_params(cfg, seed=0, device=dev)
+    mesh = make_mesh(PLAN_TP, ("data", "model"))
+    log(f"plans: mesh {mesh.shape} puts {mesh.size} shards on "
+        f"{len(set(mesh.devices))} card(s) ({torch.cuda.device_count()} "
+        f"visible): shards share the card, so these runs measure the "
+        f"program and its contract, not multi-card scaling")
+    served = {}
+    for kv in ("bf16", "int8"):
+        served[kv] = _plan_serve(model, params, PLAN_TP, kv, launches)
+        d = _plan_logits(model, params, PLAN_TP, "int8" if kv == "int8"
+                         else "paged", f"plans serve {cfg.name}")
+        require(d == 0, f"plans serve {cfg.name} {kv}: logits part")
+    d = _plan_logits(model, params, PLAN_TP, "dense",
+                     f"plans serve {cfg.name}")
+    require(d == 0, f"plans serve {cfg.name} dense slots: logits part")
+    _plan_decode_profiles(model, params, PLAN_TP)
+    _plan_no_exact(served["bf16"]["cold"][0], model, params, launches)
+    _plan_pipeline(model, params, launches)
+    del model, params
+    torch.cuda.empty_cache()
+    arch, shape, layers = PLAN_BIG
+    big = dataclasses.replace(get_config(arch), n_layers=layers)
+    model = make_model(big, device=dev)
+    params = init_params(big, seed=0, device=dev)
+    log(f"plans {arch}: full width, depth cut to {layers} of "
+        f"{get_config(arch).n_layers} layers ({big.param_count() / 1e9:.2f} "
+        f"B parameters)")
+    torch.cuda.reset_peak_memory_stats()
+    _plan_serve(model, params, shape, "bf16", launches, passes=("cold",))
+    log(f"plans {arch}: peak device memory with the plain and the plan "
+        f"engine's params "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+    d = _plan_logits(model, params, shape, "paged", f"plans serve {arch}")
+    require(d == 0, f"plans serve {arch}: logits part (d = {d})")
+    del model, params
+    torch.cuda.empty_cache()
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve_cli.main(["--plan", "serve", "--mesh", "1,3", "--dryrun"])
+    text = buf.getvalue()
+    for marker in ("mode=serve", "paged arena", "scan/b0/mix/wq", "'model'"):
+        require(marker in text, f"--dryrun output lacks {marker!r}")
+    lines = text.splitlines()
+    log(f"plans --dryrun --plan serve --mesh 1,3: {len(lines)} lines, "
+        f"e.g. {lines[0]!r} / {[ln for ln in lines if 'mix/wq' in ln][0]!r}")
+    launches["shard"] = shard
+    return launches
+
 
 # ---------------------------------------------------------------------------
 # the MoE families
@@ -2495,6 +3057,7 @@ def kernels_phase(dev) -> dict:
     main_shape.update(ibert_kernel_phase(dev, flush))
     int8_decoder_phase(dev, flush)
     main_shape["row_norm"] = row_norm_phase(dev, flush)
+    main_shape["gemm"] = gemm_phase(dev, flush)
     bf, f32 = torch.bfloat16, torch.float32
     main_shape["flash_attention"] = flash_attention_phase(
         dev, flush, 2, 4096, 9, 3, 64, bf, True)  # smollm's forward_logits
@@ -2559,8 +3122,8 @@ def main() -> None:
         serve_phase("poisson", 16, paged=False),
         serve_phase("poisson", 16, kv_dtype="int8")])
     timed("profile", lambda: profile_phase(dev))
-    timed("model", lambda: [model_phase(k) for k in ("paged", "dense",
-                                                     "int8")])
+    timed("model", lambda: [model_phase("paged"), card_model_phase("dense"),
+                            card_model_phase("int8")])
     fits = timed("fit", lambda: fit_phase(dev))
     gated = timed("gate", lambda: [gate_phase(*fits["target"], k)
                                    for k in ("paged", "dense", "int8")])
@@ -2571,17 +3134,20 @@ def main() -> None:
     gated.append(recurrent)
     moe_launches = timed("moe", lambda: moe_phase(dev))
     gated.append(moe_launches)
+    plans = timed("plans", lambda: plans_phase(dev))
+    gated.append(plans)
     launches = {k: sum(s["launches"] for s in served if s["kernel"] == k)
                 + sum(g.get(k, 0) for g in gated) for k in DECODE_KERNELS}
     launches["row_norm"] = (sum(s["row_norm"] for s in served)
                             + family["row_norm"] + recurrent["row_norm"]
-                            + moe_launches["row_norm"])
+                            + moe_launches["row_norm"] + plans["row_norm"])
+    launches["gemm"] = sum(s["gemm"] for s in served) + plans["gemm"]
     launches.update(timed("encode", encode_phase))
     launches["int8_matmul"] += recurrent["int8_matmul"]
     launches["flash_attention"] = fa_launches
 
-    # row_norm has no TPU kernel: it replaces the reference's plain jnp
-    # rmsnorm and layernorm
+    # row_norm and gemm have no TPU kernel: they replace the reference's
+    # plain jnp rmsnorm / layernorm and its jnp dot (models/layers.py)
     entries = [dict(name=kernel, route="cuda",
                     source=f"src/repro_torch/kernels/csrc/{kernel}.cu",
                     replaces=f"src/repro/{replaces}",
@@ -2595,7 +3161,8 @@ def main() -> None:
                    ("i_softmax", "kernels/i_softmax.py:49"),
                    ("i_layernorm", "kernels/i_layernorm.py:50"),
                    ("i_gelu", "kernels/i_gelu.py:41"),
-                   ("row_norm", "models/layers.py:39"))]
+                   ("row_norm", "models/layers.py:39"),
+                   ("gemm", "models/layers.py:28"))]
     log(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,7 +25,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 # one library per csrc/<name>.cu
 SOURCES = ("paged_flash_decode", "paged_flash_decode_q", "flash_decode",
            "flash_attention", "int8_matmul", "i_softmax", "i_layernorm",
-           "i_gelu", "row_norm")
+           "i_gelu", "row_norm", "gemm")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the integer I-BERT kernels repeat the reference's float32 scale

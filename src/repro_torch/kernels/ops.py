@@ -22,7 +22,8 @@ from repro_torch.kernels import ref as _ref
 
 launches = {"paged_flash_decode": 0, "paged_flash_decode_q": 0,
             "flash_decode": 0, "flash_attention": 0, "int8_matmul": 0,
-            "i_softmax": 0, "i_layernorm": 0, "i_gelu": 0, "row_norm": 0}
+            "i_softmax": 0, "i_layernorm": 0, "i_gelu": 0, "row_norm": 0,
+            "gemm": 0}
 
 HEAD_DIMS = (16, 64, 128)  # the paged decode kernels' head_dim instances
 MAX_GROUP = 8  # query heads per kv head the paged decode kernels take
@@ -47,6 +48,21 @@ INT8_MM_BN = 64
 INT8_MM_BK = 64
 INT8_MM_MAX_SPLIT = 8
 FA_HEAD_DIMS = (16, 32, 64, 128)  # flash_attention's compiled instances
+# the gemm kernel's order of summation, as csrc/gemm.cu's BK, kMaxSplit
+# and split_of (a CPU test holds them equal): K in tiles of GEMM_BK,
+# split over a cluster of blocks by `gemm_split`, a function of K alone
+GEMM_BK = 64
+GEMM_MAX_SPLIT = 8
+
+
+def gemm_split(k: int) -> tuple:
+    """(K tiles a block, blocks a cluster) of the gemm kernel at this K:
+    rank r of the cluster sums tiles [r per, (r + 1) per) in order, and
+    the ranks' partial sums are added in rank order."""
+    nk = -(-k // GEMM_BK)
+    per = max(3, -(-nk // GEMM_MAX_SPLIT))
+    return per, max(1, -(-nk // per))
+
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: library -> (symbol, argtypes); pointers and the stream as
@@ -64,6 +80,7 @@ _SIGNATURES = {
     "i_layernorm": ("i_layernorm", [_P] * 4 + [_I, _I, _P]),
     "i_gelu": ("i_gelu", [_P, _P, ctypes.c_longlong, _F, _P]),
     "row_norm": ("row_norm", [_P] * 4 + [_I, _I, _F, _I, _P]),
+    "gemm": ("gemm_bf16", [_P] * 3 + [_I] * 5 + [_P]),
 }
 
 
@@ -90,9 +107,17 @@ def _kernel_fn(name: str):
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
-    """Launch kernel `name` on `device`'s current stream; count it or
-    raise."""
-    stream = torch.cuda.current_stream(device).cuda_stream
+    """Launch kernel `name` on `device` (the device of its tensors, made
+    current for the launch: a plan's shards may sit on any card) and its
+    current stream; count it or raise."""
+    index = device.index
+    if index is not None and index != torch._C._cuda_getDevice():
+        with torch.cuda.device(device):
+            return _launch(name, device, *args)
+    # the raw handle of torch.cuda.current_stream(device) (cheaper on
+    # the host, which bounds a decode step: ~250 launches a smollm step)
+    stream = torch._C._cuda_getCurrentRawStream(
+        torch._C._cuda_getDevice() if index is None else index)
     err = _kernel_fn(name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
@@ -110,6 +135,9 @@ def _check_cuda(kernel: str, dtypes: dict, **tensors) -> None:
     first = next(iter(tensors.values()))
     _check(first.is_cuda, f"no kernel for device {first.device}", kernel)
     for name, t in tensors.items():
+        if (t.device == first.device and t.is_contiguous()
+                and t.dtype == dtypes[name]):
+            continue  # the messages below cost more than the checks
         _check(t.device == first.device, f"{name} on {t.device}, not "
                f"{first.device}", kernel)
         _check(t.is_contiguous(), f"{name} is not contiguous", kernel)
@@ -175,6 +203,40 @@ def _check_decode_cuda(kernel: str, kv_dtype: torch.dtype,
                f"{name} is not 16-byte aligned", kernel)
 
 
+def shard_heads(call, q, *args, active=None):
+    """A paged decode kernel under a serve plan, once per shard.
+
+    `args` are the call's arguments after q: a list (the plan's
+    `Shards`) gives shard i its part i — the arena's `k`/`v` (and
+    `k_scale`/`v_scale`) kv-head slice (P, ps, KVH/n, hd), and `kpos`
+    held once per device; a tensor (the page table, the positions, and
+    `active`) is the same routing metadata on every shard, moved to its
+    device.  q is the shards' list of (B, H/n, hd) queries, or the whole
+    (B, H, hd): heads are kv-head-major, so a contiguous split of H is a
+    split by kv head, whole GQA groups on each shard.  Each shard launches
+    the kernel once, on its device; per-head math never crosses shards, so
+    each output equals the unsharded launch's heads.  Returns the shards'
+    (B, H/n, hd) outputs in shard order (the caller gathers them).  Port
+    of the reference's `_shard_map_heads`."""
+    from repro_torch.models.shard_hints import Shards
+
+    arena = args[0]
+    n = len(arena)
+    if not isinstance(q, list):
+        h = q.shape[1]
+        _check(h % n == 0, f"H={h} heads do not divide {n} shards; the "
+               "caller runs the unsharded dispatch instead", "shard_heads")
+        w = h // n
+        q = [q[:, i * w:(i + 1) * w] for i in range(n)]
+    outs = []
+    for i in range(n):
+        dev = arena[i].device
+        a = [x[i] if isinstance(x, list) else x.to(dev) for x in args]
+        outs.append(call(q[i].to(dev).contiguous(), *a,
+                         active=None if active is None else active.to(dev)))
+    return Shards(outs, getattr(arena, "axis", "model"), 1)
+
+
 def paged_flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        kpos: torch.Tensor, page_table: torch.Tensor,
                        qpos: torch.Tensor,
@@ -191,6 +253,9 @@ def paged_flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     On the card the kernel takes bf16 q/k/v, int32 kpos/page_table/qpos,
     contiguous, and hd in HEAD_DIMS; anything else raises.
     """
+    if isinstance(k, list):  # a plan's kv-head shards
+        return shard_heads(paged_flash_decode, q, k, v, kpos, page_table,
+                           qpos, active=active)
     name = "paged_flash_decode"
     b, kvh, active = _decode_shapes(name, q, k, v, qpos, active)
     n_pages, ps = k.shape[:2]
@@ -231,6 +296,9 @@ def paged_flash_decode_q(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     DECODE_SPLITS blocks of one cluster), reading only the kept rows and
     their scales.
     """
+    if isinstance(k, list):  # a plan's kv-head shards
+        return shard_heads(paged_flash_decode_q, q, k, v, k_scale, v_scale,
+                           kpos, page_table, qpos, active=active)
     name = "paged_flash_decode_q"
     b, kvh, active = _decode_shapes(name, q, k, v, qpos, active)
     n_pages, ps = k.shape[:2]
@@ -546,3 +614,58 @@ def row_norm(x: torch.Tensor, g: torch.Tensor,
             t is not None and t.requires_grad for t in (x, g, b)):
         return _RowNormFn.apply(x, g, b, eps)
     return _row_norm_launch(x, g, b, eps)
+
+
+# -- the K-ordered bf16 product (port-only) -----------------------------------
+
+
+def _gemm_launch(x2: torch.Tensor, w: torch.Tensor, w_nk: bool,
+                 out_dtype=torch.bfloat16) -> torch.Tensor:
+    name = "gemm"
+    if not (x2.is_cuda and w.device == x2.device and w.is_contiguous()
+            and x2.dtype == w.dtype == torch.bfloat16):
+        _check_cuda(name, dict(x=torch.bfloat16, w=torch.bfloat16), x=x2,
+                    w=w)
+    _check(out_dtype in (torch.bfloat16, torch.float32),
+           f"out_dtype {out_dtype}: want bf16 or float32", name)
+    m, k = x2.shape
+    n = w.shape[0] if w_nk else w.shape[1]
+    out = torch.empty((m, n), dtype=out_dtype, device=x2.device)
+    if m and n:
+        _launch(name, x2.device, x2.data_ptr(), w.data_ptr(),
+                out.data_ptr(), m, n, k, int(w_nk),
+                int(out_dtype == torch.float32))
+    return out
+
+
+def gemm(x: torch.Tensor, w: torch.Tensor, w_nk: bool = False,
+         out_dtype=torch.bfloat16) -> torch.Tensor:
+    """x (..., K) @ w in bf16: w is (K, N), or (N, K) when w_nk (the tied
+    embedding as the head).  Returns (..., N) bf16, f32 sums rounded once
+    (out_dtype=torch.float32: the f32 sums, a shard's partial product).
+
+    On the card the port-only `gemm` kernel sums every output in an order
+    fixed by K alone (csrc/gemm.cu), so a row or a column block of the
+    product is the same bits as in the whole product: a tensor-parallel
+    shard's columns, a pipeline microbatch's rows and a verify pass's
+    B*T rows equal one device's.  x is taken contiguous (a copy first
+    where it is not), w contiguous on x's device.  The plain version on
+    the CPU is torch.matmul on the shapes as given.  The kernel is
+    forward-only: on the card it raises while autograd records
+    (`layers.product` sends such products to torch.matmul)."""
+    if not (x.dim() >= 1 and w.dim() == 2
+            and x.shape[-1] == w.shape[1 if w_nk else 0]):
+        raise ValueError(f"gemm: x {tuple(x.shape)} @ w {tuple(w.shape)} "
+                         f"(w_nk={w_nk})")
+    if x.device.type == "cpu":
+        wk = w.t() if w_nk else w
+        if out_dtype == torch.float32:
+            return torch.matmul(x.float(), wk.float())
+        return torch.matmul(x, wk)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise RuntimeError("gemm: the kernel is forward-only; run "
+                           "products that autograd records elsewhere")
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    out = _gemm_launch(x2, w.contiguous(), w_nk, out_dtype)
+    return out.reshape(*lead, out.shape[-1])

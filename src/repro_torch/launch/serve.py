@@ -12,6 +12,26 @@ the reference, so a MoE model, all of whose weights are stacked, stays
 bf16).  The summary line ends with the engine's stats (`spec_*` under
 speculation).
 
+Weights and the serving cache are placed under the Cluster Builder's
+plan (core/cluster_builder.py), over a single-controller device mesh
+(launch/mesh.py: shard i on card i mod the host's count, so shards share
+a card on a smaller host):
+
+  --plan serve           kv-head-sharded paged serving over a
+                         (data, model) mesh, bit-identical to one device
+                         (the default, as in the reference; on a 1-wide
+                         mesh it runs the plain programs)
+  --plan serve_pipeline  the layer stack cut over a `stage` mesh axis,
+                         decode microbatches streamed through the stages
+                         (the paper's 6-FPGA encoder pipeline), on dense
+                         slot rows
+  --plan none            single-device
+
+`--no-exact` switches a serve plan to throughput mode: psum-form TP,
+token streams gated by a match-rate band instead of bitwise equality.
+`--dryrun` prints the chosen plan's per-leaf shardings (params + serving
+cache) and exits, allocating nothing.
+
 Runs on the CUDA device unless ``--device cpu`` is given; without a card
 it stops with an error instead of falling back to the CPU.
 
@@ -27,6 +47,12 @@ it stops with an error instead of falling back to the CPU.
       --arch moonshot-v1-16b-a3b
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
       --draft-config smollm-135m --spec-k 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \\
+      --plan serve --mesh 1,2 --stream shared-prefix
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \\
+      --plan serve_pipeline --mesh 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --plan serve \\
+      --mesh 1,3 --dryrun
 """
 from __future__ import annotations
 
@@ -37,6 +63,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core.cluster_builder import build_plan
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.transformer import init_params, make_model
 from repro_torch.runtime.stragglers import StragglerMonitor
 from repro_torch.serving.engine import ContinuousBatchingEngine
@@ -97,6 +125,27 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--warmup", action="store_true",
                     help="first serve, unmeasured, a stream drawn from "
                          "seed + 1")
+    ap.add_argument("--plan", choices=["none", "serve", "serve_pipeline"],
+                    default="serve",
+                    help="Cluster-Builder placement: serve (kv-head-sharded "
+                         "paged serving over a (data, model) mesh), "
+                         "serve_pipeline (the layer stack over a stage "
+                         "axis, dense slot rows) or none")
+    ap.add_argument("--mesh", default="",
+                    help="mesh shape: 1,3 for (data, model), or 6 for the "
+                         "serve_pipeline stage axis; default: the visible "
+                         "cards on the plan's axis")
+    ap.add_argument("--exact", dest="exact", action="store_true",
+                    default=True,
+                    help="bit-identical serving (default): gather-form TP "
+                         "and the drained pipeline")
+    ap.add_argument("--no-exact", dest="exact", action="store_false",
+                    help="throughput mode: psum-form TP (serve); streams "
+                         "are held to a token-match band, not equality")
+    ap.add_argument("--dryrun", action="store_true",
+                    help="print the plan's per-leaf shardings and "
+                         "exactness modes (params + serving cache), "
+                         "allocate nothing, and exit")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device; cpu runs the kernels' plain "
@@ -104,10 +153,94 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
+def _parse_mesh(spec: str, plan_mode: str, device: str):
+    """--mesh "1,3" -> (data, model) mesh; --mesh "6" under
+    serve_pipeline -> (stage,) mesh.  Default: the visible cards (one on
+    the CPU) on the plan's TP/stage axis."""
+    n_dev = (torch.cuda.device_count()
+             if torch.device(device).type == "cuda" else 1)
+    if plan_mode == "serve_pipeline":
+        shape = tuple(int(x) for x in spec.split(",")) if spec else (n_dev,)
+        if len(shape) != 1:
+            raise SystemExit("serve: serve_pipeline takes a 1-axis --mesh "
+                             "(the stage axis), e.g. --mesh 6")
+        return make_mesh(shape, ("stage",), device=device)
+    shape = tuple(int(x) for x in spec.split(",")) if spec else (1, n_dev)
+    if len(shape) != 2:
+        raise SystemExit("serve: --plan serve takes a 2-axis --mesh "
+                         "(data, model), e.g. --mesh 1,3")
+    return make_mesh(shape, ("data", "model"), device=device)
+
+
+def make_plan(args: argparse.Namespace, cfg):
+    """The Cluster Builder's plan for --plan / --mesh / --exact (None
+    under --plan none)."""
+    if args.plan == "none":
+        return None
+    mesh = _parse_mesh(args.mesh, args.plan, args.device)
+    return build_plan(cfg, mesh, mode=args.plan, exact=args.exact)
+
+
+# projections that *reduce* over a contracted dim: replicated + gather-form
+# under exact serving, row-sharded + psum-form under --no-exact
+_REDUCTION_LEAVES = ("wo", "shared_wo", "glu_wo", "down", "w_out")
+
+
+def _leaf_exactness(plan, path) -> str:
+    """Exactness mode of one plan leaf, for --dryrun."""
+    name = path[-1] if path else ""
+    if name in ("q", "scale") and len(path) > 1:  # quantized leaf pair
+        name = path[-2]
+    if plan.mode == "serve" and name in _REDUCTION_LEAVES:
+        return "gather(exact)" if plan.exact else "psum(throughput)"
+    if plan.mode == "serve_pipeline":
+        return "drained(exact)" if plan.exact else "skewed(throughput)"
+    return "exact"
+
+
+def _print_shardings(title: str, specs, shapes, plan=None) -> None:
+    print(f"-- {title} " + "-" * max(1, 60 - len(title)))
+
+    def walk(sp, sh, path=()):
+        if isinstance(sp, dict):
+            for k in sorted(sp):
+                walk(sp[k], sh[k], path + (k,))
+            return
+        note = f"  [{_leaf_exactness(plan, path)}]" if plan is not None else ""
+        print(f"  {'/'.join(path):<40} {str(tuple(sh.shape)):<22} {sp}{note}")
+
+    walk(specs, shapes)
+
+
+def _dryrun(cfg, plan, paged: bool, engine_kw) -> None:
+    """Spec-only plan inspection: every leaf on the meta device (shapes,
+    no storage)."""
+    model = make_model(cfg, device="meta")
+    params_shape = init_params(cfg, device="meta")
+    plan.param_specs = plan.specs_for_params(params_shape)
+    mesh = plan.mesh
+    print(f"serve --dryrun: arch={cfg.name} mode={plan.mode} "
+          f"exact={plan.exact} mesh={dict(mesh.shape)} paged={paged}"
+          + (" (shards share devices)" if mesh.shared_devices() else ""))
+    _print_shardings("params", plan.param_specs, params_shape, plan=plan)
+    if paged:
+        ps = engine_kw.get("page_size", 16)
+        cache_shape = model.init_paged_cache(
+            4, 64, ps, 8, kv_dtype=engine_kw.get("kv_dtype", "bf16"))
+    else:
+        cache_shape = model.init_cache(4, 64)
+    cache_specs = plan.specs_for_caches(cache_shape, batch=4,
+                                        slot_table=True, paged=paged)
+    _print_shardings("serving cache" + (" (paged arena)" if paged else
+                                        " (dense slots)"),
+                     cache_specs, cache_shape, plan=plan)
+
+
 def serve(args: argparse.Namespace, paged="auto"):
     """Build the model and engine, serve the stream; returns (engine,
     finished requests, wall seconds of the measured pass).  `paged`
-    goes to the cb engine (False: dense slot rows)."""
+    goes to the cb engine (False: dense slot rows).  With --dryrun,
+    prints the plan's shardings and returns (None, [], 0.0)."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("serve: no CUDA device is available; pass "
@@ -119,10 +252,19 @@ def serve(args: argparse.Namespace, paged="auto"):
         raise SystemExit(
             "serve: --kv-dtype int8 needs the continuous-batching engine "
             "(the wave baseline decodes dense slot rows); drop --engine wave")
-    if args.kv_dtype == "int8" and not (paged_eligible(cfg) and paged):
+    plan = make_plan(args, cfg)
+    eligible = paged_eligible(cfg, plan)
+    if args.kv_dtype == "int8" and not (eligible and paged):
         raise SystemExit(
             "serve: --kv-dtype int8 needs the paged pool (an all-attention, "
-            "unwindowed, causal model)")
+            "unwindowed, causal model under --plan none or serve)")
+    if args.dryrun:
+        if plan is None:
+            raise SystemExit("serve: --dryrun inspects a plan; pick "
+                             "--plan serve or serve_pipeline")
+        _dryrun(cfg, plan, eligible and args.engine == "cb" and bool(paged),
+                dict(page_size=args.page_size, kv_dtype=args.kv_dtype))
+        return None, [], 0.0
     model = make_model(cfg, device=device)
     params = init_params(cfg, seed=args.seed, device=device)
     kw = {}
@@ -137,7 +279,7 @@ def serve(args: argparse.Namespace, paged="auto"):
         raise SystemExit("serve: --draft-config needs --engine cb")
     cls = ContinuousBatchingEngine if args.engine == "cb" else WaveEngine
     engine = cls(model, params, max_batch=args.max_batch, buckets=BUCKETS,
-                 monitor=StragglerMonitor(),
+                 plan=plan, monitor=StragglerMonitor(),
                  decode_horizon=args.decode_horizon,
                  quant_weights=args.quant_weights, **kw)
     if args.warmup:  # another seed: the measured prompts stay uncached
@@ -154,7 +296,7 @@ def serve(args: argparse.Namespace, paged="auto"):
 def draft_config(args: argparse.Namespace, cfg, paged, device) -> dict:
     """The engine's spec_config for --draft-config: the draft's model and
     random weights (seed + 1), at the target's vocabulary."""
-    if not (paged and paged_eligible(cfg)):
+    if not (paged and paged_eligible(cfg)) or args.plan == "serve_pipeline":
         raise SystemExit(
             "serve: --draft-config needs the paged cb engine (an "
             "all-attention, unwindowed, causal model)")
@@ -185,11 +327,18 @@ def make_stream(args: argparse.Namespace, vocab_size: int, seed: int):
 def main(argv=None):
     args = parse_args(argv)
     engine, done, wall = serve(args)
+    if engine is None:  # --dryrun
+        return done
+    plan = engine.plan
+    mesh = "" if plan is None else f" mesh={dict(plan.mesh.shape)}"
+    for note in engine.executor.notes:
+        print(note)
     toks = sum(len(r.tokens_out) for r in done)
     lat = sorted((r.t_done - r.t_enqueue) * 1e3 for r in done)
     ttft = sorted((r.t_first_token - r.t_enqueue) * 1e3 for r in done)
     print(f"serve[{args.engine}]: arch={engine.model.cfg.name} "
-          f"device={args.device} kv_dtype={args.kv_dtype} "
+          f"device={args.device} plan={args.plan}{mesh} "
+          f"exact={args.exact} kv_dtype={args.kv_dtype} "
           f"quant_weights={args.quant_weights} "
           f"requests={len(done)} tokens={toks} wall={wall*1e3:.0f}ms "
           f"throughput={toks/wall:.1f}tok/s "

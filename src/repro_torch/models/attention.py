@@ -18,8 +18,8 @@ buffer donation; this port updates the cache tensors in place
 
 A paged cache with T > 1 queries per lane is speculative decoding's
 verify pass: the T queries fold into B*T lanes of one paged decode
-launch, and every projection runs one query column at a time
-(`layers.dense`'s ``columns``), at the decode step's M = B.
+launch, and every projection runs once over the B*T rows (the K-ordered
+products of `layers.product` give each row its decode step's bits).
 
 Sliding windows (`cfg.local_window`, recurrentgemma-2b) keep a ring
 buffer of ``min(seq_len, window)`` slots per lane: a prefill writes its
@@ -44,6 +44,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.quant import kv_quantize
 from repro_torch.models.layers import COMPUTE_DTYPE, apply_rope, dense
+from repro_torch.models.shard_hints import Shards, broadcast_to, hint, part
 
 Params = Dict[str, Any]
 
@@ -191,29 +192,67 @@ def attention(x: torch.Tensor, p: Params, cfg, positions: torch.Tensor,
     and no page table; the new row goes to slot q % slots of each active
     lane when windowed (a ring buffer), else min(q, slots - 1).  Returns
     (output (B, S, d_model), the same cache dict).
-    """
-    from repro_torch.kernels import ops as kops
 
+    Tensor parallel (a serve plan: `wq`, `wk`, `wv` are column `Shards`,
+    models/shard_hints.py): x is broadcast to the shards, shard i
+    projects, rotates and attends its n_heads/n query heads and
+    n_kv_heads/n kv heads over its own kv-head slice of the cache
+    (whatever the branch), and the head outputs meet at `wo`: gathered in
+    shard order before a replicated `wo` (exact), or each shard's partial
+    product through its row block of `wo`, summed in shard order (psum).
+    """
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    window = cfg.local_window
-    # a paged pass (a decode step, or the verify pass's T columns) runs
-    # its products at M = B, one query column at a time
-    cols = page_table is not None
-    q = _split_heads(dense(x, p["wq"], cols), nh)
-    k = _split_heads(dense(x, p["wk"], cols), nkv)
-    v = _split_heads(dense(x, p["wv"], cols), nkv)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    # bf16, as the reference scales it (the flash_attention route alone
-    # takes q unscaled: its kernel scales the f32 score)
-    qs = q * (1.0 / math.sqrt(hd))
+    wq = p["wq"]
+    n = len(wq) if isinstance(wq, Shards) else 1
+    xs = broadcast_to(x, wq) if n > 1 else [x]
+    qs, q, k, v = [], [], [], []
+    for i, xi in enumerate(xs):
+        pos_i = positions.to(xi.device)
+        qi = _split_heads(dense(xi, part(wq, i)), nh // n)
+        ki = _split_heads(dense(xi, part(p["wk"], i)), nkv // n)
+        vi = _split_heads(dense(xi, part(p["wv"], i)), nkv // n)
+        qi = apply_rope(qi, pos_i, cfg.rope_theta)
+        ki = apply_rope(ki, pos_i, cfg.rope_theta)
+        q.append(qi)
+        k.append(ki)
+        v.append(vi)
+        # bf16, as the reference scales it (the flash_attention route
+        # alone takes q unscaled: its kernel scales the f32 score)
+        qs.append(qi * (1.0 / math.sqrt(hd)))
 
     if cache is not None and page_table is not None:
-        if window:
+        if cfg.local_window:
             raise ValueError("paged KV does not support sliding windows")
-        out = _paged_decode(qs, k, v, cache, page_table, positions, active)
-    elif cache is None or x.shape[1] > 1:
-        s = x.shape[1]
+        outs = _paged_decode(qs, k, v, cache, page_table, positions, active)
+    else:
+        outs = []
+        for i, xi in enumerate(xs):
+            dev = xi.device
+            outs.append(_attend(
+                qs[i], q[i], k[i], v[i], cfg,
+                None if cache is None else {n_: part(t, i) for n_, t
+                                            in cache.items()},
+                positions.to(dev),
+                None if segment_ids is None else segment_ids.to(dev),
+                pos_contiguous, None if active is None else active.to(dev)))
+    outs = [o.reshape(x.shape[0], x.shape[1], -1) for o in outs]
+    wo = p["wo"]
+    if isinstance(wo, Shards):  # psum form: f32 partial products, one sum
+        return hint([dense(o, wo[i], partial=True)
+                     for i, o in enumerate(outs)], "psum").to(x.dtype), cache
+    return dense(hint(outs, "gather"), wo), cache
+
+
+def _attend(qs, q, k, v, cfg, cache, positions, segment_ids,
+            pos_contiguous, active) -> torch.Tensor:
+    """Attention of one shard's heads outside the paged path: prefill (a
+    dense bucket cache written when given) or dense slot decode.  Returns
+    (B, S, heads, hd)."""
+    from repro_torch.kernels import ops as kops
+
+    window = cfg.local_window
+    s = q.shape[1]
+    if cache is None or s > 1:
         if s <= DENSE_ATTN_MAX_KV:
             msk = _mask(s, s, positions, positions, cfg.causal, window,
                         segment_ids, segment_ids)
@@ -232,58 +271,58 @@ def attention(x: torch.Tensor, p: Params, cfg, positions: torch.Tensor,
             # at their ring slots when windowed
             slots = cache["k"].shape[1]
             take = min(s, slots)
-            idx = (torch.arange(s - take, s, device=x.device) % slots
+            idx = (torch.arange(s - take, s, device=q.device) % slots
                    if window else slice(0, take))
             cache["k"][:, idx] = k[:, -take:].to(cache["k"].dtype)
             cache["v"][:, idx] = v[:, -take:].to(cache["v"].dtype)
             cache["kpos"][:, idx] = positions[:, -take:].to(torch.int32)
-    else:
-        # dense slot decode: lane b's row for position q is slot q % slots
-        # of a ring buffer (windowed), else min(q, slots - 1).  The
-        # reference writes every lane and where-masks the cache tree
-        # afterwards; here an inactive lane writes its slot's old
-        # contents back, so its rows and kpos are untouched in place.
-        b = x.shape[0]
-        ck, cv, ckpos = cache["k"], cache["v"], cache["kpos"]
-        slots = ck.shape[1]
-        cpos = positions[:, 0].to(torch.int32)
-        slot = (cpos % slots if window
-                else torch.clamp(cpos, max=slots - 1)).long()
-        lane = torch.arange(b, device=x.device)
-        act = (torch.ones((b,), dtype=torch.bool, device=x.device)
-               if active is None else active.bool())
-        a3 = act[:, None, None]
-        ck[lane, slot] = torch.where(a3, k[:, 0].to(ck.dtype),
-                                     ck[lane, slot])
-        cv[lane, slot] = torch.where(a3, v[:, 0].to(cv.dtype),
-                                     cv[lane, slot])
-        ckpos[lane, slot] = torch.where(act, cpos, ckpos[lane, slot])
-        out = kops.flash_decode(qs[:, 0].contiguous(), ck, cv, ckpos, cpos,
-                                active=act, window=window)[:, None]
-
-    out = out.reshape(x.shape[0], x.shape[1], nh * hd)
-    return dense(out, p["wo"], cols), cache
+        return out
+    # dense slot decode: lane b's row for position q is slot q % slots
+    # of a ring buffer (windowed), else min(q, slots - 1).  The
+    # reference writes every lane and where-masks the cache tree
+    # afterwards; here an inactive lane writes its slot's old
+    # contents back, so its rows and kpos are untouched in place.
+    b = q.shape[0]
+    ck, cv, ckpos = cache["k"], cache["v"], cache["kpos"]
+    slots = ck.shape[1]
+    cpos = positions[:, 0].to(torch.int32)
+    slot = (cpos % slots if window
+            else torch.clamp(cpos, max=slots - 1)).long()
+    lane = torch.arange(b, device=q.device)
+    act = (torch.ones((b,), dtype=torch.bool, device=q.device)
+           if active is None else active.bool())
+    a3 = act[:, None, None]
+    ck[lane, slot] = torch.where(a3, k[:, 0].to(ck.dtype), ck[lane, slot])
+    cv[lane, slot] = torch.where(a3, v[:, 0].to(cv.dtype), cv[lane, slot])
+    ckpos[lane, slot] = torch.where(act, cpos, ckpos[lane, slot])
+    return kops.flash_decode(qs[:, 0].contiguous(), ck, cv, ckpos, cpos,
+                             active=act, window=window)[:, None]
 
 
 def _paged_decode(qs, k, v, cache, page_table, positions, active):
     """Paged decode: T contiguous queries per lane against the arena (T = 1
     for a decode step, T = k+1 for speculative decoding's verify pass).
 
-    All B*T new rows are scattered through the page table in one write,
-    exactly as T single-query decode writes would place them, then the T
-    queries are folded into B*T lanes of one decode-kernel launch, each
-    attending at its own position with its lane's table.  Rows ahead of a
-    query carry kpos above its qpos, so the causal mask hides them, and
-    each output row is what a single-step decode at that position gives.
-    Rejected rows need no cleanup: the caller rewinds the position
-    counter, and they stay beyond every later query until overwritten.
+    qs, k, v: lists of the shards' (B, T, heads, hd) tensors (one for an
+    unsharded arena); under a plan the arena's `k`/`v` (and scale planes)
+    are kv-head `Shards` and its `kpos` one tensor per device.  All B*T
+    new rows are scattered through the page table in one write per arena
+    part, exactly as T single-query decode writes would place them, then
+    the T queries are folded into B*T lanes of one decode-kernel launch
+    per shard, each attending at its own position with its lane's table.
+    Rows ahead of a query carry kpos above its qpos, so the causal mask
+    hides them, and each output row is what a single-step decode at that
+    position gives.  Rejected rows need no cleanup: the caller rewinds
+    the position counter, and they stay beyond every later query until
+    overwritten.  Returns the shards' (B, T, heads, hd) outputs.
     """
     from repro_torch.kernels import ops as kops
 
-    b, t, nh, hd = qs.shape
-    ps = cache["k"].shape[1]
+    b, t = positions.shape
+    ps = part(cache["k"], 0).shape[1]
+    dev = positions.device
     cpos = positions.to(torch.int32)  # (B, T)
-    act = (torch.ones((b,), dtype=torch.bool, device=qs.device)
+    act = (torch.ones((b,), dtype=torch.bool, device=dev)
            if active is None else active.bool())
     # clamped like a JAX gather: the block's last rows near cache_len, and
     # inactive lanes' stale counters, may run off the table's columns
@@ -297,31 +336,47 @@ def _paged_decode(qs, k, v, cache, page_table, positions, active):
     # order of duplicate writes is not fixed on the card, which is harmless
     # only because each of them writes the same sentinel kpos first
     kpos_val = torch.where(a2, cpos, torch.full_like(cpos, KPOS_SENTINEL))
-    cache["kpos"].index_put_((wr_page, wr_off), kpos_val.reshape(-1))
-    kf = k.reshape(b * t, *k.shape[2:])
-    vf = v.reshape(b * t, *v.shape[2:])
-    qf = qs.reshape(b * t, nh, hd).contiguous()
+    kpos = cache["kpos"]
+    for kp in (kpos.distinct() if isinstance(kpos, Shards) else [kpos]):
+        d = kp.device
+        kp.index_put_((wr_page.to(d), wr_off.to(d)),
+                      kpos_val.reshape(-1).to(d))
+    quant = "k_scale" in cache
+    qf = []
+    for i in range(len(qs)):
+        d = qs[i].device
+        kf = k[i].reshape(b * t, *k[i].shape[2:])
+        vf = v[i].reshape(b * t, *v[i].shape[2:])
+        qf.append(qs[i].reshape(b * t, *qs[i].shape[2:]).contiguous())
+        idx = (wr_page.to(d), wr_off.to(d))
+        ck, cv = part(cache["k"], i), part(cache["v"], i)
+        if quant:
+            # int8 arena: each row quantized on the way in, per kv head
+            # (a shard's scales are its own kv heads')
+            kq, ksc = kv_quantize(kf)
+            vq, vsc = kv_quantize(vf)
+            ck.index_put_(idx, kq)
+            cv.index_put_(idx, vq)
+            part(cache["k_scale"], i).index_put_(idx, ksc)
+            part(cache["v_scale"], i).index_put_(idx, vsc)
+        else:
+            ck.index_put_(idx, kf.to(ck.dtype))
+            cv.index_put_(idx, vf.to(cv.dtype))
     qpf = cpos.reshape(-1)
     # a decode step (T = 1) needs no fold: the table and mask are the lanes'
     ptf = page_table if t == 1 else page_table.repeat_interleave(t, dim=0)
     actf = act if t == 1 else act.repeat_interleave(t)
-    if "k_scale" in cache:
-        # int8 arena: each row quantized on the way in, per kv head
-        kq, ksc = kv_quantize(kf)
-        vq, vsc = kv_quantize(vf)
-        cache["k"].index_put_((wr_page, wr_off), kq)
-        cache["v"].index_put_((wr_page, wr_off), vq)
-        cache["k_scale"].index_put_((wr_page, wr_off), ksc)
-        cache["v_scale"].index_put_((wr_page, wr_off), vsc)
+    sharded = isinstance(cache["k"], Shards)
+    q_in = qf if sharded else qf[0]
+    if quant:
         out = kops.paged_flash_decode_q(
-            qf, cache["k"], cache["v"], cache["k_scale"], cache["v_scale"],
-            cache["kpos"], ptf, qpf, active=actf)
+            q_in, cache["k"], cache["v"], cache["k_scale"],
+            cache["v_scale"], kpos, ptf, qpf, active=actf)
     else:
-        cache["k"].index_put_((wr_page, wr_off), kf.to(cache["k"].dtype))
-        cache["v"].index_put_((wr_page, wr_off), vf.to(cache["v"].dtype))
-        out = kops.paged_flash_decode(qf, cache["k"], cache["v"],
-                                      cache["kpos"], ptf, qpf, active=actf)
-    return out.reshape(b, t, nh, hd)
+        out = kops.paged_flash_decode(q_in, cache["k"], cache["v"], kpos,
+                                      ptf, qpf, active=actf)
+    outs = list(out) if sharded else [out]
+    return [o.reshape(b, t, *o.shape[1:]) for o in outs]
 
 
 def init_paged_attn_cache(cfg, num_pages: int, page_size: int,

@@ -10,13 +10,17 @@ A `dense` weight that is a {"q", "s"} leaf (`models/quantized.py`) runs
 W8A8 through the `int8_matmul` wrapper.  `cross_entropy_chunked` is the
 evaluation loss (f32 logsumexp over sequence chunks).
 
-Query columns: a speculative verify pass computes T query columns per
-lane in one backbone call, where a decode step computes one.  cuBLAS
-picks its GEMM kernel (and its split of K) by shape, so a row of a
-(B*T, D) product can come out in other bits than the same row of a
-(B, D) one.  `dense` and `lm_head` with ``columns=True`` therefore run a
-(B, T, D) input as T products of a contiguous (B, 1, D) column each: the
-decode step's own product, at M = B.
+Products: serving needs a row to give the same bits in products of
+any shape — a decode step's B rows, a verify pass's B*T, a pipeline
+microbatch's rows, a tensor-parallel shard's columns — and cuBLAS picks
+its kernel and its split of K by shape, so on the card `dense` and
+`lm_head` run on the port-only `gemm` kernel (`kernels/ops.gemm`), whose
+f32 sums follow an order fixed by K alone.  A verify pass therefore runs
+each product once over its B*T rows.  Products of more than
+EXACT_ROWS_MAX rows and products that autograd records (the synthetic
+fit) take torch.matmul: nothing compares their bits across shapes, and
+there cuBLAS runs 3-7x faster.  On the CPU every product is
+torch.matmul.
 """
 from __future__ import annotations
 
@@ -26,30 +30,65 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.models.shard_hints import (Shards, broadcast_to, hint,
+                                            paged_shard_ctx, part)
 
 Params = Dict[str, Any]
 
 COMPUTE_DTYPE = torch.bfloat16
+# the most rows a product runs on the gemm kernel with.  The cb engine
+# prefills one request at a time, at its bucket (max(buckets) rows at
+# most: 256 at EngineBase's defaults); a decode step has B rows, a verify
+# pass B*T.  A serve plan that cuts refuses buckets past this
+# (serving/engine._check_plan) and `product` raises on a longer product
+# under its context.  Longer products take torch.matmul, and no plan
+# runs them: the wave engine's prefill (max_batch x bucket, 2,048 rows at
+# its defaults), the long forward and its loss chunks
+EXACT_ROWS_MAX = 1024
+
+
+def product(x: torch.Tensor, w: torch.Tensor, w_nk: bool = False,
+            out_dtype=COMPUTE_DTYPE) -> torch.Tensor:
+    """x (..., K) @ w (w (K, N), or (N, K) when w_nk) in bf16, rounded to
+    out_dtype: the gemm kernel for a served product, torch.matmul for one
+    of more than EXACT_ROWS_MAX rows or that autograd records (see the
+    module docstring).  Under a serve plan's context with more than one
+    tensor-parallel shard a product of more than EXACT_ROWS_MAX rows
+    raises: its shards' column blocks would not equal one device's."""
+    rows = x.numel() // max(x.shape[-1], 1)
+    if rows > EXACT_ROWS_MAX and paged_shard_ctx() is not None:
+        raise ValueError(
+            f"a product of {rows} rows under a tensor-parallel serve plan: "
+            f"at most EXACT_ROWS_MAX = {EXACT_ROWS_MAX} rows run on the "
+            "K-ordered gemm kernel, whose column blocks equal the whole")
+    if rows <= EXACT_ROWS_MAX and not (torch.is_grad_enabled() and (
+            x.requires_grad or w.requires_grad)):
+        return ops.gemm(x, w, w_nk=w_nk, out_dtype=out_dtype)
+    wk = w.t() if w_nk else w
+    if out_dtype == torch.float32:
+        return torch.matmul(x.float(), wk.float())
+    return torch.matmul(x, wk)
 
 
 def by_column(fn, x: torch.Tensor, *args) -> torch.Tensor:
     """fn over a (B, T, ...) x one query column at a time, each column a
     contiguous (B, 1, ...) tensor as a decode step holds it; the results
-    joined on axis 1."""
+    joined on axis 1 (the MoE router's f32 product in a verify pass,
+    which runs on cuBLAS, not on the gemm kernel)."""
     return torch.cat([fn(x[:, j:j + 1].contiguous(), *args)
                       for j in range(x.shape[1])], 1)
 
 
-def dense(x: torch.Tensor, w, columns: bool = False) -> torch.Tensor:
+def dense(x: torch.Tensor, w, partial: bool = False) -> torch.Tensor:
     """x (..., d) @ w (d, f) in the working dtype; W8A8 (`quantized.qdense`)
-    when w is a {"q", "s"} leaf.  columns: x is (B, T, d) and runs as T
-    products at M = B (see the module docstring)."""
-    if columns and x.dim() == 3 and x.shape[1] > 1:
-        return by_column(dense, x, w)
+    when w is a {"q", "s"} leaf.  partial: the f32 sums, unrounded (a
+    tensor-parallel shard's share of a product over a sharded K, which
+    the shards' sum rounds once)."""
     if isinstance(w, dict):
         from repro_torch.models.quantized import qdense
         return qdense(x, w)
-    return torch.matmul(x, w)
+    return product(x, w, out_dtype=torch.float32 if partial
+                   else COMPUTE_DTYPE)
 
 
 def rmsnorm(x: torch.Tensor, p: Params, eps: float = 1e-6) -> torch.Tensor:
@@ -98,34 +137,74 @@ def act_fn(name: str):
     }[name]
 
 
-def mlp(x: torch.Tensor, p: Params, cfg, columns: bool = False
-        ) -> torch.Tensor:
+def mlp(x: torch.Tensor, p: Params, cfg) -> torch.Tensor:
+    """The MLP block.  Tensor parallel (a serve plan: `wi`, `wg` column
+    `Shards`): shard i computes its block of the hidden units, which meet
+    at `wo` as attention's head outputs do (gathered before a replicated
+    `wo`, or partial products summed, models/shard_hints.py)."""
     a = act_fn(cfg.act)
-    h = dense(x, p["wi"], columns)
-    if cfg.mlp_style == "swiglu":
-        h = a(dense(x, p["wg"], columns)) * h
-    else:
-        h = a(h)
-    return dense(h, p["wo"], columns)
+    wi = p["wi"]
+    xs = broadcast_to(x, wi) if isinstance(wi, Shards) else [x]
+    hs = []
+    for i, xi in enumerate(xs):
+        h = dense(xi, part(wi, i))
+        if cfg.mlp_style == "swiglu":
+            h = a(dense(xi, part(p["wg"], i))) * h
+        else:
+            h = a(h)
+        hs.append(h)
+    wo = p["wo"]
+    if isinstance(wo, Shards):  # psum form
+        return hint([dense(h, wo[i], partial=True)
+                     for i, h in enumerate(hs)], "psum").to(h.dtype)
+    return dense(hint(hs, "gather"), wo)
 
 
 # -- embedding / head -------------------------------------------------------
 
 
 def embed(tokens: torch.Tensor, p: Params) -> torch.Tensor:
-    return p["tok"][tokens.long()]
+    """Token rows of the embedding.  A vocab-sharded `tok` (a serve plan,
+    when the vocabulary divides the shards) takes each token's row from
+    the shard that owns it; a width-sharded one joins each row's blocks
+    in shard order.  Either is a copy, bit for bit one device's rows."""
+    tok = p["tok"]
+    if not isinstance(tok, Shards):
+        return tok[tokens.long()]
+    root = tok[0].device
+    t = tokens.long().to(root)
+    if tok.dim == 1:
+        return torch.cat([w[t.to(w.device)].to(root) for w in tok], -1)
+    vs = tok[0].shape[0]
+    out = None
+    for i, w in enumerate(tok):
+        local = t - i * vs
+        own = (local >= 0) & (local < vs)
+        rows = w[local.clamp(0, vs - 1).to(w.device)].to(root)
+        out = rows if out is None else torch.where(own[..., None], rows,
+                                                   out)
+    return out
 
 
-def lm_head(h: torch.Tensor, p: Params, columns: bool = False
-            ) -> torch.Tensor:
+def lm_head(h: torch.Tensor, p: Params) -> torch.Tensor:
     """f32 logits of a bf16 product: rounded to bf16 first, then cast.
-    columns: as `dense`'s."""
-    if columns and h.dim() == 3 and h.shape[1] > 1:
-        return by_column(lm_head, h, p)
+    A vocab-sharded head (or tied embedding) runs
+    one product per shard, the logits concatenated in shard order (so an
+    argmax keeps the lowest token id on ties); a tied embedding sharded
+    over its width is gathered first (a product over a sharded K would
+    sum partials)."""
     w = p.get("head")
-    if w is None:
-        w = p["tok"].t()
-    return torch.matmul(h, w).float()
+    tied = w is None
+    if tied:  # the (V, D) embedding read as (N, K)
+        w = p["tok"]
+    if isinstance(w, Shards):
+        if tied and w.dim == 1:
+            w = torch.cat([t.to(w[0].device) for t in w], 1)
+        else:
+            hs = broadcast_to(h, w)
+            return hint([product(hs[i], t, w_nk=tied).float()
+                         for i, t in enumerate(w)], "gather")
+    return product(h, w, w_nk=tied).float()
 
 
 # -- loss -------------------------------------------------------------------

@@ -108,9 +108,11 @@ def route(x: torch.Tensor, p: Params, cfg, columns: bool = False
 def moe_ffn(x: torch.Tensor, p: Params, cfg, columns: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) bf16 -> (y (B, S, D) bf16, aux 0-d f32).  columns: a
-    verify pass, whose router and shared-expert products run one query
-    column at a time as a decode step's do; the routed experts group
-    each row's S tokens together, as the reference's verify pass does."""
+    verify pass, whose router product runs one query column at a time as
+    a decode step's does (its f32 product is cuBLAS's, whose rows part by
+    row count; the shared experts' bf16 products are K-ordered, one
+    product of B*S rows); the routed experts group each row's S tokens
+    together, as the reference's verify pass does."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     r = route(x, p, cfg, columns)
@@ -142,10 +144,10 @@ def moe_ffn(x: torch.Tensor, p: Params, cfg, columns: bool = False
     y = torch.sum((back * w[..., None]).reshape(b, s, k, d), dim=2)
 
     if cfg.n_shared_experts:
-        hs = dense(x, p["shared_wi"], columns)
+        hs = dense(x, p["shared_wi"])
         if cfg.mlp_style == "swiglu":
-            hs = act(dense(x, p["shared_wg"], columns)) * hs
+            hs = act(dense(x, p["shared_wg"])) * hs
         else:
             hs = act(hs)
-        y = y + dense(hs, p["shared_wo"], columns)
+        y = y + dense(hs, p["shared_wo"])
     return y, r.aux

@@ -25,6 +25,7 @@ from repro_torch.core.quant import kv_quantize
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import recurrent as rec_mod
 from repro_torch.models.moe import moe_ffn
+from repro_torch.models.shard_hints import Shards, zip_parts
 from repro_torch.models.layers import (
     COMPUTE_DTYPE, cross_entropy_chunked, embed, lm_head, mlp, norm,
 )
@@ -107,7 +108,7 @@ def block_apply(cfg: ModelConfig, pos_in_period: int, p: Params,
         if cfg.is_moe_layer(pos_in_period):
             y, aux = moe_ffn(z, p["ffn"], cfg, columns=page_table is not None)
         else:
-            y = mlp(z, p["ffn"], cfg, columns=page_table is not None)
+            y = mlp(z, p["ffn"], cfg)
         h = h + y
     return h, aux
 
@@ -200,8 +201,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     (35 GB for moonshot-v1-16b-a3b's `wi`) is ever made.
     """
     n_rep, tail, kinds = layer_plan(cfg)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = None  # device="meta": the shapes alone (a plan's --dryrun)
+    if torch.device(device).type != "meta":
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
 
     def normal(shape, scale):
         w = torch.randn(shape, generator=gen, device=device,
@@ -308,10 +311,30 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
 
 
 def _index(tree, i: int):
-    """Period i's view of a scan-stacked (params or cache) subtree."""
+    """Period i's view of a scan-stacked (params or cache) subtree.  Under
+    a plan a leaf may be `Shards`: a pipeline's (cut over the period axis,
+    each stage holding a contiguous block of periods) gives the owning
+    stage's period; a tensor-parallel one gives each shard's period."""
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
+    if isinstance(tree, Shards):
+        if tree.dim == 0:
+            per = tree[0].shape[0]
+            return tree[i // per][i % per]
+        return tree.map(lambda t: t[i],
+                        None if tree.dim is None else tree.dim - 1)
     return tree[i]
+
+
+def _tree_device(tree):
+    """The device of a subtree's first tensor leaf (None: no tensor)."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            d = _tree_device(v)
+            if d is not None:
+                return d
+        return None
+    return tree.device if isinstance(tree, torch.Tensor) else None
 
 
 # ---------------------------------------------------------------------------
@@ -351,10 +374,17 @@ def quantize_kv_tree(tree):
     if not isinstance(tree, dict):
         return tree
     if "k" in tree and "kpos" in tree and "k_scale" not in tree:
-        kq, ks = kv_quantize(tree["k"])
-        vq, vs = kv_quantize(tree["v"])
-        return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs,
-                "kpos": tree["kpos"]}
+        out = {"kpos": tree["kpos"]}
+        for name in ("k", "v"):
+            x = tree[name]
+            if isinstance(x, Shards):  # each shard its own kv heads' scales
+                pairs = x.map(kv_quantize)
+                out[name] = Shards([q for q, _ in pairs], x.axis, x.dim)
+                out[name + "_scale"] = Shards([sc for _, sc in pairs],
+                                              x.axis, x.dim)
+            else:
+                out[name], out[name + "_scale"] = kv_quantize(x)
+        return out
     return {k: quantize_kv_tree(v) for k, v in tree.items()}
 
 
@@ -392,6 +422,14 @@ class Model:
         for i in range(n_rep):
             pp = _index(params["scan"], i)
             pc = None if caches is None else _index(caches["scan"], i)
+            dev = _tree_device(pp)
+            if dev is not None and dev != h.device:
+                # a pipeline plan's next stage: the activation (and the
+                # lanes' routing) moves to the stage's device
+                h, positions = h.to(dev), positions.to(dev)
+                segment_ids, kw["page_table"], kw["active"] = (
+                    None if t is None else t.to(dev)
+                    for t in (segment_ids, kw["page_table"], kw["active"]))
             period = None
             for j in range(len(kinds)):
                 h, a = block_apply(cfg, j, pp[f"b{j}"], h, positions,
@@ -404,7 +442,8 @@ class Model:
             h, a = block_apply(cfg, t, params["tail"][str(t)], h,
                                positions, segment_ids, st, **kw)
             aux = add(aux, a)
-        return norm(h, params["final_norm"], cfg), aux
+        root = params["final_norm"]["g"].device
+        return norm(h.to(root), params["final_norm"], cfg), aux
 
     # -- caches ------------------------------------------------------------
 
@@ -658,8 +697,9 @@ class Model:
         tokens: (B, T), column j at position ``caches['pos'][b] + j``.  One
         backbone call with S = T takes the paged verify branch
         (models/attention.py), and every product (projections, MLP, head)
-        runs one query column at a time, at the decode step's M = B
-        (`layers.dense`): every row's logits are what T chained
+        runs once over the B*T rows, each row summed as a decode step's
+        (`layers.product`; the MoE router one query column at a time,
+        models/moe.py): every row's logits are what T chained
         single-step `decode_step` calls with the same inputs give, bit for
         bit, which is what makes greedy verification lossless.  A MoE
         layer routes each row's T tokens as one group with the capacity of
@@ -679,7 +719,7 @@ class Model:
                                     device=x.device)[None, :])
         h, _ = self.backbone(params, x, positions, caches=caches,
                              page_table=caches["pt"], active=active)
-        return lm_head(h, params["embed"], columns=True), caches
+        return lm_head(h, params["embed"]), caches
 
     def spec_decode_step(self, params, caches, token: torch.Tensor,
                          active: torch.Tensor, n_draft: int,
@@ -736,6 +776,10 @@ class Model:
         axis: its leaves match but for the batch and are copied whole."""
 
         def leaf(axis, b, s):
+            if isinstance(b, Shards):  # a plan's parts, pairwise
+                for bp, sp in zip_parts(b, s):
+                    leaf(axis, bp, sp)
+                return b
             s = s.to(b.dtype)
             gap = b.dim() > 1 and s.shape[axis + 1] < b.shape[axis + 1]
             if gap:
@@ -773,14 +817,20 @@ class Model:
               torch.as_tensor(write_pages, dtype=torch.long, device=dev))
 
         def leaf(page_axis, name, b, s):
+            if isinstance(b, Shards):  # a plan's parts, pairwise
+                for bp, sp in zip_parts(b, s):
+                    leaf(page_axis, name, bp, sp)
+                return
+            reset_, wp_ = reset.to(b.device), (None if wp is None
+                                               else wp.to(b.device))
             ps = b.shape[page_axis + 1]
             idx = (slice(None),) * page_axis
             if name == "kpos":
-                b[idx + (reset,)] = KPOS_SENTINEL
+                b[idx + (reset_,)] = KPOS_SENTINEL
             if s is None:
                 return
             s = s.squeeze(page_axis).to(b.dtype)  # drop the batch-1 axis
-            need, got = wp.shape[0] * ps, s.shape[page_axis]
+            need, got = wp_.shape[0] * ps, s.shape[page_axis]
             if got < need:
                 fill = KPOS_SENTINEL if name == "kpos" else 0
                 pad_shape = list(s.shape)
@@ -789,9 +839,9 @@ class Model:
                                              device=s.device)], page_axis)
             elif got > need:  # the lane owns fewer pages than the bucket
                 s = s.narrow(page_axis, 0, need)
-            s = s.reshape(s.shape[:page_axis] + (wp.shape[0], ps)
+            s = s.reshape(s.shape[:page_axis] + (wp_.shape[0], ps)
                           + s.shape[page_axis + 1:])
-            b[idx + (wp,)] = s
+            b[idx + (wp_,)] = s
 
         for key, axis in (("scan", 1), ("tail", 0)):
             for blk, arena in big[key].items():

@@ -15,6 +15,13 @@ accepts up to spec_k + 1 tokens per lane.
 `WaveEngine` (serving/wave.py), the batch-synchronous baseline, shares
 `EngineBase`.  Decode: one fused n-step dispatch per loop turn, one (n, B)
 token fetch, host-side reconciliation.
+
+A `plan` (core/cluster_builder.build_plan) places the model over a
+device mesh through the executor: a ``mode="serve"`` plan serves the
+paged arena sharded by kv head (exact gather-form TP, or the psum form
+under ``exact=False``), an exact ``mode="serve_pipeline"`` plan streams
+the dense slot path through its stages.  A plan whose axis is 1 wide runs
+the plain programs.
 """
 from __future__ import annotations
 
@@ -43,6 +50,46 @@ def _unported(**options) -> None:
             f"not ported yet: {', '.join(bad)} (see ROADMAP.md, port queue)")
 
 
+def plan_cuts(plan) -> bool:
+    """Does `plan` place anything over more than one shard (its stage
+    axis, or its tensor-parallel one)?"""
+    if plan is None:
+        return False
+    axis = (plan.axes.stage if plan.mode == "serve_pipeline"
+            else plan.axes.tp)
+    return plan.mesh.shape[axis] > 1
+
+
+def _check_plan(plan, cfg, quant_weights: bool, buckets=()) -> None:
+    """What the port's plans do not take yet (ROADMAP.md §1 item 2b), and
+    a tensor-parallel plan's prefill longer than the K-ordered products
+    run (one request at its bucket: max(buckets) rows)."""
+    if plan is None:
+        return
+    if plan.mode not in ("serve", "serve_pipeline"):
+        raise ValueError(f"plan mode {plan.mode!r}: the serving engines "
+                         "take 'serve' or 'serve_pipeline' plans")
+    if plan.mesh.abstract:
+        raise ValueError("a plan on an abstract mesh has no devices: "
+                         "build it on make_mesh(...) to serve")
+    if not plan_cuts(plan):
+        return
+    from repro_torch.models.layers import EXACT_ROWS_MAX
+    if plan.mode == "serve" and max(buckets, default=0) > EXACT_ROWS_MAX:
+        raise ValueError(
+            f"buckets {tuple(buckets)}: a tensor-parallel serve plan "
+            f"prefills at most EXACT_ROWS_MAX = {EXACT_ROWS_MAX} rows (the "
+            "K-ordered products; models/layers.py)")
+    from repro_torch.models.transformer import layer_plan
+    _, _, kinds = layer_plan(cfg)
+    _unported(**{
+        "the request-skewed serve_pipeline (exact=False)":
+            plan.mode == "serve_pipeline" and not plan.exact,
+        "recurrent or MoE families under a plan":
+            any(k != "attn" for k in kinds) or bool(cfg.n_experts),
+        "W8A8 weights under a plan": quant_weights})
+
+
 class EngineBase:
     """Shared composition: scheduler + executor, stats, prefill plumbing.
 
@@ -53,7 +100,8 @@ class EngineBase:
     run through `int8_matmul`; for smollm-135m and the other
     attention-only families every projection is stacked over layers (3-d),
     so nothing changes.  Not ported yet (raises NotImplementedError): a
-    ClusterPlan."""
+    ClusterPlan that cuts a recurrent or MoE family, W8A8 weights under
+    such a plan, and the request-skewed (exact=False) serve_pipeline."""
 
     def __init__(self, model: Model, params, max_batch: int = 8,
                  buckets=(32, 64, 128, 256), deadline_s: float = 0.05,
@@ -61,7 +109,8 @@ class EngineBase:
                  decode_horizon: int = 8,
                  monitor: Optional[StragglerMonitor] = None,
                  quant_weights: bool = False):
-        _unported(plan=plan is not None)
+        _check_plan(plan, model.cfg, quant_weights, buckets)
+        self.plan = plan
         self.model = model
         self.max_batch = max_batch
         self.buckets = tuple(sorted(buckets))
@@ -76,7 +125,7 @@ class EngineBase:
         self.executor = Executor(model, params, max_batch=max_batch,
                                  cache_len=self.cache_len,
                                  buckets=self.buckets,
-                                 quant_weights=quant_weights)
+                                 quant_weights=quant_weights, plan=plan)
         self.stats = {"prefill_tokens": 0, "decode_steps": 0,
                       "decode_dispatches": 0, "device_syncs": 0}
 
@@ -131,16 +180,20 @@ class ContinuousBatchingEngine(EngineBase):
                  disagg: Optional[Tuple[int, int]] = None, **kw):
         _unported(disagg=disagg is not None)
         super().__init__(*args, **kw)
+        _unported(**{"speculation under a plan":
+                     bool(spec_config) and plan_cuts(self.plan)})
         self.stats.update(admitted=0, completed=0, prefills=0,
                           active_lane_steps=0)
         self._slot_caches = None
-        eligible = paged_eligible(self.model.cfg)
+        eligible = paged_eligible(self.model.cfg, self.plan)
         if paged == "auto":
             paged = eligible
         elif paged and not eligible:
             raise ValueError(
                 "paged KV needs an all-attention, unwindowed, causal model "
-                "(recurrent state and ring buffers have no paged analogue)")
+                "(recurrent state and ring buffers have no paged analogue) "
+                "under no plan or a mode='serve' plan (the exact pipeline "
+                "streams the dense slot path)")
         self.paged = bool(paged)
         if kv_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_dtype {kv_dtype!r}: want 'bf16' or 'int8'")

@@ -1,6 +1,6 @@
-"""Device-side serving execution for one device (port of
-`repro/serving/executor.py`: the paged and the dense slot paths, and
-greedy speculative decoding on the paged one).
+"""Device-side serving execution (port of `repro/serving/executor.py`:
+the paged and the dense slot paths, greedy speculative decoding on the
+paged one, and the Cluster Builder's serve plans).
 
 The executor owns the params (quantized once for W8A8 serving when
 asked, the draft's too) and the device decode state: bucketed
@@ -9,30 +9,83 @@ admission/park updates.  PyTorch runs eagerly, so there is nothing to
 compile; the state tensors are updated in place.  Each decode dispatch
 returns one (n, B) token tensor that the engine fetches once — the loop
 itself never syncs with the host.
+
+Under a plan (`core/cluster_builder.build_plan`) the executor places the
+params and caches itself, from the plan's specs (the reference's
+`jax.device_put` under its shardings), and every program runs inside the
+plan's `shard_hints.hints` context:
+  * ``mode="serve"``: leaves whose spec names the `model` axis become
+    `Shards`, one block per shard of the tensor-parallel group (the paged
+    arena and dense slot rows by kv head, `wq`/`wk`/`wv`/`wi`/`wg` and
+    the vocabulary by column, and under ``exact=False`` the reduction
+    projections by row); the rest stays whole on the controller (shard
+    0's device).  Kernels 1 and 2 then launch once per shard at its kv
+    heads.  When the kv heads do not divide the axis, attention runs
+    unsharded over a replicated arena (the reference's rule, logged).
+    The data axis replicates in serve plans (slot tables never shard the
+    batch), so one tensor-parallel group runs.
+  * ``mode="serve_pipeline"``: the scan-stacked leaves become `Shards`
+    over the `stage` axis (stage s holds its contiguous block of layer
+    periods, the paper's encoder-per-cluster placement), and the fused
+    decode streams lane microbatches through the stages
+    (`_pipeline_decode`).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.core import gmi
+from repro_torch.core.cluster_builder import spec_axes
 from repro_torch.core.packing import bucket_len
+from repro_torch.core.pipeline import pipeline_steps, stage_devices
+from repro_torch.launch.mesh import DeviceMesh
+from repro_torch.models import shard_hints
+from repro_torch.models.layers import lm_head, norm
 from repro_torch.models.quantized import quantize_params_for_serving
-from repro_torch.models.transformer import Model
+from repro_torch.models.shard_hints import Shards
+from repro_torch.models.transformer import (Model, _index, block_apply,
+                                            greedy_token_update, layer_plan)
 
 PAD_TOKEN = 0  # fed for finished/free lanes; their logits are never read
+
+
+def _lane_rows(tree, lanes: slice):
+    """A cache subtree's rows of `lanes` (its leaves are lane-major):
+    views, so the layers' in-place writes land in the whole cache."""
+    if isinstance(tree, dict):
+        return {k: _lane_rows(v, lanes) for k, v in tree.items()}
+    return tree[lanes]
 
 
 class Executor:
     """Device programs + decode state for one serving engine."""
 
     def __init__(self, model: Model, params, max_batch: int = 8,
-                 cache_len: int = 0, buckets=(), quant_weights: bool = False):
+                 cache_len: int = 0, buckets=(), quant_weights: bool = False,
+                 plan=None):
         self.model = model
         self.quant_weights = bool(quant_weights)
         if self.quant_weights:
             params = quantize_params_for_serving(params)
+        self.plan = plan
+        self.notes = []  # what the placement did, for the log
+        self.pipeline_ticks = 0  # serve_pipeline: ticks of every step
+        # the plan's axis and its shard devices, when it cuts anything
+        self._axis, self._group = None, []
+        if plan is not None:
+            mesh = plan.mesh
+            self._axis = (plan.axes.stage if plan.mode == "serve_pipeline"
+                          else plan.axes.tp)
+            if mesh.shape[self._axis] > 1:
+                self._group = mesh.groups(self._axis)[0]
+            else:
+                self._axis = None  # a 1-wide plan: the plain programs
+        if self._axis is not None:
+            params = self._place(params, plan.specs_for_params(params))
         self.params = params
         self.device = model.device
         self.max_batch = max_batch
@@ -51,6 +104,68 @@ class Executor:
         self.draft_model = draft_model
         self.draft_params = draft_params
 
+    # -- plan placement --------------------------------------------------------
+
+    def _place(self, tree, specs, path=()):
+        """The plan's leaves as `Shards` over its axis (a leaf whose spec
+        does not name the axis stays as it is)."""
+        if isinstance(tree, dict):
+            return {k: self._place(v, specs[k], path + (k,))
+                    for k, v in tree.items()}
+        axis, mesh = self._axis, self.plan.mesh
+        dim = next((d for d, e in enumerate(specs)
+                    if axis in spec_axes(e)), None)
+        if dim is not None and axis == "model" and "mix" in path:
+            cfg = self.model.cfg
+            n = mesh.shape[axis]
+            if cfg.n_kv_heads % n or cfg.n_heads % n:
+                note = (f"plan: {cfg.n_heads} heads / {cfg.n_kv_heads} kv "
+                        f"heads do not divide '{axis}' ({n}): attention "
+                        "runs unsharded over a replicated arena")
+                if note not in self.notes:
+                    self.notes.append(note)
+                return tree
+        if dim is None:
+            return tree
+        spec = tuple(e if d == dim else None for d, e in enumerate(specs))
+        parts = self.plan.sharding(spec).split(tree)
+        return Shards([parts[f] for f in self._group], axis, dim)
+
+    def place_caches(self, caches, paged: bool, slot_table: bool = True):
+        """A cache tree under the plan: the arena (or dense rows) by kv
+        head, or its periods by stage; under tensor parallelism each
+        attention cache's kpos held once per shard device (every shard's
+        kernel reads it)."""
+        if self._axis is None:
+            return caches
+        specs = self.plan.specs_for_caches(caches, batch=self.max_batch,
+                                           slot_table=slot_table,
+                                           paged=paged)
+        placed = self._place(caches, specs)
+        if self._axis == "model":
+            self._kpos_per_device(placed)
+        return placed
+
+    def _kpos_per_device(self, tree) -> None:
+        if not isinstance(tree, dict):
+            return
+        if isinstance(tree.get("k"), Shards) and "kpos" in tree:
+            tree["kpos"] = Shards(shard_hints.broadcast_to(
+                tree["kpos"], tree["k"]), tree["k"].axis, None)
+            return
+        for v in tree.values():
+            self._kpos_per_device(v)
+
+    def _ctx(self):
+        """The serve plan's hints context (a no-op context otherwise)."""
+        plan = self.plan
+        if self._axis is None or plan.mode != "serve":
+            return contextlib.nullcontext()
+        return shard_hints.hints(plan.mesh, dp_axes=plan.axes.dp,
+                                 tp_axis=plan.axes.tp,
+                                 serve_exact=plan.exact,
+                                 serve_psum=not plan.exact)
+
     def _tensor(self, a, dtype=torch.int32) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
 
@@ -62,10 +177,12 @@ class Executor:
         """The persistent serving cache: a paged arena, or dense slot rows
         (max_batch x cache_len)."""
         if paged:
-            return self.model.init_paged_cache(self.max_batch, num_pages,
-                                               page_size, max_pages,
-                                               kv_dtype=kv_dtype)
-        return self.model.init_cache(self.max_batch, self.cache_len)
+            caches = self.model.init_paged_cache(
+                self.max_batch, num_pages, page_size, max_pages,
+                kv_dtype=kv_dtype)
+        else:
+            caches = self.model.init_cache(self.max_batch, self.cache_len)
+        return self.place_caches(caches, paged)
 
     def init_draft_caches(self, page_size: int, num_pages: int,
                           max_pages: int, kv_dtype: str = "bf16"):
@@ -115,7 +232,9 @@ class Executor:
             pos[i, :n] = np.arange(n)
             lengths[i] = n
         caches = model.init_cache(batch, cache_slots or bucket)
-        with torch.no_grad():
+        if model is self.model:
+            caches = self.place_caches(caches, False, slot_table=False)
+        with torch.no_grad(), self._ctx():
             logits, caches = model.prefill(
                 params, caches, self._tensor(toks),
                 positions=self._tensor(pos),
@@ -148,9 +267,11 @@ class Executor:
         """One fused n-step dispatch; returns the (n, B) token tensor (on
         the device), st updated in place.  The paged loop threads the
         forced-token queues."""
+        if self._axis == "stage":
+            return self._pipeline_decode(st, n)
         kw = (dict(forced=st["forced"], forced_len=st["flen"],
                    forced_ptr=st["fptr"]) if paged else {})
-        with torch.no_grad():
+        with torch.no_grad(), self._ctx():
             out = self.model.decode_steps(
                 self.params, st["caches"], st["cur"], st["active"], n,
                 eos_id=st["eos"], budget=st["budget"], pad_token=PAD_TOKEN,
@@ -233,6 +354,84 @@ class Executor:
         st["active"][sl] = True
         st["eos"][sl] = eos_id
         st["budget"][sl] = bud
+
+    # -- stage-pipelined decode (mode="serve_pipeline") ------------------------
+
+    def _pipeline_decode(self, st: Dict[str, Any], n: int) -> torch.Tensor:
+        """Fused n-step decode streamed through the `stage` mesh axis.
+
+        Stage s holds its contiguous block of the scan-stacked layer
+        periods on its own device, and each decode step runs the GPipe
+        schedule of core/pipeline over lane microbatches: at tick t, stage
+        s applies its layers to microbatch (t - s) and hands the hidden
+        state to stage s + 1 (`gmi.cluster_send`).  A microbatch is its own
+        B / n_micro lanes: their rows of x, of the positions and of each
+        cache leaf (views, written in place).  Every operation on a row
+        (the K-ordered products, the row norm, the decode kernel) gives it
+        the same bits at any row count, so each lane's row is bit for bit
+        `Model.decode_steps`'.  The last stage's rows go back to the
+        controller, where the final norm, the head and
+        `greedy_token_update` run as in `Model.decode_steps`.  Ticks per
+        step: `pipeline_steps(n_micro, n_stages)`.
+        """
+        model, cfg, plan = self.model, self.model.cfg, self.plan
+        n_stages = plan.mesh.shape[self._axis]
+        n_rep, tail, kinds = layer_plan(cfg)
+        if tail or n_rep % n_stages:
+            raise ValueError(
+                f"serve_pipeline needs the scan-stacked periods to divide "
+                f"the stage axis: n_rep={n_rep}, tail={tail}, "
+                f"stages={n_stages}")
+        b = self.max_batch
+        n_micro = n_stages if b % n_stages == 0 else 1
+        mb = b // n_micro
+        steps = pipeline_steps(n_micro, n_stages)
+        per = n_rep // n_stages
+        devs = stage_devices(plan.mesh, self._axis)
+        ring = DeviceMesh((n_stages,), (self._axis,), devs)
+        params, caches = self.params, st["caches"]
+        rest_p = {k: v for k, v in params.items() if k != "scan"}
+        cur, act, rem, eos = st["cur"], st["active"], st["budget"], st["eos"]
+        toks = []
+        with torch.no_grad():
+            for _ in range(n):
+                x = model.embed_inputs(rest_p, tokens=cur[:, None])
+                pos = caches["pos"]
+                buf = [torch.zeros_like(x[:mb], device=d) for d in devs]
+                out = torch.zeros_like(x)
+                for t in range(steps):
+                    ys = []
+                    for s, dev in enumerate(devs):
+                        m = t - s  # the microbatch this stage works on
+                        if not 0 <= m < n_micro:
+                            ys.append(buf[s])
+                            continue
+                        lanes = slice(m * mb, (m + 1) * mb)
+                        h = x[lanes].to(dev) if s == 0 else buf[s]
+                        positions = pos[lanes, None].to(dev)
+                        on = act[lanes].to(dev)
+                        for i in range(s * per, (s + 1) * per):
+                            pp = _index(params["scan"], i)
+                            pc = _lane_rows(_index(caches["scan"], i), lanes)
+                            for j in range(len(kinds)):
+                                h, _ = block_apply(cfg, j, pp[f"b{j}"], h,
+                                                   positions, None,
+                                                   pc[f"b{j}"], active=on)
+                        ys.append(h)
+                    m_out = t - (n_stages - 1)
+                    if m_out >= 0:  # the last stage finished m_out
+                        out[m_out * mb:(m_out + 1) * mb] = ys[-1].to(x.device)
+                    buf = gmi.cluster_send(ys, ring, self._axis)
+                self.pipeline_ticks += steps
+                h = norm(out, rest_p["final_norm"], cfg)
+                logits = lm_head(h, rest_p["embed"])[:, 0]
+                emit, cur, nxt_act, rem = greedy_token_update(
+                    logits, cur, act, rem, eos, PAD_TOKEN)
+                caches["pos"] = torch.where(act, pos + 1, pos)
+                act = nxt_act
+                toks.append(emit)
+        st.update(cur=cur, active=act, budget=rem)
+        return torch.stack(toks)
 
     def admit_hit(self, st, slot: int, pt_row, pos0: int, reset) -> None:
         """Point a lane at its (shared prefix + own) pages; the suffix

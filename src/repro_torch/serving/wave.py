@@ -24,6 +24,8 @@ class WaveEngine(_engine.EngineBase):
 
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
+        _engine._unported(**{"the wave engine under a plan":
+                             _engine.plan_cuts(self.plan)})
         self.stats.update(waves=0)
 
     def run(self) -> List[Request]:

@@ -1018,3 +1018,130 @@ def test_row_norm_wrapper_refuses_what_it_cannot_run(dev):
         ops.row_norm(x.half(), g)
     with pytest.raises(ValueError, match=r"\(D,\)"):
         ops.row_norm(x, g[:32])
+
+
+# -- serve plans: the per-shard dispatch of kernels 1 and 2 ------------------
+
+
+def _shard_arena(t, n):
+    """t's kv-head slices (dim 2) as a plan holds them."""
+    from repro_torch.models.shard_hints import Shards
+    w = t.shape[2] // n
+    return Shards([t[:, :, i * w:(i + 1) * w].contiguous() for i in range(n)],
+                  "model", 2)
+
+
+@pytest.mark.parametrize("kvh,g,hd,n", [(3, 3, 64, 3), (8, 4, 128, 4),
+                                        (2, 2, 16, 2)])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_paged_decode_per_shard_dispatch_equals_unsharded(dev, kvh, g, hd, n,
+                                                          quantized):
+    """smollm-135m on 3 shards (1 kv head of 3 query heads each) and
+    minitron-8b on 4 (2 of 4 each): one launch per shard over its arena
+    slice, the outputs in shard order, equal the unsharded launch bit for
+    bit."""
+    from repro_torch.models.shard_hints import Shards
+    args = _inputs(kvh * 10 + n, 8, kvh, g, hd, 16, 12, dev)
+    if quantized:
+        *args, act = _quantized(args)
+        q, k, v, ks, vs, kpos, pt, qpos = args
+        call = ops.paged_flash_decode_q
+        arenas = (k, v, ks, vs)
+    else:
+        q, k, v, kpos, pt, qpos, act = args
+        call = ops.paged_flash_decode
+        arenas = (k, v)
+    name = "paged_flash_decode_q" if quantized else "paged_flash_decode"
+    want = call(q, *arenas, kpos, pt, qpos, active=act)
+    n0 = ops.launches[name]
+    shards = [_shard_arena(a, n) for a in arenas]
+    got = call(q, *shards, Shards([kpos] * n, "model", None), pt, qpos,
+               active=act)
+    torch.cuda.synchronize()
+    assert ops.launches[name] == n0 + n
+    assert len(got) == n and all(o.shape[1] == kvh * g // n for o in got)
+    assert torch.equal(torch.cat(list(got), 1), want)
+
+
+# -- the K-ordered gemm (port-only) -------------------------------------------
+
+
+def _gemm_inputs(seed, m, k, n, dev, nk=False):
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.normal(0, 1, (m, k)), dtype=torch.bfloat16,
+                     device=dev)
+    w = torch.tensor(rng.normal(0, k ** -0.5, (n, k) if nk else (k, n)),
+                     dtype=torch.bfloat16, device=dev)
+    return x, w
+
+
+def _gemm_close(out, x, w, nk):
+    wk = (w.t() if nk else w).float()
+    want = x.float() @ wk
+    spread = x.float().abs() @ wk.abs()
+    limit = 2 ** -8 * want.abs() + 1e-5 * spread + 1e-30
+    assert ((out.float() - want).abs() <= limit).all(), (
+        (out.float() - want).abs().max().item())
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 64, 64), (8, 576, 576), (8, 576, 192),
+                                   (40, 576, 1536), (128, 4096, 1024),
+                                   (3, 100, 77), (70, 33, 130),
+                                   (8, 896, 151655)])
+@pytest.mark.parametrize("nk", [False, True])
+def test_gemm_kernel_matches_plain(dev, m, k, n, nk):
+    x, w = _gemm_inputs(m + k + n, m, k, n, dev, nk)
+    n0 = ops.launches["gemm"]
+    out = ops.gemm(x, w, w_nk=nk)
+    torch.cuda.synchronize()
+    assert ops.launches["gemm"] == n0 + 1
+    assert out.dtype == torch.bfloat16 and out.shape == (m, n)
+    _gemm_close(out, x, w, nk)
+
+
+@pytest.mark.parametrize("k,n,shards", [(576, 576, 3), (576, 192, 3),
+                                        (4096, 4096, 4), (4096, 1024, 4),
+                                        (4096, 16384, 4), (576, 49152, 3)])
+def test_gemm_blocks_equal_the_whole(dev, k, n, shards):
+    """The reduction order is fixed by K: a column block of w (a
+    tensor-parallel shard's) and a row block of x (a pipeline
+    microbatch's, a decode step inside a verify pass) give the whole
+    product's bits."""
+    x, w = _gemm_inputs(k + n, 128, k, n, dev)
+    whole = ops.gemm(x, w)
+    cols = n // shards
+    for m in (1, 6, 8, 40, 64, 128):
+        got = torch.cat([ops.gemm(x[:m], w[:, i * cols:(i + 1) * cols]
+                                  .contiguous()) for i in range(shards)], 1)
+        assert torch.equal(got, whole[:m]), m
+        assert torch.equal(ops.gemm(x[m - 1:m], w), whole[m - 1:m]), m
+
+
+def test_gemm_routes_training_and_long_products_to_matmul(dev):
+    """The kernel is forward-only and raises where autograd records;
+    `layers.product` sends such products, and those of more than
+    EXACT_ROWS_MAX rows, to torch.matmul, and served ones to the kernel."""
+    from repro_torch.models import layers
+    x, w = _gemm_inputs(3, 16, 64, 32, dev)
+    w.requires_grad_()
+    with pytest.raises(RuntimeError, match="forward-only"):
+        ops.gemm(x, w)
+    n0 = ops.launches["gemm"]
+    assert torch.equal(layers.product(x, w), torch.matmul(x, w))
+    assert ops.launches["gemm"] == n0
+    w = w.detach()
+    big = _gemm_inputs(4, layers.EXACT_ROWS_MAX + 1, 64, 32, dev)[0]
+    assert torch.equal(layers.product(big, w), torch.matmul(big, w))
+    assert ops.launches["gemm"] == n0
+    layers.product(big[:layers.EXACT_ROWS_MAX], w)
+    assert ops.launches["gemm"] == n0 + 1
+
+
+def test_gemm_wrapper_refuses_what_it_cannot_run(dev):
+    x, w = _gemm_inputs(4, 4, 64, 32, dev)
+    with pytest.raises(ValueError, match="float32"):
+        ops.gemm(x.float(), w)
+    with pytest.raises(ValueError, match="cpu"):
+        ops.gemm(x, w.cpu())
+    with pytest.raises(ValueError, match="w_nk"):
+        ops.gemm(x, w.t())

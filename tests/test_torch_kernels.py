@@ -273,3 +273,56 @@ def test_int8_matmul_split_fills_the_card(m, n, k, sms, want):
     steps = -(-k // tops.INT8_MM_BK)
     assert 1 <= got <= tops.INT8_MM_MAX_SPLIT and got <= max(steps, 1)
     assert got == 1 or tiles * got // 2 < sms  # the smallest that fills
+
+
+# -- the K-ordered gemm's wrapper on the CPU -----------------------------------
+
+
+@pytest.mark.parametrize("shape", [(8, 64), (2, 3, 64), (1, 1, 64)])
+@pytest.mark.parametrize("nk", [False, True])
+def test_gemm_plain_version_is_torch_matmul(shape, nk):
+    """On the CPU the wrapper is torch.matmul on the shapes as given (the
+    bits the JAX comparisons were held to), the tied head's (N, K) weight
+    read transposed; out_dtype f32 gives the f32 product of the bf16
+    inputs (a shard's partial)."""
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(shape, generator=g).bfloat16()
+    w = torch.randn((32, 64) if nk else (64, 32), generator=g).bfloat16()
+    wk = w.t() if nk else w
+    n0 = tops.launches["gemm"]
+    assert torch.equal(tops.gemm(x, w, w_nk=nk), torch.matmul(x, wk))
+    part = tops.gemm(x, w, w_nk=nk, out_dtype=torch.float32)
+    assert part.dtype == torch.float32
+    assert torch.equal(part, torch.matmul(x.float(), wk.float()))
+    assert tops.launches["gemm"] == n0  # the plain version counts nothing
+
+
+def test_gemm_wrapper_checks_shapes():
+    x = torch.zeros((4, 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="gemm"):
+        tops.gemm(x, torch.zeros((32, 64), dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="gemm"):
+        tops.gemm(x, torch.zeros((64,), dtype=torch.bfloat16))
+
+
+def test_gemm_constants_match_the_cuda_kernel():
+    """The kernel's K tile, its mma step and its split of K over a cluster,
+    which fix the reduction order (csrc/gemm.cu): functions of K alone,
+    the ranks' partial sums added in rank order, no atomics."""
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(tops.__file__), "csrc",
+                            "gemm.cu")).read()
+    assert re.search(rf"constexpr int BN = 64, BK = {tops.GEMM_BK};", src)
+    assert re.search(rf"constexpr int kMaxSplit = {tops.GEMM_MAX_SPLIT};",
+                     src)
+    assert "*per = max(3, (nk + kMaxSplit - 1) / kMaxSplit);" in src
+    assert "*split = max(1, (nk + *per - 1) / *per);" in src
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
+    assert "ks < BK; ks += 16" in src
+    assert "for (int s = 1; s < split; ++s)" in src
+    assert "atomicAdd" not in src
+    # smollm-135m's K 576 (9 tiles), minitron-8b's 4096 and 16384, one tile
+    assert [tops.gemm_split(k) for k in (576, 1536, 4096, 16384, 64, 1)] \
+        == [(3, 3), (3, 8), (8, 8), (32, 8), (3, 1), (3, 1)]

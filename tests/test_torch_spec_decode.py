@@ -225,10 +225,11 @@ def test_spec_stream_equals_decode_steps_mid_acceptance():
 
 def test_verify_products_run_at_decode_rows(monkeypatch):
     """Reduced minitron-8b (squared-ReLU 2-matrix MLP, untied head): every
-    product of a verify pass — q/k/v/o, the MLP and the head — runs on B
-    rows, one contiguous query column at a time, as a decode step runs it
-    (cuBLAS may give a row of a B*T-row product other bits), and its
-    logits equal the chained decode steps'."""
+    product of a verify pass — q/k/v/o, the MLP and the head — runs once
+    over its B*T rows (a contiguous (B, T, d) input), each row summed as
+    the decode step's row of a B-row product is (the K-ordered gemm
+    kernel on the card; torch.matmul here), and its logits equal the
+    chained decode steps' bit for bit."""
     cfg = tget("minitron-8b").reduced()
     model = ttr.make_model(cfg, device="cpu")
     params = ttr.init_params(cfg, seed=0, device="cpu")
@@ -249,9 +250,9 @@ def test_verify_products_run_at_decode_rows(monkeypatch):
         logits, _ = model.verify_block(params, _paged(model, "bf16"),
                                        tokens)
         monkeypatch.setattr(torch, "matmul", matmul)
-    per_column = cfg.n_layers * (4 + 2) + 1  # attention, MLP, head
-    assert len(rows) == t * per_column
-    assert all(shape[:2] == (B, 1) and contiguous
+    products = cfg.n_layers * (4 + 2) + 1  # attention, MLP, head
+    assert len(rows) == products
+    assert all(shape[:2] == (B, t) and contiguous
                for shape, contiguous in rows), rows
     assert torch.equal(logits, torch.stack(steps, 1))
 
