@@ -74,8 +74,9 @@ the JAX package.  Phases, in order — any fault exits non-zero:
 7. fit: `models.synthetic.fit_affine_lm` on the card at its defaults
    (1,000 Adam steps) for reduced smollm-135m (the gate's instrument:
    the full-width fit does not reach the accuracy a gate needs, PERF.md),
-   a 1-layer draft on the clean corpus and one with
-   disagree_every=3; each logs its held-out loss and greedy accuracy;
+   then DRAFT_FIT_STEPS for a 1-layer draft on the clean corpus and one
+   with disagree_every=3; each logs its held-out loss and greedy
+   accuracy;
 8. gate: the fitted target's greedy streams on the card against the
    CPU's (8 affine prompts, 16 fused steps) on a bf16 page arena, dense
    slot rows and an int8 arena: the token match must be exactly 1.0;
@@ -112,7 +113,8 @@ the JAX package.  Phases, in order — any fault exits non-zero:
 12. moe: moonshot-v1-16b-a3b (64 experts top-6, 2 shared) and
    llama4-maverick-400b-a17b (a dense layer, then 128 experts top-1 and
    1 shared) at full width on random weights: card vs CPU (paged) on 2
-   of moonshot's layers and on llama4's 2-layer period, with the routing
+   of moonshot's layers (llama4's period's CPU half is cut for chip
+   time; its reduced fit is gated card vs CPU below), with the routing
    compared on the card's own rows (a pair may go elsewhere only at a
    top-k margin of at most MOE_MARGIN) and end to end (logged; logits
    gated at LOGIT_TOL on each lane up to its first pair routed
@@ -144,8 +146,22 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    serve_pipeline plan: the pipelined loop equal to Model.decode_steps,
    the engine's streams equal to the dense-slot engine's, 11 ticks and
    30 x 6 flash_decode launches a step, Eq. 1 from the stage time;
-   minitron-8b at full width, 8 of its 32 layers, on (1, 4): streams and
-   logits equal one device's; the --dryrun CLI's markers;
+   speculation under (1, 3) (smollm-135m drafting for itself, spec_k 4,
+   bf16 and int8: streams equal the plan's plain streams and one
+   device's spec streams, counters equal, launches one device's plus the
+   other shards' target passes); the wave engine under (1, 3) at the
+   default buckets (one wave at bucket 256, prefilled in request blocks
+   of 4: streams equal one device's, flash_decode 3 x 30 a step); the
+   request-skewed serve_pipeline (--no-exact) on 6 stages at B = 12,
+   lane groups of 2: the loop equal to Model.decode_steps (tokens, lane
+   state, counters, arena), 4 x 6 + 5 ticks and 30 x 6 kernel-1 launches
+   a step, one step profiled beside one device's, the engine's streams
+   equal the plain paged engine's on bf16 and int8, cold then hits, each
+   stage's arena block 5 periods, a page's bytes 1/6; kernels 1 and 2 at
+   a 2-lane group; minitron-8b at full width, 8 of its 32 layers, on
+   (1, 4): streams and logits equal one device's, and on 4 skewed
+   stages at B = 8: streams equal one device's; the --dryrun CLI's
+   markers; each step logs its seconds;
 14. encode: the integer I-BERT encoder (ibert-base at full width, 12
    layers, random float weights from seed 0, calibrated at batch 1, seq
    128) through `repro_torch.launch.ibert_encoder`: one forward must
@@ -184,6 +200,9 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.cluster_builder import build_plan  # noqa: E402
 from repro_torch.core import ibert_ops, quant  # noqa: E402
+from repro_torch.core.latency_model import (  # noqa: E402
+    pipeline_ticks_per_step)
+from repro_torch.core.packing import bucket_len  # noqa: E402
 from repro_torch.core.quant import QTensor  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.launch import ibert_encoder  # noqa: E402
@@ -257,6 +276,10 @@ ROW_NORM_ROWS = (1, 8, 40, 4096)
 # few f32 ulps apart moves an output near 0 by more than its own ulp
 ROW_NORM_TOL = 1e-6
 SPEC_K = 4  # the spec phase's most drafted tokens per dispatch
+# the two 1-layer drafts' Adam steps (1,000 before the plans phase grew):
+# the spec phase requires spec streams equal to the plain engine's,
+# which holds for any draft; their acceptance is logged
+DRAFT_FIT_STEPS = 300
 # the families phase: each served at full width, whole but for
 # deepseek-coder-33b, cut from 62 to 8 layers (~4.7 B parameters, ~9.4 GB
 # in bf16; init_params draws each stacked leaf in f32 first); reduced
@@ -288,6 +311,10 @@ RECURRENT_FIT_STEPS = {"recurrentgemma-2b": 1000, "xlstm-1.3b": 400}
 # 37.1 GB; two periods do not fit beside the arenas), both at full width
 MOE_ARCHS = ("moonshot-v1-16b-a3b", "llama4-maverick-400b-a17b")
 MOE_LAYERS = {"llama4-maverick-400b-a17b": 2}
+# the full-width card-vs-CPU run (model_phase) is moonshot's alone:
+# llama4's period's CPU half (a 37 GB host copy, ~50 s of host time) was
+# cut for chip time when the plans phase grew (the skewed pipeline's steps)
+MOE_CARD_VS_CPU = ("moonshot-v1-16b-a3b",)
 # on the same input rows, card and CPU may route a (token, choice) pair
 # to other experts only where the CPU's top-k margin (the choice's
 # probability minus the next one's) is at most this: their f32 router
@@ -337,7 +364,7 @@ def paged_inputs(seed: int, b: int, kvh: int, g: int, hd: int, ps: int,
     lane 0's full prefix pages, pages past a lane's length name the
     trash page 0, the row after qpos in a lane's last page is never
     written (sentinel) and later rows are stale (kpos > qpos), lanes 5
-    and 7 are inactive."""
+    and 7 (where b holds them) are inactive."""
     rng = np.random.default_rng(seed)
     n_pages = 1 + b * maxp
     qpos = rng.integers(maxp * ps // 2, maxp * ps - 2, b).astype(np.int32)
@@ -357,7 +384,7 @@ def paged_inputs(seed: int, b: int, kvh: int, g: int, hd: int, ps: int,
         if off + 1 < ps:
             kpos[last, off + 1] = SENTINEL
     active = np.ones((b,), bool)
-    active[[5, 7]] = False
+    active[[i for i in (5, 7) if i < b]] = False
     bf = torch.bfloat16
     t = {
         "q": torch.tensor(rng.normal(0, 1, (b, kvh * g, hd)) * hd ** -0.5),
@@ -450,10 +477,11 @@ def verify_kernel_phase(dev, flush, quantized: bool) -> dict:
 
 
 def kernel_phase(dev, flush, maxp: int, kvh: int = 3, g: int = 3,
-                 hd: int = 64) -> dict:
+                 hd: int = 64, b: int = 8) -> dict:
     """The bf16 paged kernel at the serve path's shape (paged_inputs), or
-    at other heads (phi3-medium-14b's: KVH=10, G=4, hd=128)."""
-    b, ps = 8, 16
+    at other heads (phi3-medium-14b's: KVH=10, G=4, hd=128) or lane
+    counts (a skewed pipeline's lane group)."""
+    ps = 16
     t = paged_inputs(maxp, b, kvh, g, hd, ps, maxp, dev)
     args = (t["q"], t["k"], t["v"], t["kpos"], t["page_table"], t["qpos"])
     pt = t["page_table"].long()
@@ -584,11 +612,11 @@ def flash_decode_phase(dev, flush, sk: int, window: int = 0, kvh: int = 3,
 
 
 def paged_q_phase(dev, flush, maxp: int, kvh: int = 3, g: int = 3,
-                  hd: int = 64) -> dict:
-    """The int8 paged kernel at the serve path's shape (or at other heads):
-    paged_inputs' tables and lanes, k/v quantized into an int8 arena on
-    the card."""
-    b, ps = 8, 16
+                  hd: int = 64, b: int = 8) -> dict:
+    """The int8 paged kernel at the serve path's shape (or at other heads
+    or lane counts): paged_inputs' tables and lanes, k/v quantized into
+    an int8 arena on the card."""
+    ps = 16
     t = paged_inputs(maxp, b, kvh, g, hd, ps, maxp, dev)
     k8, ks = quant.kv_quantize(t["k"])
     v8, vs = quant.kv_quantize(t["v"])
@@ -1496,13 +1524,15 @@ def _model_run(model, params, prompts, ps, maxp, steps, teacher, kind):
 
 
 def fit_phase(dev) -> dict:
-    """`fit_affine_lm` on the card at its defaults (1,000 Adam steps):
-    reduced smollm-135m, then a 1-layer draft on the clean corpus and one
-    with disagree_every=3.  Each logs its seconds, its loss on a held-out
+    """`fit_affine_lm` on the card: reduced smollm-135m at its defaults
+    (1,000 Adam steps), then, at DRAFT_FIT_STEPS, a 1-layer draft on the
+    clean corpus and one with disagree_every=3.  Each logs its seconds, its loss on a held-out
     batch of its own corpus and its greedy accuracy on 64 affine prompts.
     Returns {name: (model, params)}."""
     cfg = get_config("smollm-135m").reduced()
     dcfg = dataclasses.replace(cfg, name=cfg.name + "-draft", n_layers=1)
+    steps = {"target": 1000, "draft": DRAFT_FIT_STEPS,
+             "draft_disagree3": DRAFT_FIT_STEPS}
     prompts = synthetic.affine_prompts(np.random.default_rng(123), 64,
                                        cfg.vocab_size)
     fits = {}
@@ -1510,7 +1540,8 @@ def fit_phase(dev) -> dict:
                            ("draft_disagree3", dcfg, 3)):
         model = make_model(c, device=dev)
         t0 = time.perf_counter()
-        params = synthetic.fit_affine_lm(model, disagree_every=every)
+        params = synthetic.fit_affine_lm(model, steps=steps[name],
+                                         disagree_every=every)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         toks, labels = synthetic.affine_batch(
@@ -1522,9 +1553,9 @@ def fit_phase(dev) -> dict:
         acc = synthetic.greedy_accuracy(model, params, prompts)
         require(np.isfinite(loss), f"fit {c.name}: loss {loss}")
         log(f"fit {c.name} (x{c.n_layers}, vocab {c.vocab_size}) "
-            f"disagree_every={every}: 1000 steps in {secs:.1f} s, held-out "
-            f"loss={loss:.5f}, greedy accuracy on 64 affine prompts="
-            f"{acc:.4f}")
+            f"disagree_every={every}: {steps[name]} steps in {secs:.1f} s, "
+            f"held-out loss={loss:.5f}, greedy accuracy on 64 affine "
+            f"prompts={acc:.4f}")
         fits[name] = (model, params)
     return fits
 
@@ -1583,7 +1614,10 @@ class _LaneTally:
         self.orig = {n: getattr(ops, n) for n in self.names}
         for n in self.names:
             def call(q, *a, _n=n, **k):
-                self.lanes[_n].append(q.shape[0])
+                # under a serve plan the wrapper is called with the
+                # shards' queries, then once per shard with each's
+                self.lanes[_n].append((q[0] if isinstance(q, list)
+                                       else q).shape[0])
                 return self.orig[_n](q, *a, **k)
             setattr(ops, n, call)
         return self
@@ -1594,16 +1628,16 @@ class _LaneTally:
 
 
 def _serve_requests(model, params, requests, kv_dtype, spec=None,
-                    num_pages=SPEC_PAGES):
+                    num_pages=SPEC_PAGES, plan=None):
     """The paged cb engine at B=8 on `requests` (FIFO, all at t=0) over
-    `num_pages` pages (None: room for every lane), with the launch counts
-    set to 0 just before; returns (streams, engine, wall seconds, launch
-    counts, kernel lane tally)."""
+    `num_pages` pages (None: room for every lane), under `plan` when
+    given, with the launch counts set to 0 just before; returns (streams,
+    engine, wall seconds, launch counts, kernel lane tally)."""
     eng = ContinuousBatchingEngine(model, params, max_batch=8,
                                    buckets=serve_cli.BUCKETS,
                                    deadline_s=0.0, max_decode_len=40,
                                    num_pages=num_pages, kv_dtype=kv_dtype,
-                                   spec_config=spec)
+                                   spec_config=spec, plan=plan)
     for i, (p, b) in enumerate(requests):
         eng.submit(Request(rid=i, prompt=p, max_new_tokens=b))
     torch.cuda.synchronize()
@@ -1628,8 +1662,9 @@ def _spec_run(label, model, params, requests, kv_dtype, draft, dparams,
     route kernel's launches split into verify passes (B * (k+1) lanes;
     one per target layer per spec dispatch, the warm-up's one per ladder
     depth included) and single-query steps (B lanes: the target's plain
-    decode steps, the draft's steps).  Returns the route kernel's
-    launches."""
+    decode steps, the draft's steps).  `plain_wall` None: the plain
+    streams came from another run.  Returns (the route kernel's launches,
+    the engine's stats)."""
     kernel = ("paged_flash_decode_q" if kv_dtype == "int8"
               else "paged_flash_decode")
     spec = dict(draft_model=draft, draft_params=dparams, spec_k=SPEC_K)
@@ -1655,9 +1690,10 @@ def _spec_run(label, model, params, requests, kv_dtype, draft, dparams,
     same = sum(int(a == c) for x, y in zip(toks, plain_toks)
                for a, c in zip(x, y))
     acc = s["spec_accepted"] / max(s["spec_proposed"], 1)
+    plain_tok_s = "n/a" if plain_wall is None else f"{ntok / plain_wall:.1f}"
     log(f"spec {label} kv={kv_dtype} spec_k={SPEC_K} B={b}: requests="
         f"{len(toks)} tokens={ntok} wall_s={wall:.4f} tok_s={ntok / wall:.1f}"
-        f" (plain engine {ntok / plain_wall:.1f}) token match vs plain="
+        f" (plain engine {plain_tok_s}) token match vs plain="
         f"{same / ntok:.4f} acceptance={acc:.4f} ({s['spec_accepted']}/"
         f"{s['spec_proposed']}) spec_dispatches={s['spec_dispatches']} "
         f"decode_dispatches={s['decode_dispatches']} spec_catchup_tokens="
@@ -1669,7 +1705,7 @@ def _spec_run(label, model, params, requests, kv_dtype, draft, dparams,
         f"{single}")
     require(toks == plain_toks, f"spec {label} kv={kv_dtype}: streams "
             "differ from the plain engine's")
-    return {kernel: got[kernel]}
+    return {kernel: got[kernel]}, s
 
 
 def _verify_vs_chained(model, params, kind: str, seed: int) -> tuple:
@@ -1733,7 +1769,7 @@ def spec_phase(dev, fits: dict) -> dict:
         add(got)
         for name in ("draft", "draft_disagree3"):
             add(_spec_run(f"{model.cfg.name} {name}", model, params,
-                          requests, kv, *fits[name], toks, wall))
+                          requests, kv, *fits[name], toks, wall)[0])
     cfg = get_config("smollm-135m")
     model = make_model(cfg, device=dev)
     params = init_params(cfg, seed=0, device=dev)
@@ -1754,7 +1790,7 @@ def spec_phase(dev, fits: dict) -> dict:
                                             num_pages=None)
     add(got)
     add(_spec_run("smollm-135m self-draft", model, params, requests, "bf16",
-                  model, params, toks, wall, num_pages=None))
+                  model, params, toks, wall, num_pages=None)[0])
     return launches
 
 
@@ -2170,6 +2206,8 @@ PLAN_ARCH = "smollm-135m"  # served on a (1, 3) model axis: 1 kv head a shard
 PLAN_TP = (1, 3)
 PLAN_BIG = ("minitron-8b", (1, 4), 8)  # 2 kv heads a shard, 8 of 32 layers
 PLAN_STAGES = 6  # smollm-135m's 30 layers, 5 a stage: the paper's chain
+PLAN_SKEW_B = 12  # the skewed pipeline's batch: 6 lane groups of 2
+PLAN_BIG_STAGES = 4  # minitron-8b's 8 layers, 2 a stage, skewed at B 8
 # the --no-exact band's instrument: Adam steps of its fit (the CPU's
 # 300-step fit of the same config already gives token match 1.0)
 PLAN_FIT_STEPS = 400
@@ -2395,6 +2433,14 @@ def _plan_gmi(dev) -> None:
         "stages equal the CPU's bit for bit")
 
 
+def _whole(tree):
+    """A placed tree with every stage `Shards` joined back (stage blocks
+    are contiguous periods: a join is a concatenation)."""
+    if isinstance(tree, dict):
+        return {k: _whole(v) for k, v in tree.items()}
+    return torch.cat(list(tree)) if isinstance(tree, list) else tree.clone()
+
+
 def _plan_pipeline(model, params, launches: dict) -> None:
     """Route B: smollm-135m's 30 layers on a 6-stage serve_pipeline plan
     (5 a stage, all 6 stages on the card), dense slot rows, B = 6, so 6
@@ -2423,9 +2469,7 @@ def _plan_pipeline(model, params, launches: dict) -> None:
     k = st["caches"]["scan"]["b0"]["k"]
     require([t.shape[0] for t in k] == [cfg.n_layers // PLAN_STAGES] * b,
             f"{what}: stage blocks {[t.shape[0] for t in k]}")
-    whole = {"scan": {"b0": {n_: torch.cat(list(t)) for n_, t
-                             in st["caches"]["scan"]["b0"].items()}},
-             "tail": {}, "pos": st["caches"]["pos"].clone()}
+    whole = _whole(st["caches"])
     with torch.no_grad():
         want, *_ = model.decode_steps(
             params, whole, st["cur"].clone(), st["active"].clone(), steps,
@@ -2531,6 +2575,300 @@ def _plan_no_exact(exact_streams, model, params, launches: dict) -> None:
     require(rate >= 0.98, f"no-exact token match {rate:.4f} < 0.98")
 
 
+def _skew_state(model, ex, b: int, ps: int, maxp: int, seed: int) -> dict:
+    """A paged decode state of `b` admitted lanes on a request-skewed
+    executor: lane i owns pages 1 + i * maxp ..., even lanes prefilled
+    whole, odd ones in the radix-hit form (a 16-token prefix in their
+    pages, the rest of the prompt through the forced-token queue)."""
+    st = ex.fresh_state(ex.init_caches(True, ps, 1 + b * maxp, maxp),
+                        paged=True)
+    rng = np.random.default_rng(seed)
+    for sl in range(b):
+        p = rng.integers(0, model.cfg.vocab_size, 20 + 7 * sl).astype(
+            np.int32)
+        pages = np.arange(1 + sl * maxp, 1 + (sl + 1) * maxp, dtype=np.int32)
+        cut = 16 if sl % 2 else len(p)
+        lg, small = ex.prefill_prompts([p[:cut]], 1, bucket_cache=True)
+        bucket = bucket_len(cut, ex.buckets, lane=8)
+        ex.admit_cold(st, sl, small, pages, cut, pages,
+                      pages[:-(-bucket // ps)])
+        tok, rest = ((int(lg[0].argmax()), p[:0]) if cut == len(p)
+                     else (int(p[cut]), p[cut + 1:]))
+        ex.admit_lane_paged(st, sl, tok, -1, 64, rest, len(rest))
+    return st
+
+
+def _plan_skew_loop(model, params, launches: dict) -> None:
+    """Route C: the request-skewed serve_pipeline (exact=False) on
+    smollm-135m's 30 layers, 6 stages of 5, B = 12 (6 lane groups of 2),
+    pages of 16.  On one admitted state (forced-token queues included)
+    the skewed loop's tokens, lane state, counters and stage-local arena
+    equal `Model.decode_steps`' on the whole state; n*6 + 5 ticks a
+    horizon; kernel 1 30 x 6 launches a step.  Then one step of each
+    profiled: the skewed loop and the plain fused loop on the whole
+    state (one device)."""
+    cfg, b, steps, ps, maxp = model.cfg, PLAN_SKEW_B, 4, 16, 12
+    plan = build_plan(cfg, make_mesh((PLAN_STAGES,), ("stage",)),
+                      mode="serve_pipeline", exact=False)
+    what = (f"plans serve_pipeline --no-exact {cfg.name} x{cfg.n_layers} "
+            f"{PLAN_STAGES} stages")
+    ex = Executor(model, params, max_batch=b, cache_len=ps * maxp,
+                  buckets=serve_cli.BUCKETS, plan=plan)
+    st = _skew_state(model, ex, b, ps, maxp, 15)
+    per = cfg.n_layers // PLAN_STAGES
+    for name, leaf in st["caches"]["scan"]["b0"].items():
+        require([t.shape[0] for t in leaf] == [per] * PLAN_STAGES,
+                f"{what}: {name} stage blocks {[t.shape[0] for t in leaf]}")
+    whole = _whole(st["caches"])
+    lanes = {k: st[k].clone() for k in ("cur", "active", "budget", "fptr")}
+    with torch.no_grad():
+        want = model.decode_steps(
+            params, whole, lanes["cur"], lanes["active"], steps,
+            eos_id=st["eos"], budget=lanes["budget"], pad_token=0,
+            forced=st["forced"], forced_len=st["flen"],
+            forced_ptr=lanes["fptr"])
+    t0 = ex.pipeline_ticks
+    (got,), wall, counted = _counted(
+        lambda: (ex.decode(st, steps, paged=True),),
+        {"paged_flash_decode": cfg.n_layers * PLAN_STAGES * steps}, what)
+    require(torch.equal(got, want[0]), f"{what}: the skewed loop's tokens "
+            "part from Model.decode_steps")
+    for name, w in zip(("cur", "active", "budget", "fptr"), want[1:5]):
+        require(torch.equal(st[name], w), f"{what}: lane state {name} parts")
+    require(torch.equal(st["caches"]["pos"], whole["pos"]),
+            f"{what}: position counters part")
+    arena = _whole(st["caches"]["scan"])["b0"]
+    for name, t in want[5]["scan"]["b0"].items():
+        require(torch.equal(arena[name], t), f"{what}: arena {name} parts")
+    ticks = ex.pipeline_ticks - t0
+    require(ticks == steps * PLAN_STAGES + PLAN_STAGES - 1,
+            f"{what}: {ticks} ticks for {steps} steps")
+    launches["paged_flash_decode"] += counted["paged_flash_decode"]
+    log(f"{what} (B={b}, {PLAN_STAGES} lane groups of {b // PLAN_STAGES}): "
+        f"{steps} fused steps equal Model.decode_steps bit for bit (tokens, "
+        f"lane state, counters, every arena leaf; 6 lanes with forced "
+        f"queues); ticks {ticks} = {steps} x {PLAN_STAGES} + "
+        f"{PLAN_STAGES - 1} (drained: {steps} x "
+        f"{pipeline_ticks_per_step(PLAN_STAGES, True)}); paged_flash_decode "
+        f"launches {counted['paged_flash_decode']} (= {cfg.n_layers} layers"
+        f" x {PLAN_STAGES} groups x {steps}); each stage's arena block "
+        f"holds {per} periods; wall_ms_per_step={wall * 1e3 / steps:.2f}")
+    _route_profile(f"plans route C {what}, 1 fused step (B={b})",
+                   lambda: ex.decode(st, 1, paged=True), 1)
+    act = want[2]
+
+    def plain():
+        with torch.no_grad():
+            model.decode_steps(params, whole, want[1], act, 1,
+                               eos_id=st["eos"], budget=want[3],
+                               pad_token=0, forced=st["forced"],
+                               forced_len=st["flen"], forced_ptr=want[4])
+    _route_profile(f"plans route C's state on one device, 1 fused step "
+                   f"(B={b})", plain, 1)
+
+
+def _plan_skew_serve(model, params, n_stages: int, b: int, kvs, passes,
+                     launches: dict) -> None:
+    """The cb engine under a request-skewed serve_pipeline plan on
+    `n_stages` stages at B = b, beside the plan-free paged engine, over
+    the shared-prefix stream (b requests of 16 tokens): each kv dtype's
+    passes (cold, then radix hits on the stage-local arenas) must give
+    the plain engine's streams, kernel 1 (2) n_layers x n_stages launches
+    a decode step, row_norm and gemm once a layer (and the head) per
+    group a step and per prefill, n*S + S - 1 ticks a dispatch; each
+    stage's arena block n_rep / S periods, a page's bytes 1/S of one
+    device's."""
+    cfg = model.cfg
+    plan = build_plan(cfg, make_mesh((n_stages,), ("stage",)),
+                      mode="serve_pipeline", exact=False)
+    what = (f"plans serve_pipeline --no-exact {cfg.name} x{cfg.n_layers} "
+            f"{n_stages} stages engine (B={b})")
+    args = serve_cli.parse_args(["--requests", str(b), "--max-new", "16",
+                                 "--stream", "shared-prefix", "--seed", "0"])
+    for kv in kvs:
+        kernel = ("paged_flash_decode_q" if kv == "int8"
+                  else "paged_flash_decode")
+        engines = {name: ContinuousBatchingEngine(
+            model, params, max_batch=b, buckets=serve_cli.BUCKETS,
+            kv_dtype=kv, plan=p) for name, p in (("plain", None),
+                                                 ("skew", plan))}
+        skew = engines["skew"]
+        require(skew.sched.n_lane_groups == n_stages
+                and skew.kv.shards == n_stages, f"{what}: lane groups "
+                f"{skew.sched.n_lane_groups}, ledger shards {skew.kv.shards}")
+        for pas in passes:
+            streams = {}
+            for name, eng in engines.items():
+                reqs = serve_cli.make_stream(args, cfg.vocab_size, args.seed)
+                t0 = eng.executor.pipeline_ticks
+                streams[name], ds, got, wall = _plan_engine_pass(eng, reqs,
+                                                                 what)
+                steps = ds["decode_steps"]
+                if name == "plain":
+                    log(f"{what} {kv} {pas}: the plain paged engine: wall_s="
+                        f"{wall:.4f} wall_ms_per_decode_step="
+                        f"{wall * 1e3 / max(steps, 1):.2f}")
+                    continue
+                calls = n_stages * steps + ds["prefills"]
+                want = {k: cfg.n_layers * n_stages * steps if k == kernel
+                        else 0 for k in ATTN_KERNELS}
+                have = {k: got[k] for k in ATTN_KERNELS}
+                require(have == want, f"{what} {kv} {pas}: launches {have} "
+                        f"!= {want}")
+                per = _gemms_per_call(cfg, 1, True)
+                require(got["gemm"] == per * calls, f"{what} {kv} {pas}: "
+                        f"{got['gemm']} gemm launches != {per} x {calls}")
+                require(got["row_norm"] == _norms_per_call(cfg) * calls,
+                        f"{what} {kv} {pas}: {got['row_norm']} row_norm "
+                        "launches")
+                ticks = eng.executor.pipeline_ticks - t0
+                require(ticks == n_stages * steps + (n_stages - 1)
+                        * ds["decode_dispatches"], f"{what} {kv} {pas}: "
+                        f"{ticks} ticks")
+                for k in (kernel, "row_norm", "gemm"):
+                    launches[k] += got[k]
+                toks = sum(len(t) for t in streams[name].values())
+                log(f"{what} {kv} {pas}: tokens={toks} wall_s={wall:.4f} "
+                    f"tok_s={toks / wall:.1f} decode_steps={steps} "
+                    f"decode_dispatches={ds['decode_dispatches']} ticks="
+                    f"{ticks} wall_ms_per_decode_step="
+                    f"{wall * 1e3 / max(steps, 1):.2f} prefix_hits="
+                    f"{ds['prefix_hits']} {kernel}_launches={got[kernel]} "
+                    f"(= {cfg.n_layers} x {n_stages} groups x {steps})")
+                if pas == "hits":
+                    require(ds["prefix_hits"] >= len(reqs) - 1,
+                            f"{what}: {ds['prefix_hits']} hits")
+            require(streams["skew"] == streams["plain"], f"{what} {kv} "
+                    f"{pas}: the skewed engine's streams part from the "
+                    "plain paged engine's")
+        arena = skew._slot_caches["scan"]["b0"]
+        per = cfg.n_layers // n_stages
+        for name, leaf in arena.items():
+            require([t.shape[0] for t in leaf] == [per] * n_stages,
+                    f"{what}: {name} stage blocks")
+        one = engines["plain"].kv_page_bytes()
+        require(skew.kv_page_bytes() * n_stages == one,
+                f"{what}: kv_page_bytes {skew.kv_page_bytes()} x {n_stages}"
+                f" != {one}")
+        log(f"{what} {kv}: streams equal the plain paged engine's "
+            f"({', '.join(passes)}); {n_stages} lane groups, a {n_stages}-"
+            f"shard page ledger drained; each stage's arena holds {per} "
+            f"periods ({tuple(arena['k'][0].shape)}); kv_page_bytes "
+            f"{skew.kv_page_bytes()} = {one} / {n_stages}")
+
+
+def _plan_spec(model, params, plain_streams: dict, launches: dict) -> None:
+    """Speculation under the (1, 3) serve plan: smollm-135m drafting for
+    itself (spec_k 4, the draft whole on the controller, the verify pass
+    per shard), on bf16 and int8 arenas, over the plans' shared-prefix
+    requests at 16 new tokens: one device's spec engine must give the
+    plan's plain streams (their first 16 tokens; `_spec_run` checks its
+    verify launches), and the plan's spec engine the same streams, the
+    same spec counters, and one device's kernel launches plus the other
+    shards' (2 x 30 a verify pass, warm-up included, and a plain step)."""
+    cfg = model.cfg
+    plan = build_plan(cfg, make_mesh(PLAN_TP, ("data", "model")),
+                      mode="serve")
+    n = plan.mesh.shape["model"]
+    args = serve_cli.parse_args(["--requests", "8", "--max-new", "32",
+                                 "--stream", "shared-prefix", "--seed", "0"])
+    reqs = [(r.prompt, 16) for r in
+            serve_cli.make_stream(args, cfg.vocab_size, args.seed)]
+    spec = dict(draft_model=model, draft_params=params, spec_k=SPEC_K)
+    for kv in ("bf16", "int8"):
+        kernel = ("paged_flash_decode_q" if kv == "int8"
+                  else "paged_flash_decode")
+        plain = [list(plain_streams[kv][i][:16]) for i in range(len(reqs))]
+        one, s1 = _spec_run("plans smollm-135m self-draft, one device",
+                            model, params, reqs, kv, model, params, plain,
+                            None, num_pages=None)
+        toks, eng, wall, got, _ = _serve_requests(
+            model, params, reqs, kv, spec, num_pages=None, plan=plan)
+        s = eng.stats
+        what = f"plans spec serve {PLAN_TP} {cfg.name} self-draft {kv}"
+        require(toks == plain, f"{what}: streams part from the plan's plain "
+                "streams")
+        keys = [k for k in s if k.startswith("spec_")] + ["decode_steps"]
+        require({k: s[k] for k in keys} == {k: s1[k] for k in keys},
+                f"{what}: counters {[(k, s[k], s1[k]) for k in keys]}")
+        sharded = (s["spec_dispatches"] + len(eng.sched.spec_ladder)
+                   + s["decode_steps"] - s["spec_draft_steps"])
+        want = one[kernel] + (n - 1) * cfg.n_layers * sharded
+        require(got[kernel] == want and not any(
+            v for k, v in got.items() if k != kernel),
+            f"{what}: launches {got}, want {kernel} {want}")
+        launches[kernel] += got[kernel]
+        ntok = sum(len(t) for t in toks)
+        log(f"{what}: streams equal the plan's plain streams and one "
+            f"device's spec streams; tokens={ntok} wall_s={wall:.4f} tok_s="
+            f"{ntok / wall:.1f} acceptance="
+            f"{s['spec_accepted'] / max(s['spec_proposed'], 1):.4f} "
+            f"({s['spec_accepted']}/{s['spec_proposed']}) spec_dispatches="
+            f"{s['spec_dispatches']} {kernel}_launches={got[kernel]} (one "
+            f"device {one[kernel]} + {n - 1} shards x {cfg.n_layers} x "
+            f"{sharded} target passes)")
+
+
+def _plan_wave(model, params, launches: dict) -> None:
+    """The wave engine under the (1, 3) serve plan at EngineBase's
+    default buckets (up to 256), 8 prompts of 140-250 tokens and 16 new
+    tokens: one wave, whose 8 x 256 prefill rows pass EXACT_ROWS_MAX and
+    run in request blocks of 4 (on one device too, so that every product
+    stays on the K-ordered gemm); its streams must equal one device's
+    wave engine's, and flash_decode launch once per shard a layer a
+    step."""
+    from repro_torch.models import layers
+    from repro_torch.serving.wave import WaveEngine
+    cfg = model.cfg
+    plan = build_plan(cfg, make_mesh(PLAN_TP, ("data", "model")),
+                      mode="serve")
+    n = plan.mesh.shape["model"]
+    rng = np.random.default_rng(16)
+    prompts = [rng.integers(0, cfg.vocab_size, k).astype(np.int32)
+               for k in rng.integers(140, 251, 8)]
+    what = f"plans wave serve {PLAN_TP} {cfg.name} x{cfg.n_layers}"
+    streams, rows = {}, []
+    real = model.prefill
+
+    def spy(p, caches, tokens=None, **kw):
+        rows.append(tokens.numel())
+        return real(p, caches, tokens=tokens, **kw)
+
+    for name, p in (("one device", None), ("plan", plan)):
+        eng = WaveEngine(model, params, max_batch=8, plan=p)
+        reqs = [Request(rid=i, prompt=q, max_new_tokens=16)
+                for i, q in enumerate(prompts)]
+        rows.clear()
+        model.prefill = spy
+        try:
+            streams[name], ds, got, wall = _plan_engine_pass(eng, reqs, what)
+        finally:
+            del model.prefill
+        steps, shards = ds["decode_steps"], 1 if p is None else n
+        want = {k: shards * cfg.n_layers * steps if k == "flash_decode"
+                else 0 for k in ATTN_KERNELS}
+        have = {k: got[k] for k in ATTN_KERNELS}
+        require(have == want, f"{what} {name}: launches {have} != {want}")
+        require(max(rows) <= layers.EXACT_ROWS_MAX < sum(rows),
+                f"{what} {name}: prefill blocks of {rows} rows")
+        if p is not None:
+            launches["flash_decode"] += got["flash_decode"]
+        log(f"{what} {name}: waves={ds['waves']} prefill rows per call "
+            f"{rows} decode_steps={steps} wall_s={wall:.4f} "
+            f"wall_ms_per_decode_step={wall * 1e3 / max(steps, 1):.2f} "
+            f"flash_decode_launches={got['flash_decode']} (= {shards} x "
+            f"{cfg.n_layers} x {steps})")
+    require(streams["plan"] == streams["one device"],
+            f"{what}: the plan's wave streams part from one device's")
+
+
+def _plan_step(name: str, fn) -> None:
+    """fn(), then a log line of the step's wall seconds."""
+    t0 = time.perf_counter()
+    fn()
+    log(f"plans step {name}: {time.perf_counter() - t0:.1f} s")
+
+
 def plans_phase(dev) -> dict:
     """Multi-device serve plans on the single-controller mesh, every shard
     on the one card (see the module docstring).  Returns the decode
@@ -2547,6 +2885,11 @@ def plans_phase(dev) -> dict:
         paged_q_phase(dev, flush, maxp=12, kvh=2, g=4, hd=128)]
     shard["flash_decode"] = [flash_decode_phase(dev, flush, sk=176, kvh=3,
                                                 g=3, hd=64)]
+    # a skewed pipeline's lane group: mb = 12 / 6 = 2 lanes a launch
+    shard["paged_flash_decode"].append(kernel_phase(
+        dev, flush, maxp=12, b=PLAN_SKEW_B // PLAN_STAGES))
+    shard["paged_flash_decode_q"].append(paged_q_phase(
+        dev, flush, maxp=12, b=PLAN_SKEW_B // PLAN_STAGES))
     del flush
     torch.cuda.empty_cache()
     cfg = get_config(PLAN_ARCH)
@@ -2569,6 +2912,14 @@ def plans_phase(dev) -> dict:
     _plan_decode_profiles(model, params, PLAN_TP)
     _plan_no_exact(served["bf16"]["cold"][0], model, params, launches)
     _plan_pipeline(model, params, launches)
+    plain = {kv: served[kv]["cold"][0] for kv in served}
+    _plan_step("spec", lambda: _plan_spec(model, params, plain, launches))
+    _plan_step("wave", lambda: _plan_wave(model, params, launches))
+    _plan_step("skewed loop",
+               lambda: _plan_skew_loop(model, params, launches))
+    _plan_step("skewed engine", lambda: _plan_skew_serve(
+        model, params, PLAN_STAGES, PLAN_SKEW_B, ("bf16", "int8"),
+        ("cold", "hits"), launches))
     del model, params
     torch.cuda.empty_cache()
     arch, shape, layers = PLAN_BIG
@@ -2580,6 +2931,8 @@ def plans_phase(dev) -> dict:
         f"B parameters)")
     torch.cuda.reset_peak_memory_stats()
     _plan_serve(model, params, shape, "bf16", launches, passes=("cold",))
+    _plan_step(f"skewed engine {arch}", lambda: _plan_skew_serve(
+        model, params, PLAN_BIG_STAGES, 8, ("bf16",), ("cold",), launches))
     log(f"plans {arch}: peak device memory with the plain and the plan "
         f"engine's params "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
@@ -2838,7 +3191,11 @@ def moe_phase(dev) -> dict:
     for i, arch in enumerate(MOE_ARCHS):
         t0 = time.perf_counter()
         cfg = get_config(arch)
-        _moe_card_vs_cpu(cfg)
+        if arch in MOE_CARD_VS_CPU:
+            _moe_card_vs_cpu(cfg)
+        else:
+            log(f"moe {arch}: card vs CPU at full width cut for chip time "
+                "(its reduced fit is gated card vs CPU below)")
         n = MOE_LAYERS.get(arch, cfg.n_layers)
         cut = dataclasses.replace(cfg, n_layers=n)
         depth = f"x{n}" + (f" (depth cut from {cfg.n_layers})"

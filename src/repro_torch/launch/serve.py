@@ -3,8 +3,9 @@ synthetic request stream.  The continuous-batching engine (`--engine cb`,
 the default) serves from a paged KV arena, bf16 or `--kv-dtype int8` (or,
 through `serve(args, paged=False)`, from dense slot rows), and with
 `--draft-config` speculates greedily (a draft proposes, the target
-verifies); `--engine wave` is the batch-synchronous baseline on dense
-slot rows.  Models with recurrent blocks or sliding windows
+verifies; also under `--plan serve`); `--engine wave` is the
+batch-synchronous baseline on dense slot rows (also under `--plan
+serve`).  Models with recurrent blocks or sliding windows
 (recurrentgemma-2b, xlstm-1.3b) serve from dense slot rows; the MoE
 models (moonshot-v1-16b-a3b, llama4-maverick-400b-a17b) from the paged
 arena.  `--quant-weights` serves W8A8 weights (2-d leaves only, as in
@@ -27,8 +28,11 @@ a card on a smaller host):
                          slot rows
   --plan none            single-device
 
-`--no-exact` switches a serve plan to throughput mode: psum-form TP,
-token streams gated by a match-rate band instead of bitwise equality.
+`--no-exact` switches a plan to throughput mode: under `--plan serve`
+psum-form TP, token streams gated by a match-rate band instead of
+bitwise equality; under `--plan serve_pipeline` the request-skewed
+schedule over lane groups, from stage-local paged arenas (bf16 or
+int8), whose streams stay bit for bit one device's.
 `--dryrun` prints the chosen plan's per-leaf shardings (params + serving
 cache) and exits, allocating nothing.
 
@@ -51,6 +55,12 @@ it stops with an error instead of falling back to the CPU.
       --plan serve --mesh 1,2 --stream shared-prefix
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \\
       --plan serve_pipeline --mesh 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \\
+      --plan serve_pipeline --mesh 2 --no-exact --kv-dtype int8
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \\
+      --plan serve --mesh 1,2 --draft-config smollm-135m
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \\
+      --plan serve --mesh 1,2 --engine wave
   PYTHONPATH=src python -m repro_torch.launch.serve --plan serve \\
       --mesh 1,3 --dryrun
 """
@@ -130,7 +140,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="Cluster-Builder placement: serve (kv-head-sharded "
                          "paged serving over a (data, model) mesh), "
                          "serve_pipeline (the layer stack over a stage "
-                         "axis, dense slot rows) or none")
+                         "axis: dense slot rows, or stage-local paged "
+                         "arenas under --no-exact) or none")
     ap.add_argument("--mesh", default="",
                     help="mesh shape: 1,3 for (data, model), or 6 for the "
                          "serve_pipeline stage axis; default: the visible "
@@ -140,8 +151,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="bit-identical serving (default): gather-form TP "
                          "and the drained pipeline")
     ap.add_argument("--no-exact", dest="exact", action="store_false",
-                    help="throughput mode: psum-form TP (serve); streams "
-                         "are held to a token-match band, not equality")
+                    help="throughput mode: psum-form TP (serve; streams "
+                         "are held to a token-match band, not equality), "
+                         "the request-skewed pipeline over lane groups "
+                         "(serve_pipeline; --max-batch a multiple of the "
+                         "stages)")
     ap.add_argument("--dryrun", action="store_true",
                     help="print the plan's per-leaf shardings and "
                          "exactness modes (params + serving cache), "
@@ -257,7 +271,8 @@ def serve(args: argparse.Namespace, paged="auto"):
     if args.kv_dtype == "int8" and not (eligible and paged):
         raise SystemExit(
             "serve: --kv-dtype int8 needs the paged pool (an all-attention, "
-            "unwindowed, causal model under --plan none or serve)")
+            "unwindowed, causal model under --plan none or serve, or "
+            "serve_pipeline with --no-exact)")
     if args.dryrun:
         if plan is None:
             raise SystemExit("serve: --dryrun inspects a plan; pick "

@@ -39,11 +39,12 @@ COMPUTE_DTYPE = torch.bfloat16
 # the most rows a product runs on the gemm kernel with.  The cb engine
 # prefills one request at a time, at its bucket (max(buckets) rows at
 # most: 256 at EngineBase's defaults); a decode step has B rows, a verify
-# pass B*T.  A serve plan that cuts refuses buckets past this
-# (serving/engine._check_plan) and `product` raises on a longer product
-# under its context.  Longer products take torch.matmul, and no plan
-# runs them: the wave engine's prefill (max_batch x bucket, 2,048 rows at
-# its defaults), the long forward and its loss chunks
+# pass B*T; the wave engine prefills in request blocks of at most this
+# many rows (serving/executor.py).  A serve plan that cuts refuses
+# buckets past this (serving/engine._check_plan) and `product` raises on
+# a longer product under its context.  Longer products take
+# torch.matmul, and no plan runs them: the long forward and its loss
+# chunks
 EXACT_ROWS_MAX = 1024
 
 

@@ -125,6 +125,30 @@ def greedy_token_update(logits, cur, active, remaining, eos_id, pad_token):
     return emit, cur, still, remaining
 
 
+def forced_token_update(logits, cur, active, remaining, eos_id, pad_token,
+                        forced, forced_len, forced_ptr):
+    """One step of the fused decode loop's token state machine with a
+    forced-token queue (`decode_steps`): while ``forced_ptr < forced_len``
+    the lane's output is swallowed (-1), its budget kept and the queued
+    token fed; the step that consumes its last pending input emits the
+    first generated token.  Returns (emit, cur, active, remaining,
+    forced_ptr)."""
+    lane = torch.arange(cur.shape[0], device=cur.device)
+    fcap = forced.shape[1]
+    nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+    pending = forced_ptr < forced_len  # this step's output is swallowed
+    emitting = active & ~pending
+    emit = torch.where(emitting, nxt, torch.full_like(nxt, -1))
+    remaining = torch.where(emitting, remaining - 1, remaining)
+    still = active & (pending | ((nxt != eos_id) & (remaining > 0)))
+    feed = torch.where(
+        pending,
+        forced[lane, torch.clamp(forced_ptr, max=fcap - 1).long()], nxt)
+    cur = torch.where(still, feed, torch.full_like(feed, pad_token))
+    forced_ptr = torch.where(active & pending, forced_ptr + 1, forced_ptr)
+    return emit, cur, still, remaining, forced_ptr
+
+
 def spec_acceptance(ins, tgt, active, remaining, eos_id, pad_token,
                     forced, forced_len, forced_ptr):
     """The acceptance state machine of one speculative block, vectorised
@@ -634,24 +658,14 @@ class Model:
                 toks.append(emit)
             return torch.stack(toks), cur, act, rem, caches
 
-        fcap = forced.shape[1]
-        lane = torch.arange(b, device=dev)
         fptr = forced_ptr.to(torch.int32)
         for _ in range(n):
             logits, caches = self.decode_step(params, caches, cur,
                                               active=act)
-            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-            pending = fptr < forced_len  # this step's output is swallowed
-            emitting = act & ~pending
-            toks.append(torch.where(emitting, nxt, torch.full_like(nxt, -1)))
-            rem = torch.where(emitting, rem - 1, rem)
-            still = act & (pending | ((nxt != eos_id) & (rem > 0)))
-            feed = torch.where(
-                pending, forced[lane, torch.clamp(fptr, max=fcap - 1).long()],
-                nxt)
-            cur = torch.where(still, feed, torch.full_like(feed, pad_token))
-            fptr = torch.where(act & pending, fptr + 1, fptr)
-            act = still
+            emit, cur, act, rem, fptr = forced_token_update(
+                logits, cur, act, rem, eos_id, pad_token, forced,
+                forced_len, fptr)
+            toks.append(emit)
         return torch.stack(toks), cur, act, rem, fptr, caches
 
     def draft_steps(self, params, caches, token: torch.Tensor,

@@ -19,9 +19,11 @@ token fetch, host-side reconciliation.
 A `plan` (core/cluster_builder.build_plan) places the model over a
 device mesh through the executor: a ``mode="serve"`` plan serves the
 paged arena sharded by kv head (exact gather-form TP, or the psum form
-under ``exact=False``), an exact ``mode="serve_pipeline"`` plan streams
-the dense slot path through its stages.  A plan whose axis is 1 wide runs
-the plain programs.
+under ``exact=False``), speculation included; an exact
+``mode="serve_pipeline"`` plan streams the dense slot path through its
+stages, and an ``exact=False`` one (the request-skewed throughput
+pipeline) serves from stage-local paged arenas with one lane group per
+stage.  A plan whose axis is 1 wide runs the plain programs.
 """
 from __future__ import annotations
 
@@ -61,7 +63,7 @@ def plan_cuts(plan) -> bool:
 
 
 def _check_plan(plan, cfg, quant_weights: bool, buckets=()) -> None:
-    """What the port's plans do not take yet (ROADMAP.md §1 item 2b), and
+    """What the port's plans do not take yet (ROADMAP.md §1 item 2c), and
     a tensor-parallel plan's prefill longer than the K-ordered products
     run (one request at its bucket: max(buckets) rows)."""
     if plan is None:
@@ -83,8 +85,6 @@ def _check_plan(plan, cfg, quant_weights: bool, buckets=()) -> None:
     from repro_torch.models.transformer import layer_plan
     _, _, kinds = layer_plan(cfg)
     _unported(**{
-        "the request-skewed serve_pipeline (exact=False)":
-            plan.mode == "serve_pipeline" and not plan.exact,
         "recurrent or MoE families under a plan":
             any(k != "attn" for k in kinds) or bool(cfg.n_experts),
         "W8A8 weights under a plan": quant_weights})
@@ -100,8 +100,8 @@ class EngineBase:
     run through `int8_matmul`; for smollm-135m and the other
     attention-only families every projection is stacked over layers (3-d),
     so nothing changes.  Not ported yet (raises NotImplementedError): a
-    ClusterPlan that cuts a recurrent or MoE family, W8A8 weights under
-    such a plan, and the request-skewed (exact=False) serve_pipeline."""
+    ClusterPlan that cuts a recurrent or MoE family, and W8A8 weights
+    under a plan that cuts."""
 
     def __init__(self, model: Model, params, max_batch: int = 8,
                  buckets=(32, 64, 128, 256), deadline_s: float = 0.05,
@@ -168,7 +168,10 @@ class ContinuousBatchingEngine(EngineBase):
     and ``draft_num_pages`` (default: the target pool's count).  The
     draft proposes up to spec_k tokens per lane per dispatch from its own
     page arena, the target verifies them in one pass, and the streams
-    equal plain greedy decoding.  Not ported yet (raises
+    equal plain greedy decoding, also under a ``mode="serve"`` plan.
+    Under an ``exact=False`` serve_pipeline plan the arena is stage-local
+    (`KVManager(shards=S)`) and the lanes form S groups, one per stage
+    offset of the skewed schedule.  Not ported yet (raises
     NotImplementedError): disaggregated pools, besides EngineBase's.
     """
 
@@ -180,8 +183,6 @@ class ContinuousBatchingEngine(EngineBase):
                  disagg: Optional[Tuple[int, int]] = None, **kw):
         _unported(disagg=disagg is not None)
         super().__init__(*args, **kw)
-        _unported(**{"speculation under a plan":
-                     bool(spec_config) and plan_cuts(self.plan)})
         self.stats.update(admitted=0, completed=0, prefills=0,
                           active_lane_steps=0)
         self._slot_caches = None
@@ -192,9 +193,32 @@ class ContinuousBatchingEngine(EngineBase):
             raise ValueError(
                 "paged KV needs an all-attention, unwindowed, causal model "
                 "(recurrent state and ring buffers have no paged analogue) "
-                "under no plan or a mode='serve' plan (the exact pipeline "
+                "under no plan, a mode='serve' plan, or a throughput "
+                "(exact=False) serve_pipeline plan (the exact pipeline "
                 "streams the dense slot path)")
         self.paged = bool(paged)
+        # throughput pipeline (exact=False serve_pipeline): stage-local
+        # arenas + lane groups, one group per stage schedule offset
+        self._stage_n = 0
+        if (self.plan is not None and self.plan.mode == "serve_pipeline"
+                and not self.plan.exact):
+            if spec_config:
+                raise ValueError(
+                    "spec_config does not compose with the request-skewed "
+                    "serve_pipeline plan (the spec program has no skewed "
+                    "schedule); serve speculation from a mode='serve' plan")
+            self._stage_n = self.plan.mesh.shape[self.plan.axes.stage]
+            if self.max_batch % self._stage_n:
+                raise ValueError(
+                    f"request-skewed serve_pipeline splits the batch into "
+                    f"one lane group per stage: max_batch={self.max_batch} "
+                    f"must be a multiple of the stage count "
+                    f"{self._stage_n}")
+            if plan_cuts(self.plan) and not self.paged:
+                raise ValueError(
+                    "the request-skewed serve_pipeline decodes from the "
+                    "paged arena: drop paged=False")
+            self.sched.set_lane_groups(self._stage_n)
         if kv_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_dtype {kv_dtype!r}: want 'bf16' or 'int8'")
         if kv_dtype == "int8" and not self.paged:
@@ -242,7 +266,8 @@ class ContinuousBatchingEngine(EngineBase):
                                   spec_catchup_tokens=0)
             self.kv = KVManager(num_pages, page_size, self.max_batch,
                                 self.max_pages,
-                                draft_num_pages=draft_num_pages)
+                                draft_num_pages=draft_num_pages,
+                                shards=self._stage_n or 1)
             self.max_hit_suffix = (max(self.buckets)
                                    if max_hit_suffix is None
                                    else max_hit_suffix)
@@ -250,8 +275,10 @@ class ContinuousBatchingEngine(EngineBase):
                               preemptions=0, pages_in_use=0, pages_peak=0)
 
     def kv_page_bytes(self) -> int:
-        """HBM bytes one arena page costs at this engine's kv_dtype."""
-        return kv_page_bytes(self.model.cfg, self.page_size, self.kv_dtype)
+        """Per-device HBM bytes one arena page costs at this engine's
+        kv_dtype (stage-local arenas hold 1/stages of the stack)."""
+        return kv_page_bytes(self.model.cfg, self.page_size, self.kv_dtype,
+                             shards=self._stage_n or 1)
 
     # -- admission -----------------------------------------------------------
 

@@ -26,9 +26,16 @@ plan's `shard_hints.hints` context:
     batch), so one tensor-parallel group runs.
   * ``mode="serve_pipeline"``: the scan-stacked leaves become `Shards`
     over the `stage` axis (stage s holds its contiguous block of layer
-    periods, the paper's encoder-per-cluster placement), and the fused
-    decode streams lane microbatches through the stages
-    (`_pipeline_decode`).
+    periods, the paper's encoder-per-cluster placement; a paged arena's
+    leaves too, so each stage holds only its own layers' pages), and the
+    fused decode streams lane microbatches through the stages: drained
+    per step on dense slot rows (exact, `_pipeline_decode`), or skewed
+    over lane groups on the paged arena (``exact=False``,
+    `_pipeline_skew_decode`).
+
+Speculation under a serve plan keeps the draft's params and arena whole
+on the controller (the reference replicates them) and runs the verify
+pass inside the plan's context, per shard.
 """
 from __future__ import annotations
 
@@ -43,22 +50,35 @@ from repro_torch.core.cluster_builder import spec_axes
 from repro_torch.core.packing import bucket_len
 from repro_torch.core.pipeline import pipeline_steps, stage_devices
 from repro_torch.launch.mesh import DeviceMesh
-from repro_torch.models import shard_hints
-from repro_torch.models.layers import lm_head, norm
+from repro_torch.models import layers, shard_hints
+from repro_torch.models.layers import COMPUTE_DTYPE, lm_head, norm
 from repro_torch.models.quantized import quantize_params_for_serving
 from repro_torch.models.shard_hints import Shards
 from repro_torch.models.transformer import (Model, _index, block_apply,
+                                            cache_map, forced_token_update,
                                             greedy_token_update, layer_plan)
 
 PAD_TOKEN = 0  # fed for finished/free lanes; their logits are never read
 
 
-def _lane_rows(tree, lanes: slice):
-    """A cache subtree's rows of `lanes` (its leaves are lane-major):
-    views, so the layers' in-place writes land in the whole cache."""
+def _batch_rows(caches, rows: slice):
+    """Views of a dense cache tree's lanes `rows` (a plan's `Shards` part
+    by part): the layers' in-place writes land in the whole cache."""
+    n = rows.stop - rows.start
+
+    def leaf(axis, t):
+        if isinstance(t, Shards):
+            return t.map(lambda p: p.narrow(axis, rows.start, n))
+        return t.narrow(axis, rows.start, n)
+
+    return cache_map(leaf, caches)
+
+
+def _on(tree, dev):
+    """A params or cache tree with every tensor on `dev`."""
     if isinstance(tree, dict):
-        return {k: _lane_rows(v, lanes) for k, v in tree.items()}
-    return tree[lanes]
+        return {k: _on(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
 
 
 class Executor:
@@ -98,9 +118,14 @@ class Executor:
 
     def set_draft(self, draft_model: Model, draft_params) -> None:
         """Install the speculative-decoding draft model; its weights take
-        the target's W8A8 switch, as in the reference."""
+        the target's W8A8 switch, as in the reference.  Under a plan that
+        cuts they stay whole on the controller (shard 0's device): the
+        reference replicates them, so the draft's steps need no
+        collective and only the verify pass runs per shard."""
         if self.quant_weights:
             draft_params = quantize_params_for_serving(draft_params)
+        if self._axis is not None:
+            draft_params = _on(draft_params, self.device)
         self.draft_model = draft_model
         self.draft_params = draft_params
 
@@ -186,10 +211,12 @@ class Executor:
 
     def init_draft_caches(self, page_size: int, num_pages: int,
                           max_pages: int, kv_dtype: str = "bf16"):
-        """The draft model's paged arena (its own page pool)."""
-        return self.draft_model.init_paged_cache(
+        """The draft model's paged arena (its own page pool), whole on the
+        controller under a plan, like its params."""
+        caches = self.draft_model.init_paged_cache(
             self.max_batch, num_pages, page_size, max_pages,
             kv_dtype=kv_dtype)
+        return caches if self._axis is None else _on(caches, self.device)
 
     def fresh_state(self, caches, paged: bool,
                     draft_caches=None) -> Dict[str, Any]:
@@ -216,10 +243,18 @@ class Executor:
     # -- prefill -------------------------------------------------------------
 
     def _prefill(self, model: Model, params, prompts, batch: int,
-                 cache_slots: Optional[int]):
+                 cache_slots: Optional[int], placed: bool = True):
         """Bucketed left-aligned batched prefill on `model` into a dense
-        cache of `cache_slots` rows (None: the bucket); returns (logits
-        (batch, V), caches, bucket)."""
+        cache of `cache_slots` rows (None: the bucket), placed under the
+        plan when `placed` (the target's; the draft's stays whole);
+        returns (logits (batch, V), caches, bucket).
+
+        A wave's batch x bucket rows run in request blocks of at most
+        EXACT_ROWS_MAX rows, so that its products stay on the K-ordered
+        gemm (`layers.product`), whose rows get the same bits at any row
+        count: the blocks change no stream, and a tensor-parallel plan's
+        wave (whose products may not pass that bound) equals one
+        device's bit for bit."""
         maxlen = max(len(p) for p in prompts)
         bucket = bucket_len(maxlen, self.buckets, lane=8)
         toks = np.zeros((batch, bucket), np.int32)
@@ -232,14 +267,22 @@ class Executor:
             pos[i, :n] = np.arange(n)
             lengths[i] = n
         caches = model.init_cache(batch, cache_slots or bucket)
-        if model is self.model:
+        if placed:
             caches = self.place_caches(caches, False, slot_table=False)
+        per = max(1, layers.EXACT_ROWS_MAX // bucket)
+        toks_t, pos_t = self._tensor(toks), self._tensor(pos)
+        last = self._tensor(lengths - 1, torch.long)
+        logits = []
         with torch.no_grad(), self._ctx():
-            logits, caches = model.prefill(
-                params, caches, self._tensor(toks),
-                positions=self._tensor(pos),
-                last_idx=self._tensor(lengths - 1, torch.long))
-        return logits, caches, bucket
+            for r0 in range(0, batch, per):
+                rows = slice(r0, min(r0 + per, batch))
+                sub = caches if per >= batch else _batch_rows(caches, rows)
+                lg, sub = model.prefill(params, sub, toks_t[rows],
+                                        positions=pos_t[rows],
+                                        last_idx=last[rows])
+                logits.append(lg)
+                caches["pos"][rows] = sub["pos"]
+        return torch.cat(logits), caches, bucket
 
     def prefill_prompts(self, prompts, batch: int,
                         bucket_cache: bool = False):
@@ -268,7 +311,13 @@ class Executor:
         the device), st updated in place.  The paged loop threads the
         forced-token queues."""
         if self._axis == "stage":
-            return self._pipeline_decode(st, n)
+            if paged == self.plan.exact:
+                raise ValueError(
+                    "an exact serve_pipeline plan streams the dense slot "
+                    "path, the request-skewed one (exact=False) the paged "
+                    "arena")
+            return (self._pipeline_skew_decode(st, n) if paged
+                    else self._pipeline_decode(st, n))
         kw = (dict(forced=st["forced"], forced_len=st["flen"],
                    forced_ptr=st["fptr"]) if paged else {})
         with torch.no_grad(), self._ctx():
@@ -290,7 +339,7 @@ class Executor:
         paged verify branch) and the acceptance state machine, threading
         the forced-token queues.  Returns the (k+1, B) token tensor (on
         the device), st (both arenas included) updated in place."""
-        with torch.no_grad():
+        with torch.no_grad(), self._ctx():
             toks, cur, active, budget, fptr, caches, dcaches, _ = \
                 self.model.spec_decode_step(
                     self.params, st["caches"], st["cur"], st["active"], k,
@@ -316,7 +365,7 @@ class Executor:
         dispatch's forced queue).  Returns (caches, bucket)."""
         _, caches, bucket = self._prefill(self.draft_model,
                                           self.draft_params, prompts, batch,
-                                          None)
+                                          None, placed=False)
         return caches, bucket
 
     def admit_cold_draft(self, st, slot: int, small, pt_row, pos0: int,
@@ -357,6 +406,19 @@ class Executor:
 
     # -- stage-pipelined decode (mode="serve_pipeline") ------------------------
 
+    def _stages(self):
+        """(stage devices, layer periods a stage, the period's block
+        kinds) of the serve_pipeline plan."""
+        cfg, n_stages = self.model.cfg, self.plan.mesh.shape[self._axis]
+        n_rep, tail, kinds = layer_plan(cfg)
+        if tail or n_rep % n_stages:
+            raise ValueError(
+                f"serve_pipeline needs the scan-stacked periods to divide "
+                f"the stage axis: n_rep={n_rep}, tail={tail}, "
+                f"stages={n_stages}")
+        return (stage_devices(self.plan.mesh, self._axis),
+                n_rep // n_stages, kinds)
+
     def _pipeline_decode(self, st: Dict[str, Any], n: int) -> torch.Tensor:
         """Fused n-step decode streamed through the `stage` mesh axis.
 
@@ -374,20 +436,13 @@ class Executor:
         `greedy_token_update` run as in `Model.decode_steps`.  Ticks per
         step: `pipeline_steps(n_micro, n_stages)`.
         """
-        model, cfg, plan = self.model, self.model.cfg, self.plan
-        n_stages = plan.mesh.shape[self._axis]
-        n_rep, tail, kinds = layer_plan(cfg)
-        if tail or n_rep % n_stages:
-            raise ValueError(
-                f"serve_pipeline needs the scan-stacked periods to divide "
-                f"the stage axis: n_rep={n_rep}, tail={tail}, "
-                f"stages={n_stages}")
+        model, cfg = self.model, self.model.cfg
+        devs, per, kinds = self._stages()
+        n_stages = len(devs)
         b = self.max_batch
         n_micro = n_stages if b % n_stages == 0 else 1
         mb = b // n_micro
         steps = pipeline_steps(n_micro, n_stages)
-        per = n_rep // n_stages
-        devs = stage_devices(plan.mesh, self._axis)
         ring = DeviceMesh((n_stages,), (self._axis,), devs)
         params, caches = self.params, st["caches"]
         rest_p = {k: v for k, v in params.items() if k != "scan"}
@@ -410,9 +465,10 @@ class Executor:
                         h = x[lanes].to(dev) if s == 0 else buf[s]
                         positions = pos[lanes, None].to(dev)
                         on = act[lanes].to(dev)
+                        sub = _batch_rows(caches, lanes)
                         for i in range(s * per, (s + 1) * per):
                             pp = _index(params["scan"], i)
-                            pc = _lane_rows(_index(caches["scan"], i), lanes)
+                            pc = _index(sub["scan"], i)
                             for j in range(len(kinds)):
                                 h, _ = block_apply(cfg, j, pp[f"b{j}"], h,
                                                    positions, None,
@@ -432,6 +488,92 @@ class Executor:
                 toks.append(emit)
         st.update(cur=cur, active=act, budget=rem)
         return torch.stack(toks)
+
+    def _pipeline_skew_decode(self, st: Dict[str, Any],
+                              n: int) -> torch.Tensor:
+        """Fused n-step paged decode on the request-skewed pipeline
+        (``exact=False``; the reference's `_pipeline_skew_decode_fn`).
+
+        The drained schedule (`_pipeline_decode`) costs n_micro + S - 1
+        ticks a step.  Here the batch splits into G = S contiguous lane
+        groups of mb = B / S lanes, and at tick t stage s runs group
+        (t - s) mod G at decode step (t - s) // G; a tick off that
+        schedule is skipped.  While stage s holds group g's step k, stage
+        s - 1 is on group g + 1, so the only bubbles are the S - 1
+        fill/drain ticks of the horizon: n*S + S - 1 ticks for n steps.
+
+        Stage s decodes from its own block of the paged arena (its
+        periods' pages, `place_caches`) through the page table, which
+        stays whole on the controller with the lane state and the
+        forced-token queues, and keeps its own position counters (it
+        ingests group g's step-k token s ticks after stage 0).  The last
+        stage's rows go to the controller, which finishes the group's
+        step (the final norm, the head and `decode_steps`' forced-queue
+        state machine, `forced_token_update`, on the group's rows) and
+        commits it to the lane state.  Group g's step k commits at tick
+        g + kG + S - 1 and its next read is at tick g + (k+1)G, so every
+        stage reads the state the sequential loop would: the schedule
+        changes when a lane decodes, never what it decodes.  Every
+        operation on a row gives it the same bits at any row count, so
+        the tokens are `Model.decode_steps`' bit for bit.
+        """
+        model, cfg = self.model, self.model.cfg
+        devs, per, kinds = self._stages()
+        n_stages, b = len(devs), self.max_batch
+        if b % n_stages:
+            raise ValueError(
+                f"request-skewed serve_pipeline needs max_batch divisible "
+                f"by the stage count: batch={b}, stages={n_stages}")
+        mb = b // n_stages
+        total = n * n_stages + n_stages - 1
+        ring = DeviceMesh((n_stages,), (self._axis,), devs)
+        params, caches = self.params, st["caches"]
+        rest_p = {k: v for k, v in params.items() if k != "scan"}
+        cur, act = st["cur"].clone(), st["active"].clone()
+        rem, fptr = st["budget"].clone(), st["fptr"].clone()
+        pos = [caches["pos"].to(d, copy=True) for d in devs]
+        pts = [caches["pt"].to(d) for d in devs]
+        buf = [torch.zeros((mb, 1, cfg.d_model), dtype=COMPUTE_DTYPE,
+                           device=d) for d in devs]
+        out = torch.full((n, b), -1, dtype=torch.int32, device=self.device)
+        with torch.no_grad():
+            for t in range(total):
+                ys = []
+                for s, dev in enumerate(devs):
+                    m = t - s  # the (group, step) this stage works on
+                    if not 0 <= m < n * n_stages:
+                        ys.append(buf[s])
+                        continue
+                    lanes = slice(m % n_stages * mb, (m % n_stages + 1) * mb)
+                    on = act[lanes].to(dev)
+                    h = (model.embed_inputs(rest_p, tokens=cur[lanes, None])
+                         .to(dev) if s == 0 else buf[s])
+                    qpos = pos[s][lanes]
+                    for i in range(s * per, (s + 1) * per):
+                        pp = _index(params["scan"], i)
+                        pc = _index(caches["scan"], i)
+                        for j in range(len(kinds)):
+                            h, _ = block_apply(cfg, j, pp[f"b{j}"], h,
+                                               qpos[:, None], None,
+                                               pc[f"b{j}"],
+                                               page_table=pts[s][lanes],
+                                               active=on)
+                    pos[s][lanes] = torch.where(on, qpos + 1, qpos)
+                    ys.append(h)
+                    if s == n_stages - 1:  # the group's step is done
+                        hn = norm(h.to(self.device), rest_p["final_norm"],
+                                  cfg)
+                        logits = lm_head(hn, rest_p["embed"])[:, 0]
+                        (out[m // n_stages, lanes], cur[lanes], act[lanes],
+                         rem[lanes], fptr[lanes]) = forced_token_update(
+                            logits, cur[lanes], act[lanes], rem[lanes],
+                            st["eos"][lanes], PAD_TOKEN, st["forced"][lanes],
+                            st["flen"][lanes], fptr[lanes])
+                buf = gmi.cluster_send(ys, ring, self._axis)
+        self.pipeline_ticks += total
+        caches["pos"] = pos[0]
+        st.update(cur=cur, active=act, budget=rem, fptr=fptr)
+        return out
 
     def admit_hit(self, st, slot: int, pt_row, pos0: int, reset) -> None:
         """Point a lane at its (shared prefix + own) pages; the suffix

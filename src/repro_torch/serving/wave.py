@@ -3,6 +3,12 @@
 rows spanning cache_len, then fused decode dispatches until every member
 finishes; finished rows feed PAD_TOKEN behind the decode active mask.
 Re-exported lazily from serving/engine.py.
+
+A wave's prefill runs in request blocks of at most EXACT_ROWS_MAX rows
+(`Executor._prefill`), so its products stay on the K-ordered gemm.
+Under a ``mode="serve"`` plan the wave's dense rows are sharded by kv
+head and kernel 3 launches once per shard, its streams bit for bit one
+device's.  A serve_pipeline plan refuses, as in the reference.
 """
 from __future__ import annotations
 
@@ -24,8 +30,10 @@ class WaveEngine(_engine.EngineBase):
 
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
-        _engine._unported(**{"the wave engine under a plan":
-                             _engine.plan_cuts(self.plan)})
+        if self.plan is not None and self.plan.mode == "serve_pipeline":
+            raise ValueError(
+                "serve_pipeline drives the continuous engine's fixed-lane "
+                "decode state; the wave baseline has no fixed batch")
         self.stats.update(waves=0)
 
     def run(self) -> List[Request]:

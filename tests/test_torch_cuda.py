@@ -1023,6 +1023,37 @@ def test_row_norm_wrapper_refuses_what_it_cannot_run(dev):
 # -- serve plans: the per-shard dispatch of kernels 1 and 2 ------------------
 
 
+@pytest.mark.parametrize("kvh,g,hd,mb", [(3, 3, 64, 2), (3, 3, 64, 1),
+                                         (8, 6, 128, 2)])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_paged_decode_lane_groups_equal_the_whole_batch(dev, kvh, g, hd, mb,
+                                                        quantized):
+    """The request-skewed pipeline's launches: smollm-135m's heads at
+    lane groups of 2 (B 12 on 6 stages) and 1, minitron-8b's at 2 (B 8 on
+    4).  Each group (a contiguous slice of the batch's queries, table,
+    positions and mask) is within the limit of the plain version, and
+    equal bit for bit to its lanes of one launch over the whole batch."""
+    args = _inputs(kvh * 10 + mb, 12, kvh, g, hd, 16, 12, dev)
+    if quantized:
+        *args, act = _quantized(args)
+        call, plain = ops.paged_flash_decode_q, ref.paged_flash_decode_q
+    else:
+        *args, act = args
+        call, plain = ops.paged_flash_decode, ref.paged_flash_decode
+    q, arenas, (kpos, pt, qpos) = args[0], args[1:-3], args[-3:]
+    whole = call(q, *arenas, kpos, pt, qpos, active=act)
+    for r0 in range(0, 12, mb):
+        rows = slice(r0, r0 + mb)
+        got = call(q[rows], *arenas, kpos, pt[rows], qpos[rows],
+                   active=act[rows])
+        torch.cuda.synchronize()
+        want = plain(q[rows], *arenas, kpos, pt[rows], qpos[rows],
+                     active=act[rows])
+        _assert_decode_close(got, want, None if quantized else _paged_spread(
+            q[rows], *arenas, kpos, pt[rows], qpos[rows], act[rows]))
+        assert torch.equal(got, whole[rows])
+
+
 def _shard_arena(t, n):
     """t's kv-head slices (dim 2) as a plan holds them."""
     from repro_torch.models.shard_hints import Shards

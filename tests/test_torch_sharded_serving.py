@@ -12,9 +12,16 @@ the CPU (one process drives them, as on a card they share).
     plan-free engine's); each shard's arena holds its one kv head;
   * serve plan, --no-exact (psum-form TP): token match >= 0.98 against
     the exact streams (the reference's band);
+  * speculation under the serve plan (the target drafting for itself):
+    its streams equal the plan's plain streams, the port's one-device
+    spec streams and the JAX plain engine's, on bf16 and int8 arenas;
+  * the wave engine under the serve plan equals the JAX wave engine's
+    streams and one device's, its prefill run in request blocks of at
+    most EXACT_ROWS_MAX rows (patched down so that the blocks run);
   * serve_pipeline (4 stages of one layer each, n_layers=4): the
     executor's pipelined loop equals `Model.decode_steps` bit for bit,
-    and the engine's streams equal the JAX dense-slot engine's;
+    and the engine's streams equal the JAX dense-slot engine's (the
+    request-skewed form: tests/test_torch_throughput_serving.py);
   * what plans do not take yet refuses by name, and the --dryrun CLI
     prints the reference's markers.
 """
@@ -32,6 +39,7 @@ from repro.models.synthetic import affine_prompts, fit_affine_lm
 from repro.models.transformer import make_model as jmake
 from repro.serving.engine import ContinuousBatchingEngine as JaxEngine
 from repro.serving.engine import Request as JaxRequest
+from repro.serving.wave import WaveEngine as JaxWave
 from repro_torch.configs import get_config as tget
 from repro_torch.core.cluster_builder import build_plan
 from repro_torch.core.pipeline import pipeline_steps
@@ -99,13 +107,29 @@ def _plan(cfg, shape=(1, 2), exact=True):
                       mode="serve", exact=exact)
 
 
+@pytest.fixture(scope="module")
+def jax_paged(models):
+    """kv_dtype -> the JAX plan-free paged engine's streams over
+    `_stream()`, a cold pass then one of radix hits (computed once)."""
+    jm, params, _, _ = models
+    held = {}
+
+    def get(kv_dtype):
+        if kv_dtype not in held:
+            with pinned_impl("ref"):
+                jeng = JaxEngine(jm, params, kv_dtype=kv_dtype, **ENGINE)
+                held[kv_dtype] = [_streams(jeng, JaxRequest, _stream())
+                                  for _ in range(2)]
+        return held[kv_dtype]
+
+    return get
+
+
 @pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
-def test_serve_plan_equals_jax_single_device(models, kv_dtype):
-    jm, params, tm, tp = models
+def test_serve_plan_equals_jax_single_device(models, jax_paged, kv_dtype):
+    _, _, tm, tp = models
     stream = _stream()
-    with pinned_impl("ref"):
-        jeng = JaxEngine(jm, params, kv_dtype=kv_dtype, **ENGINE)
-        want = [_streams(jeng, JaxRequest, stream) for _ in range(2)]
+    want = jax_paged(kv_dtype)
     single = TorchEngine(tm, tp, kv_dtype=kv_dtype, **ENGINE)
     shard = TorchEngine(tm, tp, kv_dtype=kv_dtype, plan=_plan(tm.cfg),
                         **ENGINE)
@@ -133,6 +157,67 @@ def test_serve_plan_equals_jax_single_device(models, kv_dtype):
     assert [t.shape[-1] for t in wq] == [32, 32]
     assert not isinstance(shard.executor.params["scan"]["b0"]["mix"]["wo"],
                           Shards)  # exact: replicated reduction projection
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_spec_under_serve_plan(models, jax_paged, kv_dtype):
+    """Speculation under the (1, 2) plan, the target drafting for itself:
+    the draft whole on the controller, the verify pass per shard.  Cold,
+    then radix hits, its streams equal the plan's plain engine's, the
+    port's one-device spec engine's and the JAX plain engine's, and its
+    acceptance counters the one-device spec engine's."""
+    _, _, tm, tp = models
+    stream, want = _stream(), jax_paged(kv_dtype)
+    spec = dict(draft_model=tm, draft_params=tp, spec_k=2)
+    engines = {
+        "spec plan": TorchEngine(tm, tp, kv_dtype=kv_dtype, plan=_plan(
+            tm.cfg), spec_config=spec, **ENGINE),
+        "spec one device": TorchEngine(tm, tp, kv_dtype=kv_dtype,
+                                       spec_config=spec, **ENGINE),
+        "plain plan": TorchEngine(tm, tp, kv_dtype=kv_dtype,
+                                  plan=_plan(tm.cfg), **ENGINE)}
+    for p, want_pass in enumerate(want):  # cold, then radix hits
+        for name, eng in engines.items():
+            assert _streams(eng, TorchRequest, stream) == want_pass, (p, name)
+    eng, one = engines["spec plan"], engines["spec one device"]
+    assert eng.stats["spec_accepted"] > 0
+    assert {k: v for k, v in eng.stats.items() if k.startswith("spec")} == \
+        {k: v for k, v in one.stats.items() if k.startswith("spec")}
+    assert not isinstance(eng._draft_slot_caches["scan"]["b0"]["k"], Shards)
+    assert isinstance(eng._slot_caches["scan"]["b0"]["k"], Shards)
+
+
+def test_wave_under_serve_plan(models, monkeypatch):
+    """The wave engine on (1, 2), kernel 3 per shard over kv-head-sharded
+    dense rows, equals the JAX wave engine's streams and one device's.
+    EXACT_ROWS_MAX patched to 32: a wave of 3 prompts at bucket 32 (96
+    rows) prefills in blocks of one request, at bucket 16 (48 rows) in
+    blocks of two and one."""
+    from repro_torch.models import layers
+    jm, params, tm, tp = models
+    rng = np.random.default_rng(2)
+    stream = [(p[:n], int(rng.integers(4, 12))) for p, n in zip(
+        affine_prompts(rng, 7, CFG.vocab_size, (30, 31)),
+        (25, 12, 30, 9, 14, 6, 20))]
+    kw = dict(max_batch=3, buckets=(16, 32), deadline_s=0.0,
+              max_decode_len=32)
+    with pinned_impl("ref"):
+        want = _streams(JaxWave(jm, params, **kw), JaxRequest, stream)
+    monkeypatch.setattr(layers, "EXACT_ROWS_MAX", 32)
+    sizes = []
+    real = tm.prefill
+
+    def spy(params_, caches, tokens=None, **k):
+        sizes.append(tokens.shape)
+        return real(params_, caches, tokens=tokens, **k)
+
+    eng = WaveEngine(tm, tp, plan=_plan(tm.cfg), **kw)
+    monkeypatch.setattr(tm, "prefill", spy)
+    assert _streams(eng, TorchRequest, stream) == want
+    monkeypatch.undo()
+    assert sorted(set(sizes)) == [(1, 16), (1, 32), (2, 16)], sizes
+    assert _streams(WaveEngine(tm, tp, **kw), TorchRequest, stream) == want
+    assert isinstance(eng.executor.params["scan"]["b0"]["mix"]["wq"], Shards)
 
 
 def test_no_exact_token_match_band(models):
@@ -237,17 +322,13 @@ def test_unported_plan_options_refuse(models):
         _refuses("recurrent or MoE", lambda: TorchEngine(
             m, init_params(cfg, seed=0, device="cpu"),
             plan=_plan(cfg), max_batch=2, buckets=(16,)))
-    _refuses("speculation under a plan", lambda: TorchEngine(
-        tm, tp, plan=plan, spec_config=dict(draft_model=tm, draft_params=tp,
-                                            spec_k=2), **ENGINE))
-    _refuses("wave engine under a plan", lambda: WaveEngine(
-        tm, tp, plan=plan, max_batch=2, buckets=(16,)))
     _refuses("W8A8", lambda: TorchEngine(tm, tp, plan=plan,
                                          quant_weights=True, **ENGINE))
-    skew = build_plan(tm.cfg, make_mesh((2,), ("stage",), device="cpu"),
-                      mode="serve_pipeline", exact=False)
-    _refuses("request-skewed", lambda: TorchEngine(
-        tm, tp, plan=skew, max_batch=2, buckets=(16,), paged=False))
+    for exact in (True, False):  # the reference's refusal, by ValueError
+        pipe = build_plan(tm.cfg, make_mesh((2,), ("stage",), device="cpu"),
+                          mode="serve_pipeline", exact=exact)
+        with pytest.raises(ValueError, match="wave baseline"):
+            WaveEngine(tm, tp, plan=pipe, max_batch=2, buckets=(16,))
 
 
 def test_tp_plan_refuses_products_past_exact_rows(models):
