@@ -97,8 +97,8 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    layers), exact paged_flash_decode and row_norm launch counts, and the
    verify block equal to its chained decode steps bit for bit (each
    product runs once over the B*T rows on the K-ordered gemm kernel);
-   then reduced musicgen-medium and minitron-8b fitted and gated card vs
-   CPU at token match 1.0 (paged);
+   its reduced musicgen-medium and minitron-8b are fitted and gated in
+   the fitted phase (15); the fit worker (FITTED_GATES) starts here;
 11. recurrent: recurrentgemma-2b (RG-LRU blocks, sliding-window MQA
    attention at hd 256 / G 10, W8A8 tail MLPs) and xlstm-1.3b (mLSTM and
    sLSTM blocks) at full width on random weights: card vs CPU on one
@@ -107,14 +107,13 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    then an sLSTM), 8 requests of 32 tokens served
    through the dense-slot cb engine at full depth (recurrentgemma with
    bf16 and with W8A8 weights), exact flash_decode, int8_matmul and
-   row_norm launch counts, 8 fused decode steps under torch.profiler;
-   then both reduced, fitted and gated card vs CPU at token match 1.0
-   (dense slot rows);
+   row_norm launch counts, 8 fused decode steps under torch.profiler
+   (their reduced fits gated in the fitted phase);
 12. moe: moonshot-v1-16b-a3b (64 experts top-6, 2 shared) and
    llama4-maverick-400b-a17b (a dense layer, then 128 experts top-1 and
    1 shared) at full width on random weights: card vs CPU (paged) on 2
    of moonshot's layers (llama4's period's CPU half is cut for chip
-   time; its reduced fit is gated card vs CPU below), with the routing
+   time), with the routing
    compared on the card's own rows (a pair may go elsewhere only at a
    top-k margin of at most MOE_MARGIN) and end to end (logged; logits
    gated at LOGIT_TOL on each lane up to its first pair routed
@@ -126,7 +125,7 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    one group at its own capacity and parts where it drops a pair), d = 0
    required on the rows with no drop; 8 fused decode steps profiled (the
    expert products' share of device time and their bytes against the
-   bound); then both reduced, fitted and gated at token match 1.0;
+   bound) (their reduced fits gated in the fitted phase);
 13. plans: the multi-device serve plans on the single-controller mesh,
    every shard on the one card (shards share it, so this checks the
    program and its contract, not multi-card scaling): the GMI
@@ -162,7 +161,35 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    (1, 4): streams and logits equal one device's, and on 4 skewed
    stages at B = 8: streams equal one device's; the --dryrun CLI's
    markers; each step logs its seconds;
-14. encode: the integer I-BERT encoder (ibert-base at full width, 12
+14. fleet: smollm-135m x30 at full width (seed 0) through the replica
+   fleet and the disaggregated pools, every replica and pool on the one
+   card (the program and its contract, not scaling): 16
+   multi-prefix requests (4 prefixes of 64 tokens, budget 16, B = 4 a
+   replica, FIFO admission) through the plain engine, a 1- and a
+   2-replica affinity fleet (streams equal the plain engine's bit for
+   bit), a 2-replica round-robin fleet (fewer prefix hits than
+   affinity's), 2 replicas under 1x1 serve plans on the card listed
+   twice (equal), and shed_depth=1 (some shed with a reason, the rest
+   equal); then disagg=(1, 1) against colocated serving on 12 bursty
+   requests (long prompts 180-240, buckets to 256, pages of 8), bf16
+   and int8, cold then a replay: streams equal, every cold admission
+   shipped once, the bytes gathered off the staging arena's leaves equal
+   to its pages times the decode arena's own bytes a page (k, v, int8
+   scales: kv_page_bytes(); and kpos), the replay all prefix hits and no
+   ship, both ledgers drained, kernel 1 (2) launches equal colocated
+   serving's; every pass 30 decode-kernel launches a decode step summed
+   over the replicas, row_norm and gemm per call.  Admission is FIFO
+   (deadline_s=0) so that every engine takes the same decode steps: the
+   disaggregated split queues' shortest-first order does not run here
+   (tests/test_torch_disagg_serving.py holds it on the CPU);
+15. fitted: the reduced fits behind the card-vs-CPU stream gates of
+   phases 10-12 (FITTED_GATES: musicgen-medium, minitron-8b, paged;
+   recurrentgemma-2b, xlstm-1.3b, dense slot rows; moonshot-v1-16b-a3b,
+   llama4-maverick-400b-a17b, paged), each fitted on the card with
+   fit_affine_lm (Model.loss backward through its blocks) by a worker
+   process (this script with --fit-worker) that runs beside phases
+   10-14, then each gated card vs CPU at token match 1.0 (gate_phase);
+16. encode: the integer I-BERT encoder (ibert-base at full width, 12
    layers, random float weights from seed 0, calibrated at batch 1, seq
    128) through `repro_torch.launch.ibert_encoder`: one forward must
    launch exactly 72 / 12 / 24 / 12 int8_matmul / i_softmax / i_layernorm
@@ -171,12 +198,13 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    tests/test_ibert_model.py's bounds, 12 within the reference's own
    12-layer error on these weights); then one forward under
    torch.profiler, and the entry point's time at seq 1, 8, 32, 64, 128;
-15. summary: a JSON line of the kernels (the decode kernels' launches
+17. summary: a JSON line of the kernels (the decode kernels' launches
    include the gate's, the spec phase's, the families', the recurrent
-   phase's, the moe phase's and the plans phase's; row_norm's are the
-   serve phases' and the families', recurrent, MoE and plans models'
-   served streams; gemm's the serve phases' and the plans phase's
-   streams; int8_matmul's the encoder's and recurrentgemma's W8A8
+   phase's, the moe phase's, the plans phase's, the fleet phase's and
+   the fitted phase's;
+   row_norm's are the serve phases' and the families', recurrent, MoE,
+   plans and fleet models' served streams; gemm's the serve phases' and
+   the plans and fleet phases' streams; int8_matmul's the encoder's and recurrentgemma's W8A8
    stream), then the device line.
 
 Each phase logs its wall seconds ("phase ...").
@@ -186,8 +214,10 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -212,10 +242,14 @@ from repro_torch.models import ibert as ib  # noqa: E402
 from repro_torch.models import moe, synthetic  # noqa: E402
 from repro_torch.models.quantized import (  # noqa: E402
     is_quantized, quantize_leaf)
-from repro_torch.models.transformer import init_params, make_model  # noqa: E402
+from repro_torch.models.transformer import (  # noqa: E402
+    init_params, make_model, paged_cache_map)
+from repro_torch.serving import replica, router  # noqa: E402
 from repro_torch.serving.engine import (  # noqa: E402
     ContinuousBatchingEngine, Request)
 from repro_torch.serving.executor import Executor  # noqa: E402
+from repro_torch.serving.stream import (  # noqa: E402
+    bursty_requests, clone_requests, multi_prefix_requests)
 
 SENTINEL = 2 ** 30
 # published peaks of one H100 SXM at 700 W (NVIDIA data sheet, dense): HBM
@@ -282,13 +316,10 @@ SPEC_K = 4  # the spec phase's most drafted tokens per dispatch
 DRAFT_FIT_STEPS = 300
 # the families phase: each served at full width, whole but for
 # deepseek-coder-33b, cut from 62 to 8 layers (~4.7 B parameters, ~9.4 GB
-# in bf16; init_params draws each stacked leaf in f32 first); reduced
-# musicgen-medium (layernorm, tanh GELU, 2-matrix MLP, untied head) and
-# minitron-8b (squared ReLU) fitted and gated
+# in bf16; init_params draws each stacked leaf in f32 first)
 FAMILIES = ("minitron-8b", "musicgen-medium", "internvl2-1b",
             "deepseek-coder-33b")
 FAMILY_LAYERS = {"deepseek-coder-33b": 8}
-FAMILY_GATES = ("musicgen-medium", "minitron-8b")
 # the spec phase's page pool (16-row pages): ~5 lanes' worth at its
 # budgets, so B=8 lanes starve, preempt and (speculating) catch drafts up
 SPEC_PAGES = 30
@@ -300,11 +331,6 @@ PROFILE_REQUESTS = 4
 # period of its layers (every block kind: recurrentgemma's rglru, rglru,
 # attn; xlstm's 7 mLSTM and 1 sLSTM), then served at full depth
 RECURRENT_CUT = {"recurrentgemma-2b": 3, "xlstm-1.3b": 8}
-# their reduced fits for the gate: Adam steps.  The sLSTM's sequential
-# scan makes an xlstm step ~3x a recurrentgemma one on the card (122 s
-# and 41 s for 1,000 steps on an H100 80GB HBM3 at 700 W), so xlstm
-# takes fewer
-RECURRENT_FIT_STEPS = {"recurrentgemma-2b": 1000, "xlstm-1.3b": 400}
 # the moe phase: moonshot-v1-16b-a3b served at all 48 layers (28.9 B
 # parameters, 57.8 GB in bf16) and llama4-maverick-400b-a17b at its
 # 2-layer period (a dense layer, then a MoE layer of 128 experts: 18.6 B,
@@ -323,6 +349,25 @@ MOE_CARD_VS_CPU = ("moonshot-v1-16b-a3b",)
 # came at a margin of 5.4e-5), and its capacity ranks carry a flip on,
 # so that comparison is logged
 MOE_MARGIN = 1e-5
+# the fleet phase: lanes a replica (and a disaggregated engine), and the
+# affinity rebalance margin in token-steps, past the 16 requests' whole
+# backlog (16 x (128 + 16)), so every prefix group stays on one replica
+FLEET_B = 4
+FLEET_MARGIN = 10_000
+# the fitted phase: (arch, Adam steps, cache kind) of each reduced fit
+# gated card vs CPU.  The fits (~250 s on a quick host, ~360 s on a slow
+# one) run in a worker process beside phases 10-14, so they add little
+# to the script's time.  The sLSTM's sequential scan makes an xlstm step
+# ~3x a recurrentgemma one on the card (122 s and 41 s for 1,000 steps
+# on an H100 80GB HBM3 at 700 W), so xlstm takes fewer
+FITTED_GATES = (("musicgen-medium", 1000, "paged"),
+                ("minitron-8b", 1000, "paged"),
+                ("recurrentgemma-2b", 1000, "dense"),
+                ("xlstm-1.3b", 400, "dense"),
+                ("moonshot-v1-16b-a3b", 1000, "paged"),
+                ("llama4-maverick-400b-a17b", 1000, "paged"))
+# the longest the fitted phase waits for one fit, seconds
+FIT_WAIT_S = 600
 # recurrentgemma-2b's decode-step int8_matmul shapes (its tail MLPs: K
 # 2560 -> N 7680 for wi and wg, 7680 -> 2560 for wo) at a decode step's
 # 8 lanes and a 128-token prefill bucket
@@ -1589,6 +1634,101 @@ def gate_phase(model, params, kind: str) -> dict:
     return {kernel: got[kernel]}
 
 
+def fit_worker(out_dir: str) -> None:
+    """The reduced fits of FITTED_GATES, one after another on the card, in
+    a process of their own (`chip_smoke.py --fit-worker DIR`): each is
+    saved, with its log line, to DIR/<arch>.pt (written whole, then
+    renamed into place) for the fitted phase to gate."""
+    dev = torch.device("cuda")
+    prompts = None
+    for arch, steps, _ in FITTED_GATES:
+        cfg = get_config(arch).reduced()
+        model = make_model(cfg, device=dev)
+        t0 = time.perf_counter()
+        params = synthetic.fit_affine_lm(model, steps=steps)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if prompts is None:
+            prompts = synthetic.affine_prompts(np.random.default_rng(123),
+                                               64, cfg.vocab_size)
+        acc = synthetic.greedy_accuracy(model, params, prompts)
+        kind = (f"{cfg.n_experts} experts top-{cfg.top_k}" if cfg.n_experts
+                else cfg.family)
+        line = (f"fit {cfg.name} (x{cfg.n_layers}, {kind}, {cfg.norm}, "
+                f"{cfg.act}, {cfg.mlp_style}): {steps} steps in {secs:.1f} "
+                f"s in the fit worker, greedy accuracy on 64 affine prompts="
+                f"{acc:.4f}")
+        path = os.path.join(out_dir, f"{arch}.pt")
+        torch.save({"params": _to(params, "cpu"), "line": line},
+                   path + ".part")
+        os.replace(path + ".part", path)
+        print(line, flush=True)
+        del model, params
+        torch.cuda.empty_cache()
+
+
+class FitWorker:
+    """The fit worker process and the directory it saves into."""
+
+    def __init__(self):
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_fits_")
+        self.log = os.path.join(self.dir, "worker.log")
+        with open(self.log, "w") as out:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--fit-worker",
+                 self.dir], stdout=out, stderr=subprocess.STDOUT)
+        self.t0 = time.perf_counter()
+        log(f"fit worker started (pid {self.proc.pid}): "
+            f"{', '.join(a for a, _, _ in FITTED_GATES)}")
+
+    def fitted(self, arch: str, dev):
+        """The worker's fitted params for `arch` on `dev` and its log line,
+        once it has saved them; fails if the worker ends without them."""
+        path = os.path.join(self.dir, f"{arch}.pt")
+        t0 = time.perf_counter()
+        while not os.path.exists(path):
+            code = self.proc.poll()
+            if code is not None and not os.path.exists(path):
+                with open(self.log) as f:
+                    tail = f.read()[-4000:]
+                require(False, f"fit worker exited {code} before {arch} "
+                        f"was fitted:\n{tail}")
+            require(time.perf_counter() - t0 < FIT_WAIT_S,
+                    f"fit worker: no {arch} fit after {FIT_WAIT_S} s")
+            time.sleep(0.5)
+        waited = time.perf_counter() - t0
+        saved = torch.load(path, map_location=dev)
+        return saved["params"], saved["line"], waited
+
+    def close(self) -> None:
+        """Stop the worker if it still runs (a phase failed before the
+        fitted phase waited for it) and remove its directory."""
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def fitted_phase(dev, worker: FitWorker) -> dict:
+    """The card-vs-CPU stream gates on the worker's reduced fits
+    (FITTED_GATES): each loaded on the card and gated at token match 1.0
+    on its cache kind (gate_phase).  Returns the decode kernels'
+    launches."""
+    launches = {}
+    for arch, _, kind in FITTED_GATES:
+        params, line, waited = worker.fitted(arch, dev)
+        log(f"{line} (waited {waited:.1f} s for it)")
+        model = make_model(get_config(arch).reduced(), device=dev)
+        for k, v in gate_phase(model, params, kind).items():
+            launches[k] = launches.get(k, 0) + v
+        del model, params
+    code = worker.proc.wait(timeout=60)
+    require(code == 0, f"fit worker exited {code}")
+    log(f"fit worker: all {len(FITTED_GATES)} fits in "
+        f"{time.perf_counter() - worker.t0:.1f} s of wall time")
+    return launches
+
+
 def _spec_requests(vocab: int, seed: int = 0):
     """16 affine requests, then 8 that share a 32-token affine prefix (a
     prefix hit whose draft lane ingests the forced suffix); budgets
@@ -1866,10 +2006,8 @@ def families_phase(dev) -> dict:
     the paged cb engine at full depth (deepseek-coder-33b at FAMILY_LAYERS'
     depth) and its verify block required equal to its chained decode
     steps (d = 0; logged beside the products whose rows would part
-    between one 40-row product and 8-row ones); then reduced
-    musicgen-medium and minitron-8b,
-    fitted with fit_affine_lm, gated card vs CPU at token match 1.0.
-    Returns the paged kernel's and row_norm's launches."""
+    between one 40-row product and 8-row ones).  Returns the paged
+    kernel's and row_norm's launches."""
     launches = {"paged_flash_decode": 0, "row_norm": 0}
     for i, arch in enumerate(FAMILIES):
         t0 = time.perf_counter()
@@ -1902,19 +2040,6 @@ def families_phase(dev) -> dict:
         del model, params
         torch.cuda.empty_cache()
         log(f"families {arch}: {time.perf_counter() - t0:.1f} s")
-    prompts = synthetic.affine_prompts(np.random.default_rng(123), 64, 256)
-    for arch in FAMILY_GATES:
-        cfg = get_config(arch).reduced()
-        model = make_model(cfg, device=dev)
-        t0 = time.perf_counter()
-        params = synthetic.fit_affine_lm(model)
-        torch.cuda.synchronize()
-        log(f"fit {cfg.name} (x{cfg.n_layers}, {cfg.norm}, {cfg.act}, "
-            f"{cfg.mlp_style}): 1000 steps in {time.perf_counter() - t0:.1f}"
-            f" s, greedy accuracy on 64 affine prompts="
-            f"{synthetic.greedy_accuracy(model, params, prompts):.4f}")
-        launches["paged_flash_decode"] += gate_phase(
-            model, params, "paged")["paged_flash_decode"]
     return launches
 
 
@@ -2038,10 +2163,8 @@ def recurrent_phase(dev) -> dict:
     init_params weights (seed 0): card vs CPU on one period of layers
     (model_phase, dense slot rows); served at full depth through the
     dense-slot cb engine (recurrentgemma with bf16 and W8A8 weights),
-    with exact launch counts; 8 fused decode steps profiled; then both
-    reduced, fitted with fit_affine_lm and gated card vs CPU at token
-    match 1.0 (dense slot rows).  Returns flash_decode's, int8_matmul's
-    and row_norm's launches."""
+    with exact launch counts; 8 fused decode steps profiled.  Returns
+    flash_decode's, int8_matmul's and row_norm's launches."""
     launches = {"flash_decode": 0, "int8_matmul": 0, "row_norm": 0}
     for i, (arch, cut) in enumerate(RECURRENT_CUT.items()):
         t0 = time.perf_counter()
@@ -2077,19 +2200,6 @@ def recurrent_phase(dev) -> dict:
         del model, params
         torch.cuda.empty_cache()
         log(f"recurrent {arch}: {time.perf_counter() - t0:.1f} s")
-    prompts = synthetic.affine_prompts(np.random.default_rng(123), 64, 256)
-    for arch, steps in RECURRENT_FIT_STEPS.items():
-        cfg = get_config(arch).reduced()
-        model = make_model(cfg, device=dev)
-        t0 = time.perf_counter()
-        params = synthetic.fit_affine_lm(model, steps=steps)
-        torch.cuda.synchronize()
-        log(f"fit {cfg.name} (x{cfg.n_layers}, {cfg.family}): {steps} steps"
-            f" in {time.perf_counter() - t0:.1f} s, greedy accuracy on 64 "
-            f"affine prompts="
-            f"{synthetic.greedy_accuracy(model, params, prompts):.4f}")
-        launches["flash_decode"] += gate_phase(
-            model, params, "dense")["flash_decode"]
     return launches
 
 # ---------------------------------------------------------------------------
@@ -2956,6 +3066,245 @@ def plans_phase(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the replica fleet and the disaggregated pools
+# ---------------------------------------------------------------------------
+
+
+def _engines(target) -> list:
+    """The engines behind a fleet router, or [the engine]."""
+    return ([r.engine for r in target.replicas]
+            if hasattr(target, "replicas") else [target])
+
+
+def _fleet_pass(target, reqs, what: str, kernel: str) -> dict:
+    """One pass of `reqs` (clones) through an engine or a fleet router,
+    the launch counts set to 0 just before its run and read just after:
+    `kernel` must launch once per layer per decode step summed over the
+    engines, the other attention kernels never, the row norm and gemm
+    once a layer's share per backbone call.  Returns the streams of the
+    requests run, the engines' summed stats deltas, the launches and the
+    wall seconds and TTFTs (ms)."""
+    engines = _engines(target)
+    for r in clone_requests(reqs):
+        target.submit(r)
+    s0 = [dict(e.stats) for e in engines]
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    done = target.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = dict(ops.launches)
+    ds = {}
+    for e, st0 in zip(engines, s0):
+        for k, v in e.stats.items():
+            if isinstance(v, int):
+                ds[k] = ds.get(k, 0) + v - st0.get(k, 0)
+    require(all(r.done and (len(r.tokens_out) == r.max_new_tokens
+                            or r.tokens_out[-1] == r.eos_id) for r in done),
+            f"{what}: a request stopped short of its budget")
+    cfg = engines[0].model.cfg
+    steps, calls = ds["decode_steps"], ds["decode_steps"] + ds["prefills"]
+    want = {k: cfg.n_layers * steps if k == kernel else 0
+            for k in ATTN_KERNELS}
+    have = {k: got[k] for k in ATTN_KERNELS}
+    require(have == want, f"{what}: launches {have} != {want}")
+    require(got["row_norm"] == _norms_per_call(cfg) * calls,
+            f"{what}: {got['row_norm']} row_norm launches")
+    per = 7 * cfg.n_layers + 1  # q, k, v, o, wi, wg, wo a layer; the head
+    require(got["gemm"] == per * calls,
+            f"{what}: {got['gemm']} gemm launches != {per} x {calls} calls")
+    toks = sum(len(r.tokens_out) for r in done)
+    ttft = sorted((r.t_first_token - r.t_enqueue) * 1e3 for r in done)
+    log(f"{what}: requests={len(done)} tokens={toks} wall_s={wall:.4f} "
+        f"tok_s={toks / wall:.1f} ttft_p50_ms={ttft[len(ttft) // 2]:.2f} "
+        f"decode_steps={steps} prefills={ds['prefills']} "
+        f"prefix_hits={ds.get('prefix_hits', 0)} {kernel}_launches="
+        f"{got[kernel]} (= {cfg.n_layers} x {steps}) row_norm_launches="
+        f"{got['row_norm']} gemm_launches={got['gemm']}")
+    return dict(streams={r.rid: tuple(r.tokens_out) for r in done},
+                stats=ds, launches={k: got[k] for k in
+                                    ATTN_KERNELS + ("row_norm", "gemm")},
+                wall=wall, tok_s=toks / wall, ttft=ttft)
+
+
+def _bytes_per_page(caches) -> dict:
+    """Bytes one page holds in each kind of paged arena leaf, summed over
+    the blocks."""
+    out = {}
+
+    def add(ax, name, leaf):
+        out[name] = out.get(name, 0) + (leaf.numel() // leaf.shape[ax]
+                                        * leaf.element_size())
+
+    paged_cache_map(add, caches)
+    return out
+
+
+def _device_types(tree) -> set:
+    if isinstance(tree, dict):
+        return set().union(*(_device_types(v) for v in tree.values()))
+    return {tree.device.type}
+
+
+def _on_card(eng, what: str) -> None:
+    """No replica or pool quietly on the CPU: the executor's device, every
+    param leaf and (under disagg) the prefill pool's are the card's."""
+    ex = eng.executor
+    devs = {ex.device.type} | _device_types(ex.params)
+    if eng.disagg is not None:
+        require(ex.prefill_model is not None, f"{what}: no prefill pool")
+        devs |= {ex.prefill_model.device.type} | _device_types(
+            ex.prefill_params)
+    require(devs == {"cuda"}, f"{what}: devices {devs}")
+
+
+def fleet_phase(dev) -> dict:
+    """The replica fleet (serving/router.py, serving/replica.py) and the
+    disaggregated prefill/decode pools (engine disagg=(1, 1)) on
+    smollm-135m x30 at full width (init_params seed 0, the serve phase's
+    weights), every replica and pool on the one card.  Returns the
+    launches of the decode kernels, row_norm and gemm."""
+    launches = {k: 0 for k in DECODE_KERNELS + ("row_norm", "gemm")}
+
+    def add(res):
+        for k, v in res["launches"].items():
+            if k in launches:
+                launches[k] += v
+        return res
+
+    cfg = get_config("smollm-135m")
+    model = make_model(cfg, device=dev)
+    params = init_params(cfg, seed=0, device=dev)
+    # deadline 0: strict FIFO admission (disaggregated colds are all
+    # overdue, so FIFO too), whatever the host's speed: each request takes
+    # the same path (cold or radix hit) and the same decode steps in
+    # every engine it is compared across
+    kw = dict(max_batch=FLEET_B, buckets=serve_cli.BUCKETS, deadline_s=0.0)
+    reqs = multi_prefix_requests(
+        np.random.default_rng(0), 16, cfg.vocab_size, n_prefixes=4,
+        prefix_len=64, suffix_range=(4, 12), budgets=16)
+    k1 = "paged_flash_decode"
+    # (a) the fleet against the plain engine; a margin past any backlog
+    # here keeps every prefix group on one replica, so each request takes
+    # the plain engine's path (cold or radix hit)
+    aff = router.FleetConfig(route="affinity",
+                             rebalance_margin=FLEET_MARGIN)
+    plain = add(_fleet_pass(ContinuousBatchingEngine(model, params, **kw),
+                            reqs, "fleet plain engine", k1))
+    want = plain["streams"]
+    hits = {}
+    for n, route in ((1, "affinity"), (2, "affinity"), (2, "round-robin")):
+        fleet = router.build_fleet(
+            model, params, n, config=dataclasses.replace(aff, route=route),
+            **kw)
+        what = f"fleet {n} replica(s) {route}"
+        res = add(_fleet_pass(fleet, reqs, what, k1))
+        for e in _engines(fleet):
+            _on_card(e, what)
+        st = fleet.stats()
+        log(f"{what}: by_kind={st['by_kind']} prefix_hits="
+            f"{st['prefix_hits']} per replica " + ", ".join(
+                f"{p['replica']}: routed={p['routed']} hits="
+                f"{p['prefix_hits']} prefills={p['prefills']}"
+                for p in st["replicas"]))
+        hits[(n, route)] = st["prefix_hits"]
+        if route == "affinity":
+            require(res["streams"] == want,
+                    f"{what}: streams part from the plain engine's")
+    require(hits[(2, "affinity")] > hits[(2, "round-robin")],
+            f"fleet: affinity hits {hits[(2, 'affinity')]} <= round-robin's "
+            f"{hits[(2, 'round-robin')]}")
+    # (b) each replica under a 1x1 serve plan on its own device group;
+    # the one card listed twice
+    groups = replica.replica_device_groups(2, 1, devices=[dev, dev])
+    plans = [build_plan(cfg, replica.make_group_mesh(
+        g, (1, 1), ("data", "model")), mode="serve") for g in groups]
+    fleet = router.build_fleet(model, params, 2, plans=plans, config=aff,
+                               **kw)
+    res = add(_fleet_pass(fleet, reqs, "fleet 2 plan-placed replicas", k1))
+    for e in _engines(fleet):
+        _on_card(e, "fleet plan-placed replica")
+    require(res["streams"] == want,
+            "fleet plan-placed: streams part from the plain engine's")
+    # (c) shedding: all 16 submitted at once, one queued request a replica
+    fleet = router.build_fleet(
+        model, params, 2, config=dataclasses.replace(aff, shed_depth=1),
+        **kw)
+    res = add(_fleet_pass(fleet, reqs, "fleet shed_depth=1", k1))
+    require(fleet.shed and all("saturated" in why for _, why in fleet.shed),
+            f"fleet shed_depth=1: shed {len(fleet.shed)}")
+    require(len(res["streams"]) + len(fleet.shed) == len(reqs),
+            "fleet shed_depth=1: requests lost")
+    require(all(want[rid] == t for rid, t in res["streams"].items()),
+            "fleet shed_depth=1: a served stream parts from the plain "
+            "engine's")
+    log(f"fleet shed_depth=1: served {len(res['streams'])}, shed "
+        f"{len(fleet.shed)}, e.g. {fleet.shed[0][1]!r}")
+    # (d) disaggregated pools (1, 1) against colocated serving, on pages
+    # of 8 rows, so that a replayed short prompt (10-15 tokens) finds a
+    # whole page in the radix tree
+    burst = bursty_requests(
+        np.random.default_rng(0), 12, cfg.vocab_size, short_range=(10, 16),
+        long_range=(180, 240), burst_every=4, burst_size=2, budgets=(8, 16))
+    for kv, kernel in (("bf16", k1), ("int8", "paged_flash_decode_q")):
+        dkw = dict(kw, buckets=serve_cli.stream_buckets(burst), kv_dtype=kv,
+                   page_size=8)
+        colo = ContinuousBatchingEngine(model, params, **dkw)
+        dis = ContinuousBatchingEngine(model, params, disagg=(1, 1), **dkw)
+        _on_card(dis, f"fleet disagg {kv}")
+        for pas in ("cold", "replay"):
+            c = add(_fleet_pass(colo, burst, f"fleet colocated {kv} {pas}",
+                                kernel))
+            d = add(_fleet_pass(dis, burst, f"fleet disagg (1, 1) {kv} {pas}",
+                                kernel))
+            what = f"fleet disagg {kv} {pas}"
+            require(d["streams"] == c["streams"],
+                    f"{what}: streams part from colocated serving's")
+            require(d["launches"][kernel] == c["launches"][kernel],
+                    f"{what}: {kernel} launches {d['launches'][kernel]} != "
+                    f"colocated {c['launches'][kernel]}")
+            s = d["stats"]
+            # the bytes gathered off the staging arena's leaves (padding
+            # pages included) against the decode arena's own bytes a page
+            gathered = dict(dis.executor.gathered)
+            dis.executor.gathered.update(pages=0, bytes=0)
+            per_page = _bytes_per_page(dis._slot_caches)
+            require(s["shipped_pages"] <= gathered["pages"]
+                    < 2 * max(s["shipped_pages"], 1)
+                    and gathered["bytes"] == gathered["pages"]
+                    * sum(per_page.values())
+                    and dis.kv_page_bytes() == sum(
+                        v for k, v in per_page.items() if k != "kpos"),
+                    f"{what}: gathered {gathered} for "
+                    f"{s['shipped_pages']} pages shipped; bytes a page "
+                    f"{per_page}, kv_page_bytes {dis.kv_page_bytes()}")
+            if pas == "cold":
+                require(s["ship_dispatches"] == s["prefills"] == len(burst)
+                        and s["shipped_pages"] > 0,
+                        f"{what}: ships {s['ship_dispatches']}, prefills "
+                        f"{s['prefills']}")
+            else:
+                require(s["prefix_hits"] > 0 and s["ship_dispatches"] == 0,
+                        f"{what}: hits {s['prefix_hits']}, ships "
+                        f"{s['ship_dispatches']}")
+            dis.kv.assert_drained()
+            dis.kv_prefill.assert_drained()
+            log(f"{what} (pools share one card: the program's figures, not "
+                f"a scaling result): colocated tok_s={c['tok_s']:.1f} "
+                f"ttft_p50_ms={c['ttft'][len(c['ttft']) // 2]:.2f}; "
+                f"disaggregated tok_s={d['tok_s']:.1f} ttft_p50_ms="
+                f"{d['ttft'][len(d['ttft']) // 2]:.2f}; ship_dispatches="
+                f"{s['ship_dispatches']} shipped_pages={s['shipped_pages']}"
+                f" shipped_bytes={s['shipped_bytes']} (kv_page_bytes); "
+                f"gathered pages={gathered['pages']} (padding included) "
+                f"bytes={gathered['bytes']} (kpos too)")
+    del model, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # the MoE families
 # ---------------------------------------------------------------------------
 
@@ -3179,9 +3528,7 @@ def moe_phase(dev) -> dict:
     (moonshot at all 48 layers, llama4 at its 2-layer period) with exact
     launch counts; one verify block against its chained decode steps,
     logged, d = 0 required on its clean rows; 8 fused decode steps
-    profiled; then both reduced, fitted with fit_affine_lm and gated card
-    vs CPU at token match 1.0 (paged).  Returns paged_flash_decode's and
-    row_norm's launches."""
+    profiled.  Returns paged_flash_decode's and row_norm's launches."""
     launches = {"paged_flash_decode": 0, "row_norm": 0}
     torch.cuda.empty_cache()
     log(f"moe: card memory allocated before the phase "
@@ -3194,8 +3541,7 @@ def moe_phase(dev) -> dict:
         if arch in MOE_CARD_VS_CPU:
             _moe_card_vs_cpu(cfg)
         else:
-            log(f"moe {arch}: card vs CPU at full width cut for chip time "
-                "(its reduced fit is gated card vs CPU below)")
+            log(f"moe {arch}: card vs CPU at full width cut for chip time")
         n = MOE_LAYERS.get(arch, cfg.n_layers)
         cut = dataclasses.replace(cfg, n_layers=n)
         depth = f"x{n}" + (f" (depth cut from {cfg.n_layers})"
@@ -3228,19 +3574,6 @@ def moe_phase(dev) -> dict:
         torch.cuda.empty_cache()
         log(f"moe {arch}: {time.perf_counter() - t0:.1f} s; card peak "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
-    prompts = synthetic.affine_prompts(np.random.default_rng(123), 64, 256)
-    for arch in MOE_ARCHS:
-        cfg = get_config(arch).reduced()
-        model = make_model(cfg, device=dev)
-        t0 = time.perf_counter()
-        params = synthetic.fit_affine_lm(model)
-        torch.cuda.synchronize()
-        log(f"fit {cfg.name} (x{cfg.n_layers}, {cfg.n_experts} experts "
-            f"top-{cfg.top_k}): 1000 steps in {time.perf_counter() - t0:.1f}"
-            f" s, greedy accuracy on 64 affine prompts="
-            f"{synthetic.greedy_accuracy(model, params, prompts):.4f}")
-        launches["paged_flash_decode"] += gate_phase(
-            model, params, "paged")["paged_flash_decode"]
     return launches
 
 
@@ -3485,6 +3818,16 @@ def main() -> None:
     gated = timed("gate", lambda: [gate_phase(*fits["target"], k)
                                    for k in ("paged", "dense", "int8")])
     gated.append(timed("spec", lambda: spec_phase(dev, fits)))
+    worker = FitWorker()  # the reduced fits, beside phases 10-14
+    try:
+        main_rest(dev, main_shape, fa_launches, served, gated, worker)
+    finally:
+        worker.close()
+
+
+def main_rest(dev, main_shape, fa_launches, served, gated,
+              worker: FitWorker) -> None:
+    """Phases 10-17, the fit worker running until the fitted phase."""
     family = timed("families", lambda: families_phase(dev))
     gated.append(family)
     recurrent = timed("recurrent", lambda: recurrent_phase(dev))
@@ -3493,12 +3836,17 @@ def main() -> None:
     gated.append(moe_launches)
     plans = timed("plans", lambda: plans_phase(dev))
     gated.append(plans)
+    fleet = timed("fleet", lambda: fleet_phase(dev))
+    gated.append(fleet)
+    gated.append(timed("fitted", lambda: fitted_phase(dev, worker)))
     launches = {k: sum(s["launches"] for s in served if s["kernel"] == k)
                 + sum(g.get(k, 0) for g in gated) for k in DECODE_KERNELS}
     launches["row_norm"] = (sum(s["row_norm"] for s in served)
                             + family["row_norm"] + recurrent["row_norm"]
-                            + moe_launches["row_norm"] + plans["row_norm"])
-    launches["gemm"] = sum(s["gemm"] for s in served) + plans["gemm"]
+                            + moe_launches["row_norm"] + plans["row_norm"]
+                            + fleet["row_norm"])
+    launches["gemm"] = (sum(s["gemm"] for s in served) + plans["gemm"]
+                        + fleet["gemm"])
     launches.update(timed("encode", encode_phase))
     launches["int8_matmul"] += recurrent["int8_matmul"]
     launches["flash_attention"] = fa_launches
@@ -3527,4 +3875,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--fit-worker"]:
+        fit_worker(sys.argv[2])
+    else:
+        main()

@@ -36,6 +36,16 @@ int8), whose streams stay bit for bit one device's.
 `--dryrun` prints the chosen plan's per-leaf shardings (params + serving
 cache) and exits, allocating nothing.
 
+`--replicas N` serves a fleet of N engines behind the prefix-affinity
+router (serving/router.py; `--route`, `--shed-depth`, `--shed-budget`);
+under a plan, `--mesh` is one replica's mesh and the replicas take
+disjoint device groups, by `make_mesh`'s rule (so on a one-card host
+they share the card).  `--disagg P:D` splits the paged cb engine into a
+prefill pool and a decode pool (under `--plan none`); `--stream bursty`
+is its target ingress (steady short prompts with long-prompt bursts).
+The engine's buckets cover the stream's longest prompt: BUCKETS, plus
+one more bucket where a prompt is longer (256 for the bursts).
+
 Runs on the CUDA device unless ``--device cpu`` is given; without a card
 it stops with an error instead of falling back to the CPU.
 
@@ -63,6 +73,10 @@ it stops with an error instead of falling back to the CPU.
       --plan serve --mesh 1,2 --engine wave
   PYTHONPATH=src python -m repro_torch.launch.serve --plan serve \\
       --mesh 1,3 --dryrun
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \\
+      --replicas 2 --stream shared-prefix
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \\
+      --plan none --disagg 1:1 --stream bursty
 """
 from __future__ import annotations
 
@@ -74,16 +88,30 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.cluster_builder import build_plan
+from repro_torch.core.packing import bucket_len
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.transformer import init_params, make_model
 from repro_torch.runtime.stragglers import StragglerMonitor
 from repro_torch.serving.engine import ContinuousBatchingEngine
 from repro_torch.serving.kv_manager import paged_eligible
+from repro_torch.serving.replica import (make_group_mesh,
+                                         replica_device_groups)
+from repro_torch.serving.router import (ROUTE_POLICIES, FleetConfig,
+                                        build_fleet)
 from repro_torch.serving.wave import WaveEngine
-from repro_torch.serving.stream import (poisson_requests,
+from repro_torch.serving.stream import (bursty_requests, poisson_requests,
                                         shared_prefix_requests)
 
 BUCKETS = (16, 32, 64, 128)
+
+
+def stream_buckets(reqs) -> tuple:
+    """BUCKETS, extended by one bucket that covers the stream's longest
+    prompt where BUCKETS do not (--stream bursty's long prompts)."""
+    longest = max((len(r.prompt) for r in reqs), default=0)
+    if longest <= max(BUCKETS):
+        return BUCKETS
+    return BUCKETS + (bucket_len(longest, BUCKETS),)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -109,10 +137,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="Poisson arrival rate (req/s); 0 = all at t=0")
     ap.add_argument("--decode-horizon", type=int, default=8,
                     help="max fused decode steps per dispatch")
-    ap.add_argument("--stream", choices=["poisson", "shared-prefix"],
+    ap.add_argument("--stream",
+                    choices=["poisson", "shared-prefix", "bursty"],
                     default="poisson",
                     help="shared-prefix: one system prompt + unique tails "
-                         "(the radix prefix cache's target ingress)")
+                         "(the radix prefix cache's target ingress); "
+                         "bursty: steady short prompts with long-prompt "
+                         "bursts (the --disagg pools' target ingress)")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--num-pages", type=int, default=0,
                     help="KV page-pool size (0 = the dense table's "
@@ -160,6 +191,32 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="print the plan's per-leaf shardings and "
                          "exactness modes (params + serving cache), "
                          "allocate nothing, and exit")
+    ap.add_argument("--disagg", default="",
+                    help="disaggregated prefill/decode pools as P:D device "
+                         "counts, e.g. --disagg 1:1: pool devices [0, P) "
+                         "prefill and ship completed KV pages into the "
+                         "decode pool's arena (pool device i on card i mod "
+                         "the host's count); the radix tree spans both, so "
+                         "a prefix hit admits decode-side with no transfer."
+                         "  Needs the paged cb engine under --plan none")
+    ap.add_argument("--replicas", type=int, default=0,
+                    help="serve a fleet of N engine replicas behind the "
+                         "prefix-affinity router; 0 (default) = 1.  With a "
+                         "plan, --mesh is per replica and the replicas take "
+                         "disjoint device groups (card i mod the host's "
+                         "count)")
+    ap.add_argument("--route", choices=list(ROUTE_POLICIES),
+                    default="affinity",
+                    help="fleet dispatch policy (--replicas > 1): affinity "
+                         "routes a request to the replica whose radix tree "
+                         "should hold its longest prefix, falling back to "
+                         "least-loaded; round-robin is the control arm")
+    ap.add_argument("--shed-depth", type=int, default=0,
+                    help="fleet load shedding: reject a request when every "
+                         "replica's admission queue is this deep (x "
+                         "--shed-budget); 0 = never shed")
+    ap.add_argument("--shed-budget", type=float, default=1.0,
+                    help="deadline-budget multiplier on --shed-depth")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device; cpu runs the kernels' plain "
@@ -167,23 +224,27 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def _parse_mesh(spec: str, plan_mode: str, device: str):
-    """--mesh "1,3" -> (data, model) mesh; --mesh "6" under
-    serve_pipeline -> (stage,) mesh.  Default: the visible cards (one on
-    the CPU) on the plan's TP/stage axis."""
-    n_dev = (torch.cuda.device_count()
-             if torch.device(device).type == "cuda" else 1)
+def _mesh_shape(spec: str, plan_mode: str, n_dev: int,
+                of: str = "") -> tuple:
+    """(shape, axes) for --mesh: "1,3" -> a (data, model) mesh; "6" under
+    serve_pipeline -> a (stage,) mesh.  Default: n_dev on the plan's
+    TP/stage axis.  `of` names whose mesh it is, for the refusals."""
+    shape = tuple(int(x) for x in spec.split(",")) if spec else None
     if plan_mode == "serve_pipeline":
-        shape = tuple(int(x) for x in spec.split(",")) if spec else (n_dev,)
-        if len(shape) != 1:
+        if shape is not None and len(shape) != 1:
             raise SystemExit("serve: serve_pipeline takes a 1-axis --mesh "
-                             "(the stage axis), e.g. --mesh 6")
-        return make_mesh(shape, ("stage",), device=device)
-    shape = tuple(int(x) for x in spec.split(",")) if spec else (1, n_dev)
-    if len(shape) != 2:
+                             f"(the stage axis{of}), e.g. --mesh 6")
+        return shape or (n_dev,), ("stage",)
+    if shape is not None and len(shape) != 2:
         raise SystemExit("serve: --plan serve takes a 2-axis --mesh "
-                         "(data, model), e.g. --mesh 1,3")
-    return make_mesh(shape, ("data", "model"), device=device)
+                         f"(data, model){of}, e.g. --mesh 1,3")
+    return shape or (1, n_dev), ("data", "model")
+
+
+def _cards(device: str) -> int:
+    """The visible cards (one on the CPU)."""
+    return (torch.cuda.device_count()
+            if torch.device(device).type == "cuda" else 1)
 
 
 def make_plan(args: argparse.Namespace, cfg):
@@ -191,8 +252,54 @@ def make_plan(args: argparse.Namespace, cfg):
     under --plan none)."""
     if args.plan == "none":
         return None
-    mesh = _parse_mesh(args.mesh, args.plan, args.device)
-    return build_plan(cfg, mesh, mode=args.plan, exact=args.exact)
+    shape, axes = _mesh_shape(args.mesh, args.plan, _cards(args.device))
+    return build_plan(cfg, make_mesh(shape, axes, device=args.device),
+                      mode=args.plan, exact=args.exact)
+
+
+def fleet_plans(args: argparse.Namespace, cfg):
+    """Per-replica plans over disjoint device groups: --mesh is the shape
+    of ONE replica's mesh (default: an even split of the host's cards on
+    the plan's axis).  The groups take their devices by `make_mesh`'s
+    rule, device i on card i mod the host's count, so on a host with
+    fewer cards than replicas x width the replicas share them."""
+    n = args.replicas
+    shape, axes = _mesh_shape(args.mesh, args.plan,
+                              max(_cards(args.device) // n, 1),
+                              of=" per replica")
+    width = 1
+    for s in shape:
+        width *= s
+    devices = make_mesh((n * width,), ("fleet",), device=args.device).devices
+    groups = replica_device_groups(n, width, devices=devices)
+    return [build_plan(cfg, make_group_mesh(g, shape, axes),
+                       mode=args.plan, exact=args.exact) for g in groups]
+
+
+def parse_disagg(args: argparse.Namespace, paged: bool):
+    """(P, D) for --disagg P:D (None without it), with the reference's
+    refusals."""
+    if not args.disagg:
+        return None
+    try:
+        p_pool, d_pool = (int(x) for x in args.disagg.split(":"))
+    except ValueError:
+        raise SystemExit("serve: --disagg takes P:D device counts, "
+                         "e.g. --disagg 1:1")
+    if args.engine != "cb" or not paged:
+        raise SystemExit("serve: --disagg needs the paged cb engine "
+                         "(page shipping is the handoff mechanism)")
+    if args.plan != "none":
+        raise SystemExit("serve: --disagg owns device placement; "
+                         "combine it with --plan none")
+    if args.replicas > 1:
+        raise SystemExit("serve: --disagg does not compose with a "
+                         "--replicas fleet yet (cross-host shipping "
+                         "lands with the multi-process fleet)")
+    if args.draft_config:
+        raise SystemExit("serve: --disagg does not compose with "
+                         "--draft-config (no draft shipping path yet)")
+    return p_pool, d_pool
 
 
 # projections that *reduce* over a contracted dim: replicated + gather-form
@@ -251,10 +358,11 @@ def _dryrun(cfg, plan, paged: bool, engine_kw) -> None:
 
 
 def serve(args: argparse.Namespace, paged="auto"):
-    """Build the model and engine, serve the stream; returns (engine,
-    finished requests, wall seconds of the measured pass).  `paged`
-    goes to the cb engine (False: dense slot rows).  With --dryrun,
-    prints the plan's shardings and returns (None, [], 0.0)."""
+    """Build the model and engine (or, with --replicas > 1, the fleet
+    router), serve the stream; returns (engine or router, finished
+    requests, wall seconds of the measured pass).  `paged` goes to the cb
+    engine (False: dense slot rows).  With --dryrun, prints the plan's
+    shardings and returns (None, [], 0.0)."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("serve: no CUDA device is available; pass "
@@ -266,13 +374,24 @@ def serve(args: argparse.Namespace, paged="auto"):
         raise SystemExit(
             "serve: --kv-dtype int8 needs the continuous-batching engine "
             "(the wave baseline decodes dense slot rows); drop --engine wave")
-    plan = make_plan(args, cfg)
+    args.replicas = args.replicas or 1  # 0 = 1 (no --plan auto yet)
+    if args.replicas > 1 and args.engine != "cb":
+        raise SystemExit("serve: --replicas > 1 serves a fleet of "
+                         "continuous-batching engines; drop --engine wave")
+    fleet = args.replicas > 1 and not args.dryrun
+    plans = None
+    if fleet and args.plan != "none":
+        plans = fleet_plans(args, cfg)
+        plan = plans[0]  # representative: replicas differ only in devices
+    else:
+        plan = make_plan(args, cfg)
     eligible = paged_eligible(cfg, plan)
     if args.kv_dtype == "int8" and not (eligible and paged):
         raise SystemExit(
             "serve: --kv-dtype int8 needs the paged pool (an all-attention, "
             "unwindowed, causal model under --plan none or serve, or "
             "serve_pipeline with --no-exact)")
+    disagg = parse_disagg(args, eligible and bool(paged))
     if args.dryrun:
         if plan is None:
             raise SystemExit("serve: --dryrun inspects a plan; pick "
@@ -286,23 +405,37 @@ def serve(args: argparse.Namespace, paged="auto"):
     if args.engine == "cb":
         kw = dict(paged=paged, page_size=args.page_size,
                   kv_dtype=args.kv_dtype)
+        if disagg is not None:
+            kw["disagg"] = disagg
         if args.num_pages:
             kw["num_pages"] = args.num_pages
         if args.draft_config:
             kw["spec_config"] = draft_config(args, cfg, paged, device)
     elif args.draft_config:
         raise SystemExit("serve: --draft-config needs --engine cb")
-    cls = ContinuousBatchingEngine if args.engine == "cb" else WaveEngine
-    engine = cls(model, params, max_batch=args.max_batch, buckets=BUCKETS,
-                 plan=plan, monitor=StragglerMonitor(),
-                 decode_horizon=args.decode_horizon,
-                 quant_weights=args.quant_weights, **kw)
-    if args.warmup:  # another seed: the measured prompts stay uncached
-        for r in make_stream(args, cfg.vocab_size, args.seed + 1):
+    # the warm-up stream takes another seed: the measured prompts stay
+    # uncached
+    warm = make_stream(args, cfg.vocab_size, args.seed + 1) \
+        if args.warmup else []
+    stream = make_stream(args, cfg.vocab_size, args.seed)
+    kw.update(max_batch=args.max_batch, monitor=StragglerMonitor(),
+              buckets=stream_buckets(warm + stream),
+              decode_horizon=args.decode_horizon,
+              quant_weights=args.quant_weights)
+    if fleet:
+        engine = build_fleet(
+            model, params, args.replicas, plans=plans,
+            config=FleetConfig(route=args.route, shed_depth=args.shed_depth,
+                               shed_budget=args.shed_budget), **kw)
+    else:
+        cls = ContinuousBatchingEngine if args.engine == "cb" else WaveEngine
+        engine = cls(model, params, plan=plan, **kw)
+    if warm:
+        for r in warm:
             engine.submit(r)
         engine.run()
     t0 = time.perf_counter()
-    for r in make_stream(args, cfg.vocab_size, args.seed):
+    for r in stream:
         engine.submit(r)
     done = engine.run()
     return engine, done, time.perf_counter() - t0
@@ -334,6 +467,9 @@ def make_stream(args: argparse.Namespace, vocab_size: int, seed: int):
         return shared_prefix_requests(rng, args.requests, vocab_size,
                                       prefix_len=48, suffix_range=(3, 9),
                                       budgets=args.max_new, rate=args.rate)
+    if args.stream == "bursty":
+        return bursty_requests(rng, args.requests, vocab_size,
+                               budgets=args.max_new, rate=args.rate)
     return poisson_requests(rng, args.requests, vocab_size,
                             len_range=(4, 60), budgets=args.max_new,
                             rate=args.rate)
@@ -344,17 +480,34 @@ def main(argv=None):
     engine, done, wall = serve(args)
     if engine is None:  # --dryrun
         return done
+    toks = sum(len(r.tokens_out) for r in done)
+    if args.replicas > 1:
+        st = engine.stats()
+        print(f"serve[fleet]: arch={engine.replicas[0].engine.model.cfg.name}"
+              f" device={args.device} plan={args.plan} "
+              f"replicas={args.replicas} route={args.route} "
+              f"requests={len(done)} shed={st['shed']} tokens={toks} "
+              f"wall={wall*1e3:.0f}ms throughput={toks/wall:.1f}tok/s "
+              f"by_kind={st['by_kind']} "
+              f"prefix_hit_tokens={st['prefix_hit_tokens']}")
+        for p in st["replicas"]:
+            print(f"  replica {p['replica']}: routed={p['routed']} "
+                  f"admitted={p.get('admitted', 0)} "
+                  f"hit_rate={p['prefix_hit_rate']:.2f} "
+                  f"wall={p['wall_s']*1e3:.0f}ms")
+        for req, reason in engine.shed[:3]:
+            print(f"  shed rid={req.rid}: {reason}")
+        return done
     plan = engine.plan
     mesh = "" if plan is None else f" mesh={dict(plan.mesh.shape)}"
     for note in engine.executor.notes:
         print(note)
-    toks = sum(len(r.tokens_out) for r in done)
     lat = sorted((r.t_done - r.t_enqueue) * 1e3 for r in done)
     ttft = sorted((r.t_first_token - r.t_enqueue) * 1e3 for r in done)
     print(f"serve[{args.engine}]: arch={engine.model.cfg.name} "
           f"device={args.device} plan={args.plan}{mesh} "
           f"exact={args.exact} kv_dtype={args.kv_dtype} "
-          f"quant_weights={args.quant_weights} "
+          f"quant_weights={args.quant_weights} disagg={args.disagg or None} "
           f"requests={len(done)} tokens={toks} wall={wall*1e3:.0f}ms "
           f"throughput={toks/wall:.1f}tok/s "
           f"ttft_p50={ttft[len(ttft)//2]:.0f}ms "

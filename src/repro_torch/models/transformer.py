@@ -381,6 +381,26 @@ def cache_map(fn, *trees):
             for k in trees[0]}
 
 
+def paged_cache_map(fn, *trees):
+    """Map ``fn(page_axis, leaf_name, *leaves)`` over the scan/tail arena
+    leaves of paged cache trees.
+
+    Arena leaves ((P, ps, ...) under "tail", (n_rep, P, ps, ...) under
+    "scan") have a *page* axis where dense slot caches have a batch axis;
+    top-level "pos"/"pt" are per-lane and pass through from the first
+    tree.
+    """
+
+    def go(axis, name, *subs):
+        if isinstance(subs[0], dict):
+            return {k: go(axis, k, *[s[k] for s in subs]) for k in subs[0]}
+        return fn(axis, name, *subs)
+
+    return {k: (go(1 if k == "scan" else 0, k, *[t[k] for t in trees])
+                if k in ("scan", "tail") else trees[0][k])
+            for k in trees[0]}
+
+
 def cache_is_quantized(tree) -> bool:
     """Does this (sub)tree hold int8 KV arenas (k_scale planes present)?"""
     if isinstance(tree, dict):

@@ -1,6 +1,6 @@
 """Serving engines: the composition root over the scheduler (host policy),
 the executor (device work) and the KV manager (page pool + radix prefix
-cache).  Port of `repro/serving/engine.py`, single device.
+cache).  Port of `repro/serving/engine.py`.
 
 `ContinuousBatchingEngine` admits into freed lanes between fused decode
 dispatches, over a paged KV arena (bf16 or int8) or over dense slot rows
@@ -23,7 +23,16 @@ under ``exact=False``), speculation included; an exact
 ``mode="serve_pipeline"`` plan streams the dense slot path through its
 stages, and an ``exact=False`` one (the request-skewed throughput
 pipeline) serves from stage-local paged arenas with one lane group per
-stage.  A plan whose axis is 1 wide runs the plain programs.
+stage.  A plan whose axis is 1 wide runs the plain programs on its
+mesh's device.
+
+``disagg=(P, D)`` splits a paged engine into a prefill pool and a decode
+pool: cold admissions prefill on the prefill pool into a staging arena,
+and their pages ship into the decode arena (`executor.ship_pages`).  The
+pools take their devices by `launch/mesh.make_mesh`'s rule (pool device
+i on ``cuda:(i % count)``, so on a one-card host both pools share it;
+all on the CPU for a CPU model), where the reference raises unless the
+host has P + D devices.
 """
 from __future__ import annotations
 
@@ -34,6 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.packing import bucket_len
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.transformer import Model
 from repro_torch.runtime.stragglers import StragglerMonitor
 from repro_torch.serving.executor import PAD_TOKEN, Executor
@@ -171,8 +181,9 @@ class ContinuousBatchingEngine(EngineBase):
     equal plain greedy decoding, also under a ``mode="serve"`` plan.
     Under an ``exact=False`` serve_pipeline plan the arena is stage-local
     (`KVManager(shards=S)`) and the lanes form S groups, one per stage
-    offset of the skewed schedule.  Not ported yet (raises
-    NotImplementedError): disaggregated pools, besides EngineBase's.
+    offset of the skewed schedule.  ``disagg=(P, D)`` (paged, plan-free,
+    no speculation) serves from separate prefill and decode pools
+    (`_init_disagg`).
     """
 
     def __init__(self, *args, paged="auto", page_size: int = 16,
@@ -181,8 +192,8 @@ class ContinuousBatchingEngine(EngineBase):
                  kv_dtype: str = "bf16",
                  spec_config: Optional[dict] = None,
                  disagg: Optional[Tuple[int, int]] = None, **kw):
-        _unported(disagg=disagg is not None)
         super().__init__(*args, **kw)
+        self.disagg = tuple(disagg) if disagg is not None else None
         self.stats.update(admitted=0, completed=0, prefills=0,
                           active_lane_steps=0)
         self._slot_caches = None
@@ -273,6 +284,73 @@ class ContinuousBatchingEngine(EngineBase):
                                    else max_hit_suffix)
             self.stats.update(prefix_hits=0, prefix_hit_tokens=0,
                               preemptions=0, pages_in_use=0, pages_peak=0)
+        if self.disagg is not None:
+            self._init_disagg()
+
+    def _init_disagg(self) -> None:
+        """Disaggregated prefill/decode pools (`disagg=(P, D)`): pool
+        devices [0, P) prefill, [P, P+D) decode, each pool device i on
+        `make_mesh`'s ``cuda:(i % count)`` (every one on the CPU for a
+        CPU model).  The prefill pool owns bucketed prefill and a
+        transient staging arena; completed pages ship into the decode
+        arena (executor.ship_pages) and ownership moves with them.  One
+        radix tree — the decode pool's — spans both: it indexes
+        decode-arena pages only, so a prefix hit admits without touching
+        the prefill pool at all."""
+        p, d = self.disagg
+        if not self.paged:
+            raise ValueError(
+                "disagg needs the paged KV pool: page shipping is the "
+                "ownership-handoff mechanism (dense slot rows have no "
+                "transferable unit)")
+        if self.plan is not None:
+            raise ValueError(
+                "disagg does not compose with a ClusterPlan (the plan "
+                "already owns device placement); pick one")
+        if self.spec:
+            raise ValueError(
+                "disagg does not compose with spec_config (the draft "
+                "arena has no shipping path yet)")
+        if p < 1 or d < 1:
+            raise ValueError(
+                f"disagg={self.disagg}: needs prefill >= 1 and decode >= 1 "
+                "pool devices")
+        mesh = make_mesh((p + d,), ("pool",), device=self.model.device.type)
+        self.executor.set_disagg(mesh.devices[:p], mesh.devices[p:])
+        if mesh.shared_devices():  # for the log, as the plan notes
+            self.executor.notes.append(
+                f"disagg={self.disagg}: {p + d} pool devices on "
+                f"{len(set(mesh.devices))} device(s): the pools share them, "
+                "so the program is the same, the scaling is not")
+        # staging KV: one admission in flight, so max_pages + trash always
+        # covers the export
+        self.kv_prefill = KVManager(self.max_pages + 1, self.page_size, 1,
+                                    self.max_pages)
+        self._prefill_arena = None
+        self.stats.update(shipped_pages=0, shipped_bytes=0,
+                          ship_dispatches=0)
+        # queue split: the radix peek classifies pending requests into the
+        # decode-ingest queue (hit: admits decode-side, zero transfers)
+        # and the prefill queue, and drives the pool-aware occupancy
+        # signals the fleet router reads.  prefill_chunk=max_batch keeps
+        # admission work-conserving: the pools drain one after another
+        # in this process, so throttling colds below free-lane capacity
+        # only delays them; the SJF order alone shields steady short
+        # traffic from a long-prompt burst
+        self.sched.set_disagg(
+            lambda r: self.kv.peek_hit(np.asarray(r.effective_prompt())),
+            prefill_chunk=self.max_batch)
+
+    def hit_stats(self) -> dict:
+        """Prefix-reuse summary with the derived hit rate — the
+        per-replica figure the fleet router aggregates; dense engines
+        report zeros (no radix tree to hit)."""
+        s = self.stats
+        admitted = s.get("admitted", 0)
+        hits = s.get("prefix_hits", 0)
+        return {"admitted": admitted, "prefix_hits": hits,
+                "prefix_hit_tokens": s.get("prefix_hit_tokens", 0),
+                "prefix_hit_rate": hits / admitted if admitted else 0.0}
 
     def kv_page_bytes(self) -> int:
         """Per-device HBM bytes one arena page costs at this engine's
@@ -318,9 +396,12 @@ class ContinuousBatchingEngine(EngineBase):
             logits, small = self._prefill([prompt], 1, bucket_cache=True)
             bucket = bucket_len(len(prompt), self.buckets, lane=8)
             n_wp = min(self.kv.pages_for(bucket), len(grant.pages))
-            ex.admit_cold(st, sl, small, grant.pt_row, len(prompt),
-                          grant.reset, np.asarray(grant.pages[:n_wp],
-                                                  np.int32))
+            if self.disagg is not None:
+                self._ship_cold(st, sl, small, grant, prompt, n_wp)
+            else:
+                ex.admit_cold(st, sl, small, grant.pt_row, len(prompt),
+                              grant.reset, np.asarray(grant.pages[:n_wp],
+                                                      np.int32))
             self.stats["prefills"] += 1
             self.kv.register_prefix(prompt, grant.pages)
             self._first_token(r, int(self._greedy_next(logits)[0]))
@@ -336,6 +417,30 @@ class ContinuousBatchingEngine(EngineBase):
         self.stats["pages_peak"] = max(self.stats["pages_peak"],
                                        self.kv.pages_in_use)
         return True
+
+    def _ship_cold(self, st, sl: int, small, grant, prompt,
+                   n_wp: int) -> None:
+        """The disaggregated ownership handoff for one cold admission.
+
+        The request is prefill-owned while its bucket cache scatters into
+        staging pages of the prefill pool's arena, then decode-owned once
+        `ship_pages` lands those pages in the lane's granted decode pages.
+        admit_hit first sentinels every granted page and points the lane's
+        table row at them, so the shipped page contents (what admit_cold
+        would have written, partial-page sentinel kpos and int8 scale
+        planes included) arrive into the arena state colocated serving
+        would hold."""
+        ex = self.executor
+        src = self.kv_prefill.stage_export(n_wp)
+        self._prefill_arena = ex.prefill_admit(
+            self._prefill_arena, small, src.pt_row, len(prompt), src.reset,
+            np.asarray(src.pages, np.int32))
+        ex.admit_hit(st, sl, grant.pt_row, len(prompt), grant.reset)
+        ex.ship_pages(self._prefill_arena, st, src.pages, grant.pages[:n_wp])
+        self.kv_prefill.finish_export(src.pages)
+        self.stats["ship_dispatches"] += 1
+        self.stats["shipped_pages"] += n_wp
+        self.stats["shipped_bytes"] += n_wp * self.kv_page_bytes()
 
     def _admit_draft(self, r: Request, sl: int, st, grant, prompt) -> None:
         """Bring the lane's draft cache to the target's position: a cold
@@ -451,6 +556,10 @@ class ContinuousBatchingEngine(EngineBase):
             self._draft_slot_caches = self.executor.init_draft_caches(
                 self.page_size, self.kv.draft_pool.num_pages,
                 self.max_pages, self.kv_dtype)
+        if self.disagg is not None and self._prefill_arena is None:
+            self._prefill_arena = self.executor.init_prefill_arena(
+                self.page_size, self.kv_prefill.num_pages, self.max_pages,
+                self.kv_dtype)
         st = self.executor.fresh_state(
             self._slot_caches, self.paged,
             draft_caches=self._draft_slot_caches if self.spec else None)
@@ -514,6 +623,10 @@ class ContinuousBatchingEngine(EngineBase):
 
         if self.paged:
             self.kv.assert_drained()
+            if self.disagg is not None:
+                # exports are transient: every staged page was returned by
+                # finish_export before its admission completed
+                self.kv_prefill.assert_drained()
         self._slot_caches = st["caches"]
         self._draft_slot_caches = st.get("draft_caches")
         return sorted(done, key=lambda r: r.rid)

@@ -35,7 +35,16 @@ plan's `shard_hints.hints` context:
 
 Speculation under a serve plan keeps the draft's params and arena whole
 on the controller (the reference replicates them) and runs the verify
-pass inside the plan's context, per shard.
+pass inside the plan's context, per shard.  A plan whose axis is 1 wide
+runs the plain programs on its mesh's device 0, with the params and
+caches carried there (a fleet replica's device group).
+
+Disaggregated prefill/decode pools (`set_disagg`): bucketed prefill, its
+bucket cache and a batch-1 staging arena live on the prefill pool's
+device with the prefill pool's param copy; the decode arena, the lane
+state and every decode program on the decode pool's.  A cold
+admission's pages cross with `ship_pages`: one batched gather over every
+arena leaf, one copy to the decode device, one batched scatter.
 """
 from __future__ import annotations
 
@@ -56,7 +65,8 @@ from repro_torch.models.quantized import quantize_params_for_serving
 from repro_torch.models.shard_hints import Shards
 from repro_torch.models.transformer import (Model, _index, block_apply,
                                             cache_map, forced_token_update,
-                                            greedy_token_update, layer_plan)
+                                            greedy_token_update, layer_plan,
+                                            paged_cache_map)
 
 PAD_TOKEN = 0  # fed for finished/free lanes; their logits are never read
 
@@ -79,6 +89,23 @@ def _on(tree, dev):
     if isinstance(tree, dict):
         return {k: _on(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+def _all_on(tree, dev) -> bool:
+    if isinstance(tree, dict):
+        return all(_all_on(v, dev) for v in tree.values())
+    return tree.device == dev
+
+
+def _carry(tree, dev):
+    """`tree` itself when every tensor already lies on `dev`, else a copy
+    of it there."""
+    return tree if _all_on(tree, dev) else _on(tree, dev)
+
+
+def _bound(model: Model, dev) -> Model:
+    """`model` bound to `dev` (its cache constructors allocate there)."""
+    return model if model.device == dev else type(model)(model.cfg, dev)
 
 
 class Executor:
@@ -104,10 +131,14 @@ class Executor:
                 self._group = mesh.groups(self._axis)[0]
             else:
                 self._axis = None  # a 1-wide plan: the plain programs
+        self.device = model.device
         if self._axis is not None:
             params = self._place(params, plan.specs_for_params(params))
+        elif plan is not None:  # the plain programs, on the plan's device
+            self.device = plan.mesh.device(0)
+            self.model = _bound(model, self.device)
+            params = _carry(params, self.device)
         self.params = params
-        self.device = model.device
         self.max_batch = max_batch
         self.cache_len = cache_len  # a paged engine re-rounds it to pages
         self.buckets = tuple(sorted(buckets))
@@ -115,6 +146,10 @@ class Executor:
         # speculative decoding (set_draft): the draft model and its params
         self.draft_model = None
         self.draft_params = None
+        # disaggregated pools (set_disagg): the prefill pool's model binding
+        # and param copy (None: prefill runs with the decode programs)
+        self.prefill_model = None
+        self.prefill_params = None
 
     def set_draft(self, draft_model: Model, draft_params) -> None:
         """Install the speculative-decoding draft model; its weights take
@@ -124,10 +159,31 @@ class Executor:
         collective and only the verify pass runs per shard."""
         if self.quant_weights:
             draft_params = quantize_params_for_serving(draft_params)
-        if self._axis is not None:
-            draft_params = _on(draft_params, self.device)
-        self.draft_model = draft_model
-        self.draft_params = draft_params
+        self.draft_model = _bound(draft_model, self.device)
+        self.draft_params = _carry(draft_params, self.device)
+
+    def set_disagg(self, prefill_devs, decode_devs) -> None:
+        """Split the executor across the two pools: prefill (its bucket
+        cache and the staging arena) on ``prefill_devs``, the decode
+        arena, lane state and decode programs on ``decode_devs``.  Each
+        pool holds its own copy of the params, as the reference commits
+        them to both pools; the reference replicates a pool's copy over
+        its devices, so every device of a pool computes the same values
+        and the pool's programs run on its first device.  The only
+        traffic between the pools is `ship_pages`."""
+        if self.plan is not None:
+            raise ValueError("disagg needs plan=None (a plan already owns "
+                             "placement)")
+        pdev, ddev = torch.device(prefill_devs[0]), torch.device(
+            decode_devs[0])
+        self.prefill_model = _bound(self.model, pdev)
+        self.prefill_params = _carry(self.params, pdev)
+        # pages and bytes `ship_pages` has gathered, padding pages
+        # included, the bytes counted off the gathered leaves
+        self.gathered = {"pages": 0, "bytes": 0}
+        self.device = ddev
+        self.model = _bound(self.model, ddev)
+        self.params = _carry(self.params, ddev)
 
     # -- plan placement --------------------------------------------------------
 
@@ -191,8 +247,9 @@ class Executor:
                                  serve_exact=plan.exact,
                                  serve_psum=not plan.exact)
 
-    def _tensor(self, a, dtype=torch.int32) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+    def _tensor(self, a, dtype=torch.int32, device=None) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), dtype=dtype,
+                               device=device or self.device)
 
     # -- cache / state -------------------------------------------------------
 
@@ -213,10 +270,9 @@ class Executor:
                           max_pages: int, kv_dtype: str = "bf16"):
         """The draft model's paged arena (its own page pool), whole on the
         controller under a plan, like its params."""
-        caches = self.draft_model.init_paged_cache(
+        return self.draft_model.init_paged_cache(
             self.max_batch, num_pages, page_size, max_pages,
             kv_dtype=kv_dtype)
-        return caches if self._axis is None else _on(caches, self.device)
 
     def fresh_state(self, caches, paged: bool,
                     draft_caches=None) -> Dict[str, Any]:
@@ -270,8 +326,10 @@ class Executor:
         if placed:
             caches = self.place_caches(caches, False, slot_table=False)
         per = max(1, layers.EXACT_ROWS_MAX // bucket)
-        toks_t, pos_t = self._tensor(toks), self._tensor(pos)
-        last = self._tensor(lengths - 1, torch.long)
+        dev = model.device
+        toks_t, pos_t = self._tensor(toks, device=dev), self._tensor(
+            pos, device=dev)
+        last = self._tensor(lengths - 1, torch.long, device=dev)
         logits = []
         with torch.no_grad(), self._ctx():
             for r0 in range(0, batch, per):
@@ -290,8 +348,11 @@ class Executor:
         V), caches).  bucket_cache=True writes a bucket-sized cache (an
         admission then scatters or inserts it); otherwise the cache spans
         cache_len and is decoded into directly (waves)."""
+        # under disagg every prefill belongs to the prefill pool
+        pooled = self.prefill_model is not None
         logits, caches, bucket = self._prefill(
-            self.model, self.params, prompts, batch,
+            self.prefill_model if pooled else self.model,
+            self.prefill_params if pooled else self.params, prompts, batch,
             None if bucket_cache else self.cache_len)
         if batch == 1 and bucket not in self._warm:
             self._warm.append(bucket)
@@ -585,6 +646,64 @@ class Executor:
         """Scatter a bucket prefill cache into the lane's arena pages."""
         self.model.admit_lane_cache(st["caches"], slot, pt_row, pos0, reset,
                                     small=small, write_pages=write_pages)
+
+    # -- disaggregated page shipping (set_disagg) ------------------------------
+
+    def init_prefill_arena(self, page_size: int, num_pages: int,
+                           max_pages: int, kv_dtype: str = "bf16"):
+        """The prefill pool's staging arena: a batch-1 paged cache on the
+        prefill device.  One admission stages at a time (lane 0), so
+        ``num_pages = max_pages + 1`` (+ the trash page) always covers
+        it."""
+        return self.prefill_model.init_paged_cache(
+            1, num_pages, page_size, max_pages, kv_dtype=kv_dtype)
+
+    def prefill_admit(self, arena, small, pt_row, pos0: int, reset,
+                      write_pages: np.ndarray):
+        """Scatter a bucket prefill cache into the staging arena's pages
+        (admit_cold's scatter at the staging arena's lane 0).  The page
+        contents it writes are what admit_cold would write into the
+        decode arena (an int8 arena quantizes here, before shipping), so
+        disaggregated streams equal colocated serving's bit for bit."""
+        return self.prefill_model.admit_lane_cache(
+            arena, 0, pt_row, pos0, reset, small=small,
+            write_pages=write_pages)
+
+    def ship_pages(self, arena, st, src_pages, dst_pages) -> None:
+        """Ship completed KV pages from the staging arena into the decode
+        arena: one batched gather over every arena leaf (an int8 arena's
+        `k_scale`/`v_scale` planes go with their pages), one copy to the
+        decode device, one batched scatter into the decode caches.  Both
+        index vectors pad to a power of two with the trash page 0: its
+        kpos is the sentinel on both sides (inactive lanes' writes are
+        sentinel-stamped), so a trash-to-trash copy makes no stale key
+        reachable.  Adds the pages and bytes gathered to
+        `self.gathered`, the bytes summed over the gathered leaves."""
+        n = len(src_pages)
+        if n != len(dst_pages) or n == 0:
+            raise ValueError(f"ship_pages: {n} source pages, "
+                             f"{len(dst_pages)} destination pages")
+        n_pad = 1 << (n - 1).bit_length()
+        src = np.zeros((n_pad,), np.int64)
+        src[:n] = src_pages
+        dst = np.zeros((n_pad,), np.int64)
+        dst[:n] = dst_pages
+        src_t = self._tensor(src, torch.long, device=self.prefill_model.device)
+        dst_t = self._tensor(dst, torch.long)
+        with torch.no_grad():
+            blk = paged_cache_map(
+                lambda ax, name, b: b.index_select(ax, src_t),
+                {"scan": arena["scan"], "tail": arena["tail"]})
+            blk = _carry(blk, self.device)  # the hop between the pools
+            moved = []
+            paged_cache_map(lambda ax, name, b: moved.append(
+                b.numel() * b.element_size()), blk)
+            self.gathered["pages"] += n_pad
+            self.gathered["bytes"] += sum(moved)
+            paged_cache_map(
+                lambda ax, name, b, s: b.index_copy_(ax, dst_t, s),
+                {"scan": st["caches"]["scan"],
+                 "tail": st["caches"]["tail"]}, blk)
 
     def admit_lane_paged(self, st, sl: int, tok: int, eos_id: int, bud: int,
                          forced_rest, flen: int) -> None:

@@ -1176,3 +1176,91 @@ def test_gemm_wrapper_refuses_what_it_cannot_run(dev):
         ops.gemm(x, w.cpu())
     with pytest.raises(ValueError, match="w_nk"):
         ops.gemm(x, w.t())
+
+
+# -- the replica fleet and the disaggregated pools on the card ----------------
+
+
+def _reduced_on(dev):
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params, make_model
+    cfg = get_config("smollm-135m").reduced()
+    return cfg, make_model(cfg, device=dev), init_params(cfg, seed=0,
+                                                          device=dev)
+
+
+def _served(target, reqs):
+    from repro_torch.serving.stream import clone_requests
+    for r in clone_requests(reqs):
+        target.submit(r)
+    return {r.rid: tuple(r.tokens_out) for r in target.run()}
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_disagg_engine_equals_colocated_on_card(dev, kv_dtype):
+    """disagg=(1, 1), both pools on the one card: streams equal
+    colocated serving's bit for bit, every cold admission ships once, a
+    replay ships nothing, and the route's kernel launches as often as
+    colocated serving's."""
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+    from repro_torch.serving.stream import bursty_requests
+    cfg, model, params = _reduced_on(dev)
+    kw = dict(max_batch=2, buckets=(32, 64), max_decode_len=8,
+              num_pages=64, page_size=8, kv_dtype=kv_dtype, deadline_s=0.0)
+    reqs = bursty_requests(np.random.default_rng(0), 8, cfg.vocab_size,
+                           short_range=(10, 16), long_range=(40, 56),
+                           burst_every=3, burst_size=2, budgets=(3, 5))
+    kernel = ("paged_flash_decode_q" if kv_dtype == "int8"
+              else "paged_flash_decode")
+    colo = ContinuousBatchingEngine(model, params, **kw)
+    dis = ContinuousBatchingEngine(model, params, disagg=(1, 1), **kw)
+    assert dis.executor.prefill_model.device.type == "cuda"
+    for _ in range(2):  # cold, then a replay of radix hits
+        n0 = ops.launches[kernel]
+        want = _served(colo, reqs)
+        n1 = ops.launches[kernel]
+        ships = dis.stats["ship_dispatches"]
+        assert _served(dis, reqs) == want
+        assert ops.launches[kernel] - n1 == n1 - n0 > 0
+    s = dis.stats
+    assert s["ship_dispatches"] == len(reqs) == ships  # none on the replay
+    assert s["shipped_bytes"] == s["shipped_pages"] * dis.kv_page_bytes()
+    assert s["prefix_hits"] == len(reqs)
+    # the bytes gathered off the staging arena's leaves (padding pages
+    # included): a page of every decode arena leaf, kpos with k and v
+    from repro_torch.models.transformer import paged_cache_map
+    page = []
+    paged_cache_map(lambda ax, name, b: page.append(
+        b.numel() // b.shape[ax] * b.element_size()), dis._slot_caches)
+    gathered = dis.executor.gathered
+    assert s["shipped_pages"] <= gathered["pages"] < 2 * s["shipped_pages"]
+    assert gathered["bytes"] == gathered["pages"] * sum(page)
+
+
+def test_two_replica_fleet_equals_plain_engine_on_card(dev):
+    """A 2-replica affinity fleet on cuda:0, plan-free and under 1x1 serve
+    plans on [cuda:0, cuda:0] groups: streams equal the plain engine's."""
+    from repro_torch.core.cluster_builder import build_plan
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+    from repro_torch.serving.replica import (make_group_mesh,
+                                             replica_device_groups)
+    from repro_torch.serving.router import FleetConfig, build_fleet
+    from repro_torch.serving.stream import multi_prefix_requests
+    cfg, model, params = _reduced_on(dev)
+    kw = dict(max_batch=2, buckets=(16, 32, 64), num_pages=64,
+              deadline_s=0.0)
+    reqs = multi_prefix_requests(np.random.default_rng(1), 12,
+                                 cfg.vocab_size, n_prefixes=2,
+                                 prefix_len=24, suffix_range=(2, 6),
+                                 budgets=(3, 7))
+    want = _served(ContinuousBatchingEngine(model, params, **kw), reqs)
+    config = FleetConfig(rebalance_margin=10_000)
+    groups = replica_device_groups(2, 1, devices=["cuda:0", "cuda:0"])
+    plans = [build_plan(cfg, make_group_mesh(g, (1, 1), ("data", "model")),
+                        mode="serve") for g in groups]
+    for p in (None, plans):
+        fleet = build_fleet(model, params, 2, plans=p, config=config, **kw)
+        assert _served(fleet, reqs) == want
+        assert fleet.stats()["prefix_hits"] == 10
+        assert all(r.engine.executor.device.type == "cuda"
+                   for r in fleet.replicas)

@@ -101,10 +101,12 @@ def test_engine_matches_jax_engine(models, kind, num_pages):
 def test_engine_refuses_unported_options(models):
     _, _, tm, tp = models
     # int8 KV pages, dense slots (paged=False), speculation (spec_config),
-    # W8A8 weights (quant_weights) and serve plans (plan) are ported
-    # since; their refusals left this list (tests/test_torch_dense_serving
-    # .py, tests/test_torch_spec_decode.py, tests/test_torch_quantized.py;
-    # what plans still refuse, tests/test_torch_sharded_serving.py)
+    # W8A8 weights (quant_weights), serve plans (plan) and disaggregated
+    # pools (disagg) are ported since; their refusals left this list
+    # (tests/test_torch_dense_serving.py, tests/test_torch_spec_decode.py,
+    # tests/test_torch_quantized.py, tests/test_torch_disagg_serving.py;
+    # what plans still refuse, tests/test_torch_sharded_serving.py), so
+    # the engine no longer raises NotImplementedError for any of them
     for kw in ({"disagg": (1, 1)},):
-        with pytest.raises(NotImplementedError):
-            TorchEngine(tm, tp, max_batch=2, buckets=(16,), **kw)
+        eng = TorchEngine(tm, tp, max_batch=2, buckets=(16,), **kw)
+        assert eng.disagg == (1, 1) and eng.kv_prefill is not None
