@@ -182,14 +182,29 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    (deadline_s=0) so that every engine takes the same decode steps: the
    disaggregated split queues' shortest-first order does not run here
    (tests/test_torch_disagg_serving.py holds it on the CPU);
-15. fitted: the reduced fits behind the card-vs-CPU stream gates of
+15. plansearch: the plan search (core/plan_search.py) for smollm-135m
+   under the H100 table (roofline/analysis.py) at 1, 2 and 4 devices of
+   the card's memory (torch's total_memory): candidates, frontier,
+   choice and its predicted tok/s, TTFT and HBM share; the devices-2
+   choice served through `serve.serve` with --plan auto --traffic (16
+   Poisson requests, budget 32, FIFO admission): every request
+   finishes, the engines carry the choice's replica count, page size
+   and KV dtype, the streams equal one plain engine's (--plan none, the
+   same pages and weights) token for token, and paged_flash_decode_q
+   launches 30 a decode step summed over the replicas; then the
+   reference's two-point calibration on one replica's executor (fused
+   decode at n = 1 and 8, one batch-1 prefill at the largest bucket),
+   t_step, t_dispatch, t_prefill, `predict_engine_tok_s` beside the
+   measured tok/s and PREDICTION_BAND, logged with the card's name and
+   power limit (no gate: all finite);
+16. fitted: the reduced fits behind the card-vs-CPU stream gates of
    phases 10-12 (FITTED_GATES: musicgen-medium, minitron-8b, paged;
    recurrentgemma-2b, xlstm-1.3b, dense slot rows; moonshot-v1-16b-a3b,
    llama4-maverick-400b-a17b, paged), each fitted on the card with
    fit_affine_lm (Model.loss backward through its blocks) by a worker
    process (this script with --fit-worker) that runs beside phases
-   10-14, then each gated card vs CPU at token match 1.0 (gate_phase);
-16. encode: the integer I-BERT encoder (ibert-base at full width, 12
+   10-15, then each gated card vs CPU at token match 1.0 (gate_phase);
+17. encode: the integer I-BERT encoder (ibert-base at full width, 12
    layers, random float weights from seed 0, calibrated at batch 1, seq
    128) through `repro_torch.launch.ibert_encoder`: one forward must
    launch exactly 72 / 12 / 24 / 12 int8_matmul / i_softmax / i_layernorm
@@ -198,13 +213,13 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    tests/test_ibert_model.py's bounds, 12 within the reference's own
    12-layer error on these weights); then one forward under
    torch.profiler, and the entry point's time at seq 1, 8, 32, 64, 128;
-17. summary: a JSON line of the kernels (the decode kernels' launches
+18. summary: a JSON line of the kernels (the decode kernels' launches
    include the gate's, the spec phase's, the families', the recurrent
-   phase's, the moe phase's, the plans phase's, the fleet phase's and
-   the fitted phase's;
+   phase's, the moe phase's, the plans phase's, the fleet phase's, the
+   plansearch phase's and the fitted phase's;
    row_norm's are the serve phases' and the families', recurrent, MoE,
-   plans and fleet models' served streams; gemm's the serve phases' and
-   the plans and fleet phases' streams; int8_matmul's the encoder's and recurrentgemma's W8A8
+   plans, fleet and plansearch models' served streams; gemm's the serve
+   phases' and the plans, fleet and plansearch phases' streams; int8_matmul's the encoder's and recurrentgemma's W8A8
    stream), then the device line.
 
 Each phase logs its wall seconds ("phase ...").
@@ -232,6 +247,7 @@ from repro_torch.core.cluster_builder import build_plan  # noqa: E402
 from repro_torch.core import ibert_ops, quant  # noqa: E402
 from repro_torch.core.latency_model import (  # noqa: E402
     pipeline_ticks_per_step)
+from repro_torch.core import plan_search  # noqa: E402
 from repro_torch.core.packing import bucket_len  # noqa: E402
 from repro_torch.core.quant import QTensor  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
@@ -244,6 +260,7 @@ from repro_torch.models.quantized import (  # noqa: E402
     is_quantized, quantize_leaf)
 from repro_torch.models.transformer import (  # noqa: E402
     init_params, make_model, paged_cache_map)
+from repro_torch.roofline import analysis  # noqa: E402
 from repro_torch.serving import replica, router  # noqa: E402
 from repro_torch.serving.engine import (  # noqa: E402
     ContinuousBatchingEngine, Request)
@@ -252,12 +269,13 @@ from repro_torch.serving.stream import (  # noqa: E402
     bursty_requests, clone_requests, multi_prefix_requests)
 
 SENTINEL = 2 ** 30
-# published peaks of one H100 SXM at 700 W (NVIDIA data sheet, dense): HBM
-# bytes/s, f32 flop/s outside the tensor cores, int8 tensor-core ops/s.
-# int32 ALU ops are bounded by the f32 rate (the card has no more int32
-# lanes than f32 lanes), which keeps their bound a lower bound.
-HBM_BYTES_S, F32_FLOP_S, INT8_OPS_S = 3.35e12, 67e12, 1979e12
-BF16_FLOP_S = 989e12  # the dense bf16 tensor-core rate
+# published peaks of one H100 SXM at 700 W (roofline/analysis.py, NVIDIA's
+# data sheet, dense): HBM bytes/s, f32 flop/s outside the tensor cores,
+# int8 tensor-core ops/s, the bf16 tensor-core rate.  int32 ALU ops are
+# bounded by the f32 rate (the card has no more int32 lanes than f32
+# lanes), which keeps their bound a lower bound.
+HBM_BYTES_S, F32_FLOP_S = analysis.HBM_BW, analysis.PEAK_FLOPS_F32
+INT8_OPS_S, BF16_FLOP_S = analysis.PEAK_FLOPS_INT8, analysis.PEAK_FLOPS_BF16
 # int32 operations per element of the I-BERT nonlinearities (the max and
 # sum reductions included), for their operations bound
 IBERT_OPS_PER_ELEM = {"i_softmax": 16, "i_layernorm": 10, "i_gelu": 12}
@@ -356,7 +374,7 @@ FLEET_B = 4
 FLEET_MARGIN = 10_000
 # the fitted phase: (arch, Adam steps, cache kind) of each reduced fit
 # gated card vs CPU.  The fits (~250 s on a quick host, ~360 s on a slow
-# one) run in a worker process beside phases 10-14, so they add little
+# one) run in a worker process beside phases 10-15, so they add little
 # to the script's time.  The sLSTM's sequential scan makes an xlstm step
 # ~3x a recurrentgemma one on the card (122 s and 41 s for 1,000 steps
 # on an H100 80GB HBM3 at 700 W), so xlstm takes fewer
@@ -377,6 +395,14 @@ INT8_DECODER_SHAPES = ((8, 2560, 7680), (8, 7680, 2560), (128, 2560, 7680),
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
 
 
 def require(cond: bool, msg: str) -> None:
@@ -3305,6 +3331,173 @@ def fleet_phase(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# plan search
+# ---------------------------------------------------------------------------
+
+
+def _calibrate(eng, reps: int = 3, ns=(1, 8)):
+    """The two-point decode calibration (the reference's
+    `benchmarks/run.py` `_calibrate_engine`) on one engine's executor:
+    its fused n-step dispatch timed at n = 1 and 8 on probe caches (the
+    serving caches untouched), and one batch-1 prefill at the largest
+    bucket."""
+    ex = eng.executor
+    pargs = ((eng.page_size, eng.kv.num_pages, eng.max_pages,
+              eng.kv_dtype) if eng.paged else ())
+    st = ex.fresh_state(ex.init_caches(eng.paged, *pargs), eng.paged)
+    t = {}
+    for n in ns:
+        ex.decode(st, n, eng.paged).cpu()  # warm
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            ex.decode(st, n, eng.paged).cpu()
+            ts.append(time.perf_counter() - t0)
+        t[n] = float(np.median(ts))
+    log(f"plansearch calibration probes: fused decode n={ns[0]} "
+        f"{t[ns[0]] * 1e3:.4f} ms, n={ns[1]} {t[ns[1]] * 1e3:.4f} ms "
+        f"(median of {reps})")
+    prompt = [[1] * (max(eng.buckets) - 1)]
+    ex.prefill_prompts(prompt, 1, bucket_cache=True)
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        ex.prefill_prompts(prompt, 1, bucket_cache=True)
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    return plan_search.DeviceCalibration.from_two_point(
+        t[ns[0]], ns[0], t[ns[1]], ns[1], t_prefill=float(np.median(ts)))
+
+
+def _served_pass(argv, what: str, **engine_kw) -> dict:
+    """serve.serve on argv, the launch counts set to 0 just before and
+    read just after: paged_flash_decode_q must launch once per layer per
+    decode step summed over the engines, the other attention kernels
+    never.  Returns the engines, streams, launches, tokens and wall."""
+    args = serve_cli.parse_args(argv)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    target, done, wall = serve_cli.serve(args, **engine_kw)
+    torch.cuda.synchronize()
+    got = dict(ops.launches)
+    engines = _engines(target)
+    steps = sum(e.stats["decode_steps"] for e in engines)
+    cfg = engines[0].model.cfg
+    require(len(done) == args.requests
+            and all(r.done and (len(r.tokens_out) == r.max_new_tokens
+                                or r.tokens_out[-1] == r.eos_id)
+                    for r in done),
+            f"{what}: a request did not finish its budget")
+    k2 = "paged_flash_decode_q"
+    want = {k: cfg.n_layers * steps if k == k2 else 0 for k in ATTN_KERNELS}
+    have = {k: got[k] for k in ATTN_KERNELS}
+    require(steps > 0 and have == want,
+            f"{what}: launches {have} != {want}")
+    toks = sum(len(r.tokens_out) for r in done)
+    log(f"{what}: engines={len(engines)} requests={len(done)} tokens={toks}"
+        f" wall_s={wall:.4f} tok_s={toks / wall:.1f} decode_steps={steps} "
+        f"{k2}_launches={got[k2]} (= {cfg.n_layers} x {steps}) "
+        f"row_norm_launches={got['row_norm']} gemm_launches={got['gemm']}")
+    return dict(args=args, engines=engines, done=done, wall=wall, toks=toks,
+                streams={r.rid: tuple(r.tokens_out) for r in done},
+                launches={k: got[k] for k in ATTN_KERNELS
+                          + ("row_norm", "gemm")})
+
+
+def plansearch_phase(dev) -> dict:
+    """The plan search (core/plan_search.py) for smollm-135m under the
+    H100 table at 1, 2 and 4 devices of the card's memory, then the
+    devices-2 choice served through `serve.serve` (--plan auto
+    --traffic), gated against one plain engine, then the reference's
+    two-point calibration and its prediction beside the measured tok/s.
+    Returns the launches of the served streams."""
+    card = _card()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    hbm_gb = total / (1 << 30)
+    log(f"plansearch: {card}; total_memory {total} B = {hbm_gb:.6f} GiB "
+        f"(plan_search.CARD_HBM_BYTES {plan_search.CARD_HBM_BYTES}); "
+        f"HardwareModel {dataclasses.asdict(plan_search.HardwareModel())}")
+    cfg = get_config("smollm-135m")
+    t0 = time.perf_counter()
+    costs = plan_search.block_costs(cfg)
+    log(f"plansearch block_costs (fake-tensor count, host): "
+        f"{time.perf_counter() - t0:.1f} s {dataclasses.asdict(costs)}")
+    results = {}
+    for n in (1, 2, 4):
+        prof = plan_search.TrafficProfile(name=f"devices{n}", devices=n,
+                                          hbm_gb=hbm_gb)
+        res = results[n] = plan_search.search(cfg, prof)
+        ch = res.chosen
+        require(ch is not None, f"plansearch devices={n}: nothing feasible")
+        log(f"plansearch devices={n}: {len(res.scores)} candidates, "
+            f"{res.n_feasible} feasible, frontier "
+            f"{[s.key for s in res.frontier]}; chosen {ch.key} "
+            f"pred_tok_s={ch.tok_s:.3f} pred_ttft_ms={ch.ttft_ms:.4f} "
+            f"pred_hbm_frac={ch.hbm_frac:.6f}")
+    choice = results[2].chosen
+    cand = choice.cand
+    fd, path = tempfile.mkstemp(suffix=".json", prefix="plansearch_")
+    with os.fdopen(fd, "w") as f:
+        json.dump(results[2].profile.to_dict(), f)
+    try:
+        base = ["--requests", "16", "--max-new", "32"]
+        # FIFO admission, as the fleet phase: each request takes the same
+        # path and decode steps in both engines
+        auto = _served_pass(base + ["--plan", "auto", "--traffic", path],
+                            "plansearch --plan auto", deadline_s=0.0)
+    finally:
+        os.unlink(path)
+    require(auto["args"].chosen.key == choice.key,
+            f"plansearch: the CLI chose {auto['args'].chosen.key}, the "
+            f"search {choice.key}")
+    engines = auto["engines"]
+    require(len(engines) == choice.replicas
+            and all(e.paged and e.page_size == cand.page_size
+                    and e.kv_dtype == cand.kv_dtype
+                    and e.executor.device.type == "cuda" for e in engines),
+            f"plansearch: engines "
+            f"{[(e.page_size, e.kv_dtype) for e in engines]} do not carry "
+            f"the choice {choice.key}")
+    plain = _served_pass(base + ["--plan", "none", "--page-size",
+                                 str(cand.page_size), "--kv-dtype",
+                                 cand.kv_dtype]
+                         + (["--quant-weights"] if cand.quant_weights
+                            else []),
+                         "plansearch plain engine", deadline_s=0.0)
+    require(auto["streams"] == plain["streams"],
+            "plansearch: the chosen plan's streams part from the plain "
+            "engine's")
+    calib = _calibrate(engines[0])
+    done = auto["done"]
+    measured = auto["toks"] / auto["wall"]
+    # the replicas share one card and one host thread: the stream costs
+    # what one engine of their lanes serving all of it costs
+    pred = plan_search.predict_engine_tok_s(
+        calib, n_requests=len(done), total_tokens=auto["toks"],
+        prompt_tokens=sum(len(r.prompt) for r in done),
+        max_batch=engines[0].max_batch,
+        horizon=engines[0].sched.decode_horizon)
+    ratio = pred / measured
+    nums = (calib.t_step_s, calib.t_dispatch_s, calib.t_prefill_s, pred,
+            measured, ratio)
+    require(all(np.isfinite(v) for v in nums),
+            f"plansearch: calibration or prediction not finite {nums}")
+    log(f"plansearch calibration ({card}; one replica of {choice.key}, "
+        f"B={engines[0].max_batch}): t_step_ms={calib.t_step_s * 1e3:.4f} "
+        f"t_dispatch_ms={calib.t_dispatch_s * 1e3:.4f} "
+        f"t_prefill_ms={calib.t_prefill_s * 1e3:.4f} (bucket "
+        f"{max(engines[0].buckets)}); predict_engine_tok_s={pred:.2f} "
+        f"measured_tok_s={measured:.2f} ratio={ratio:.4f} in "
+        f"PREDICTION_BAND {plan_search.PREDICTION_BAND}: "
+        f"{plan_search.prediction_ratio_ok(ratio)}; the search's own "
+        f"pred_tok_s for the declared profile={choice.tok_s:.3f}")
+    torch.cuda.empty_cache()
+    return {k: auto["launches"][k] + plain["launches"][k]
+            for k in auto["launches"]}
+
+
+# ---------------------------------------------------------------------------
 # the MoE families
 # ---------------------------------------------------------------------------
 
@@ -3771,11 +3964,7 @@ def kernels_phase(dev) -> dict:
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip()
-    log(smi)
+    log(_card())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)}; bounds use H100 SXM peaks: "
         f"{HBM_BYTES_S:.3g} B/s, {F32_FLOP_S:.3g} flop/s (f32), "
@@ -3818,7 +4007,7 @@ def main() -> None:
     gated = timed("gate", lambda: [gate_phase(*fits["target"], k)
                                    for k in ("paged", "dense", "int8")])
     gated.append(timed("spec", lambda: spec_phase(dev, fits)))
-    worker = FitWorker()  # the reduced fits, beside phases 10-14
+    worker = FitWorker()  # the reduced fits, beside phases 10-15
     try:
         main_rest(dev, main_shape, fa_launches, served, gated, worker)
     finally:
@@ -3827,7 +4016,7 @@ def main() -> None:
 
 def main_rest(dev, main_shape, fa_launches, served, gated,
               worker: FitWorker) -> None:
-    """Phases 10-17, the fit worker running until the fitted phase."""
+    """Phases 10-18, the fit worker running until the fitted phase."""
     family = timed("families", lambda: families_phase(dev))
     gated.append(family)
     recurrent = timed("recurrent", lambda: recurrent_phase(dev))
@@ -3838,15 +4027,17 @@ def main_rest(dev, main_shape, fa_launches, served, gated,
     gated.append(plans)
     fleet = timed("fleet", lambda: fleet_phase(dev))
     gated.append(fleet)
+    searched = timed("plansearch", lambda: plansearch_phase(dev))
+    gated.append(searched)
     gated.append(timed("fitted", lambda: fitted_phase(dev, worker)))
     launches = {k: sum(s["launches"] for s in served if s["kernel"] == k)
                 + sum(g.get(k, 0) for g in gated) for k in DECODE_KERNELS}
     launches["row_norm"] = (sum(s["row_norm"] for s in served)
                             + family["row_norm"] + recurrent["row_norm"]
                             + moe_launches["row_norm"] + plans["row_norm"]
-                            + fleet["row_norm"])
+                            + fleet["row_norm"] + searched["row_norm"])
     launches["gemm"] = (sum(s["gemm"] for s in served) + plans["gemm"]
-                        + fleet["gemm"])
+                        + fleet["gemm"] + searched["gemm"])
     launches.update(timed("encode", encode_phase))
     launches["int8_matmul"] += recurrent["int8_matmul"]
     launches["flash_attention"] = fa_launches

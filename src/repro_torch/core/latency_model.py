@@ -7,14 +7,19 @@
   d : inter-cluster network hop (switch) latency
   L : number of serially-connected encoder clusters
 
-The port's copy of the part of `repro.core.latency_model` that
-`launch/ibert_encoder.py` uses to print the 12-encoder estimate, and the
-serving pipelines' tick accounting (`serving/executor.py`: the drained
-schedule's 2S - 1 stage-passes a step, the request-skewed one's S).
+The paper measures X, T, I (packet interval) per sequence length on the
+6-FPGA proof-of-concept (Table 1), then projects the 72-FPGA full model
+(Table 2) and the Versal variant (§9, X ~= 0.53 T).  The port's copy of
+`repro.core.latency_model`: `launch/ibert_encoder.py` prints the
+12-encoder estimate with it, the serving pipelines count their ticks
+with it (`serving/executor.py`: the drained schedule's 2S - 1
+stage-passes a step, the request-skewed one's S), and `core/plan_search`
+prices pipeline prefill fill with Eq. 1.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Dict, Sequence
 
 
 @dataclass(frozen=True)
@@ -22,11 +27,27 @@ class StageTiming:
     T: float  # per-stage total latency (s)
     X: float  # time-to-first-output (s)
     d: float  # inter-stage hop latency (s)
+    I: float = 0.0  # steady-state output interval (s)
 
 
 def total_latency(t: StageTiming, n_stages: int) -> float:
     """Eq. 1."""
     return t.T + (n_stages - 1) * (t.X + t.d)
+
+
+def throughput(t: StageTiming, items_per_stage_pass: int = 1) -> float:
+    """Steady-state items/s: the pipeline drains at the slowest stage rate
+    (paper §8.2.3: 'overall throughput should be the same as the layers with
+    the lowest throughput')."""
+    return items_per_stage_pass / max(t.T, 1e-12)
+
+
+def fit_x_fraction(x_values: Sequence[float], t_values: Sequence[float]
+                   ) -> float:
+    """X as a fraction of T (the paper's §9 uses X ~= 0.53 T at seq 128)."""
+    num = sum(x * t for x, t in zip(x_values, t_values))
+    den = sum(t * t for t in t_values)
+    return num / max(den, 1e-12)
 
 
 def pipeline_bubble_fraction(n_micro: int, n_stages: int) -> float:
@@ -53,3 +74,13 @@ def decode_step_latency(t_stage: float, n_stages: int, d: float,
     (a single-token step emits its output only when the stage finishes),
     scaled by the schedule's ticks a step."""
     return pipeline_ticks_per_step(n_stages, exact) * (t_stage + d)
+
+
+def estimate_table2(t_by_seq: Dict[int, float], x_by_seq: Dict[int, float],
+                    d: float, n_stages: int) -> Dict[int, float]:
+    """Reproduce the structure of the paper's Table 2 from measured T/X."""
+    return {
+        s: total_latency(StageTiming(T=t_by_seq[s], X=x_by_seq[s], d=d),
+                         n_stages)
+        for s in t_by_seq
+    }

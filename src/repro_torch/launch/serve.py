@@ -36,6 +36,18 @@ int8), whose streams stay bit for bit one device's.
 `--dryrun` prints the chosen plan's per-leaf shardings (params + serving
 cache) and exits, allocating nothing.
 
+`--plan auto` searches the plans (core/plan_search.py: TP width, stage
+depth, exactness, page size, KV dtype, W8A8 weights, replica count and
+disaggregated pools, priced by a cost model against the H100's peaks)
+for the `--traffic <profile.json>` profile (default: the built-in one),
+prints the Pareto frontier and the `chosen:` line, and serves the choice:
+its plan, page size, KV dtype, W8A8 and exactness, and, under
+`--replicas 0` (the default), its replica count, a fleet with a
+per-replica mesh.  A choice the port does not serve yet raises the
+engine's refusal; the CLI never serves another candidate instead.
+`--plan auto --dryrun` realizes the choice on an abstract mesh and
+prints its shardings.  `--no-plan` is `--plan none`.
+
 `--replicas N` serves a fleet of N engines behind the prefix-affinity
 router (serving/router.py; `--route`, `--shed-depth`, `--shed-budget`);
 under a plan, `--mesh` is one replica's mesh and the replicas take
@@ -77,6 +89,10 @@ it stops with an error instead of falling back to the CPU.
       --replicas 2 --stream shared-prefix
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \\
       --plan none --disagg 1:1 --stream bursty
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \\
+      --plan auto --traffic profile.json
+  PYTHONPATH=src python -m repro_torch.launch.serve --plan auto \\
+      --traffic profile.json --dryrun
 """
 from __future__ import annotations
 
@@ -166,13 +182,24 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--warmup", action="store_true",
                     help="first serve, unmeasured, a stream drawn from "
                          "seed + 1")
-    ap.add_argument("--plan", choices=["none", "serve", "serve_pipeline"],
+    ap.add_argument("--plan",
+                    choices=["none", "serve", "serve_pipeline", "auto"],
                     default="serve",
                     help="Cluster-Builder placement: serve (kv-head-sharded "
                          "paged serving over a (data, model) mesh), "
                          "serve_pipeline (the layer stack over a stage "
                          "axis: dense slot rows, or stage-local paged "
-                         "arenas under --no-exact) or none")
+                         "arenas under --no-exact), none, or auto (the "
+                         "cost-model search over TP width, stage depth, "
+                         "exactness, paging, W8A8 and replicas for the "
+                         "--traffic profile)")
+    ap.add_argument("--traffic", default="",
+                    help="traffic-profile JSON for --plan auto (arrival "
+                         "rate, prompt/output mix, device and HBM budget; "
+                         "the fields of core/plan_search.TrafficProfile); "
+                         "default: the built-in profile")
+    ap.add_argument("--no-plan", action="store_true",
+                    help="alias for --plan none")
     ap.add_argument("--mesh", default="",
                     help="mesh shape: 1,3 for (data, model), or 6 for the "
                          "serve_pipeline stage axis; default: the visible "
@@ -201,7 +228,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "  Needs the paged cb engine under --plan none")
     ap.add_argument("--replicas", type=int, default=0,
                     help="serve a fleet of N engine replicas behind the "
-                         "prefix-affinity router; 0 (default) = 1.  With a "
+                         "prefix-affinity router; 0 (default) = the search's "
+                         "replica count under --plan auto, else 1.  With a "
                          "plan, --mesh is per replica and the replicas take "
                          "disjoint device groups (card i mod the host's "
                          "count)")
@@ -221,7 +249,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda",
                     help="torch device; cpu runs the kernels' plain "
                          "PyTorch versions")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.no_plan:
+        args.plan = "none"
+    return args
 
 
 def _mesh_shape(spec: str, plan_mode: str, n_dev: int,
@@ -333,6 +364,64 @@ def _print_shardings(title: str, specs, shapes, plan=None) -> None:
     walk(specs, shapes)
 
 
+def _print_pareto(cfg, result) -> None:
+    """The search's dump: profile, frontier table (chosen starred), and,
+    when nothing is feasible, the pruning reasons."""
+    prof = result.profile
+    print(f"plan auto-search: arch={cfg.name} profile={prof.name} "
+          f"(rate={prof.arrival_rate:g}/s prompt~{prof.prompt_mean:g} "
+          f"out~{prof.output_mean:g} devices={prof.devices} "
+          f"hbm={prof.hbm_gb:g}GB max_batch={prof.max_batch})")
+    print(f"  {len(result.scores)} candidates, {result.n_feasible} "
+          f"feasible, {len(result.frontier)} on the Pareto frontier "
+          "(max tok/s, min ttft, min hbm):")
+    print(f"  {'candidate':<38} {'tok/s':>9} {'ttft_ms':>9} "
+          f"{'hbm':>5} {'lanes':>5} {'repl':>4}")
+    for s in result.frontier:
+        mark = "*" if result.chosen and s.key == result.chosen.key else " "
+        print(f" {mark}{s.key:<38} {s.tok_s:>9.0f} {s.ttft_ms:>9.3f} "
+              f"{s.hbm_frac:>5.2f} {s.lanes:>5d} {s.replicas:>4d}")
+    if result.chosen is not None:
+        print(f"  chosen: {result.chosen.key}")
+    else:
+        reasons = {}
+        for s in result.scores:
+            if not s.feasible:
+                reasons[s.reason] = reasons.get(s.reason, 0) + 1
+        for rsn, n in sorted(reasons.items()):
+            print(f"  infeasible x{n}: {rsn}")
+
+
+def auto_plan(args: argparse.Namespace, cfg):
+    """--plan auto: search the plans for the --traffic profile, print the
+    frontier, and carry the choice onto ``args`` (plan mode, exactness,
+    page size, KV dtype, W8A8; a disaggregated choice as --disagg P:D
+    under --plan none, as `plan_search.realize` says to deploy it).
+    Returns the chosen Score."""
+    from repro_torch.core.plan_search import TrafficProfile, search
+    profile = (TrafficProfile.from_json(args.traffic) if args.traffic
+               else TrafficProfile())
+    result = search(cfg, profile)
+    _print_pareto(cfg, result)
+    if result.chosen is None:
+        raise SystemExit(
+            "serve: plan auto-search found no feasible candidate for "
+            "this traffic profile (pruning reasons above); raise "
+            "hbm_gb/devices or quantize")
+    cand = result.chosen.cand
+    if cand.paged and args.engine != "cb":
+        raise SystemExit("serve: the auto-chosen plan serves from the "
+                         "paged pool; drop --engine wave")
+    args.plan, args.exact = cand.mode, cand.exact
+    if cand.paged:
+        args.page_size, args.kv_dtype = cand.page_size, cand.kv_dtype
+    args.quant_weights = args.quant_weights or cand.quant_weights
+    if cand.disagg_prefill and not args.dryrun:
+        args.plan = "none"
+        args.disagg = f"{cand.disagg_prefill}:{cand.disagg_decode}"
+    return result.chosen
+
+
 def _dryrun(cfg, plan, paged: bool, engine_kw) -> None:
     """Spec-only plan inspection: every leaf on the meta device (shapes,
     no storage)."""
@@ -357,12 +446,14 @@ def _dryrun(cfg, plan, paged: bool, engine_kw) -> None:
                      cache_specs, cache_shape, plan=plan)
 
 
-def serve(args: argparse.Namespace, paged="auto"):
+def serve(args: argparse.Namespace, paged="auto", **engine_kw):
     """Build the model and engine (or, with --replicas > 1, the fleet
     router), serve the stream; returns (engine or router, finished
     requests, wall seconds of the measured pass).  `paged` goes to the cb
-    engine (False: dense slot rows).  With --dryrun, prints the plan's
-    shardings and returns (None, [], 0.0)."""
+    engine (False: dense slot rows), `engine_kw` (e.g. deadline_s) to
+    every engine.  Under --plan auto, ``args`` leaves with the choice
+    carried onto it and the chosen Score as ``args.chosen``.  With
+    --dryrun, prints the plan's shardings and returns (None, [], 0.0)."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("serve: no CUDA device is available; pass "
@@ -374,13 +465,31 @@ def serve(args: argparse.Namespace, paged="auto"):
         raise SystemExit(
             "serve: --kv-dtype int8 needs the continuous-batching engine "
             "(the wave baseline decodes dense slot rows); drop --engine wave")
-    args.replicas = args.replicas or 1  # 0 = 1 (no --plan auto yet)
+    chosen = args.chosen = (auto_plan(args, cfg) if args.plan == "auto"
+                            else None)
+    # 0: the search's replica count under --plan auto, else 1
+    if args.replicas == 0:
+        args.replicas = chosen.replicas if chosen is not None else 1
     if args.replicas > 1 and args.engine != "cb":
         raise SystemExit("serve: --replicas > 1 serves a fleet of "
                          "continuous-batching engines; drop --engine wave")
     fleet = args.replicas > 1 and not args.dryrun
+    if chosen is not None and not args.mesh:
+        cand = chosen.cand
+        if fleet:  # per-replica mesh: each engine gets its device group
+            args.mesh = (f"1,{cand.tp}" if cand.mode == "serve"
+                         else str(cand.stages))
+        else:
+            args.mesh = (f"{chosen.replicas},{cand.tp}"
+                         if cand.mode == "serve" else str(cand.stages))
     plans = None
-    if fleet and args.plan != "none":
+    if chosen is not None and args.dryrun and args.plan != "none":
+        # spec inspection needs no devices: the choice realized on an
+        # abstract mesh of its own shape (profile.devices may differ from
+        # this host's)
+        from repro_torch.core.plan_search import realize
+        plan = realize(cfg, chosen)
+    elif fleet and args.plan != "none":
         plans = fleet_plans(args, cfg)
         plan = plans[0]  # representative: replicas differ only in devices
     else:
@@ -418,7 +527,17 @@ def serve(args: argparse.Namespace, paged="auto"):
     warm = make_stream(args, cfg.vocab_size, args.seed + 1) \
         if args.warmup else []
     stream = make_stream(args, cfg.vocab_size, args.seed)
-    kw.update(max_batch=args.max_batch, monitor=StragglerMonitor(),
+    max_batch = args.max_batch
+    if (plan is not None and plan.mode == "serve_pipeline"
+            and not plan.exact and args.engine == "cb"):
+        n_stages = plan.mesh.shape["stage"]
+        if max_batch % n_stages:
+            max_batch = -(-max_batch // n_stages) * n_stages
+            print(f"serve: request-skewed pipeline needs one lane group "
+                  f"per stage; max_batch {args.max_batch} -> {max_batch} "
+                  f"({n_stages} stages)")
+    kw.update(engine_kw)
+    kw.update(max_batch=max_batch, monitor=StragglerMonitor(),
               buckets=stream_buckets(warm + stream),
               decode_horizon=args.decode_horizon,
               quant_weights=args.quant_weights)

@@ -55,11 +55,17 @@ __all__ = ["ContinuousBatchingEngine", "WaveEngine", "EngineBase",
            "Request", "PAD_TOKEN"]
 
 
+class PlanRefused(NotImplementedError, ValueError):
+    """A plan the port does not serve yet (ROADMAP.md §1 item 1): a
+    ValueError of the plan given, and a NotImplementedError of the port."""
+
+
 def _unported(**options) -> None:
     bad = [k for k, v in options.items() if v]
     if bad:
-        raise NotImplementedError(
-            f"not ported yet: {', '.join(bad)} (see ROADMAP.md, port queue)")
+        raise PlanRefused(
+            f"not ported yet: {', '.join(bad)} (ROADMAP.md §1 item 1, what "
+            "the serve plans still refuse)")
 
 
 def plan_cuts(plan) -> bool:
@@ -73,7 +79,7 @@ def plan_cuts(plan) -> bool:
 
 
 def _check_plan(plan, cfg, quant_weights: bool, buckets=()) -> None:
-    """What the port's plans do not take yet (ROADMAP.md §1 item 2c), and
+    """What the port's plans do not take yet (ROADMAP.md §1 item 1), and
     a tensor-parallel plan's prefill longer than the K-ordered products
     run (one request at its bucket: max(buckets) rows)."""
     if plan is None:
@@ -109,9 +115,9 @@ class EngineBase:
     the tail layers: for recurrentgemma-2b its two tail MLPs, which then
     run through `int8_matmul`; for smollm-135m and the other
     attention-only families every projection is stacked over layers (3-d),
-    so nothing changes.  Not ported yet (raises NotImplementedError): a
-    ClusterPlan that cuts a recurrent or MoE family, and W8A8 weights
-    under a plan that cuts."""
+    so nothing changes.  Not ported yet (raises `PlanRefused`, a
+    NotImplementedError and a ValueError): a ClusterPlan that cuts a
+    recurrent or MoE family, and W8A8 weights under a plan that cuts."""
 
     def __init__(self, model: Model, params, max_batch: int = 8,
                  buckets=(32, 64, 128, 256), deadline_s: float = 0.05,

@@ -1264,3 +1264,35 @@ def test_two_replica_fleet_equals_plain_engine_on_card(dev):
         assert fleet.stats()["prefix_hits"] == 10
         assert all(r.engine.executor.device.type == "cuda"
                    for r in fleet.replicas)
+
+
+def test_plan_auto_equals_plain_engine_on_card(dev, tmp_path):
+    """serve.serve with --plan auto on a devices-2 profile: the choice's
+    two replicas on the one card, int8 pages of 8, each stream equal to
+    one plain engine's on the same pages (FIFO admission), and
+    paged_flash_decode_q launched once a layer a decode step."""
+    import json
+    from repro_torch.launch import serve as serve_cli
+    path = tmp_path / "profile.json"
+    path.write_text(json.dumps({"devices": 2, "hbm_gb": 80.0}))
+    base = ["--reduced", "--requests", "8", "--max-new", "6"]
+
+    def served(argv):
+        args = serve_cli.parse_args(base + argv)
+        n0 = ops.launches["paged_flash_decode_q"]
+        target, done, _ = serve_cli.serve(args, deadline_s=0.0)
+        engines = ([r.engine for r in target.replicas]
+                   if hasattr(target, "replicas") else [target])
+        steps = sum(e.stats["decode_steps"] for e in engines)
+        assert ops.launches["paged_flash_decode_q"] - n0 == \
+            engines[0].model.cfg.n_layers * steps > 0
+        assert all(e.executor.device.type == "cuda" for e in engines)
+        return args, engines, {r.rid: tuple(r.tokens_out) for r in done}
+
+    args, engines, got = served(["--plan", "auto", "--traffic", str(path)])
+    assert args.chosen.key == "serve.tp1.r2.exact.kv=ps8.int8.w=int8"
+    assert len(engines) == 2
+    assert all(e.page_size == 8 and e.kv_dtype == "int8" for e in engines)
+    _, _, want = served(["--plan", "none", "--page-size", "8",
+                         "--kv-dtype", "int8", "--quant-weights"])
+    assert got == want

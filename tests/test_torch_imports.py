@@ -50,7 +50,9 @@ def test_every_port_module_is_walked():
                  "repro_torch.core.ibert_ops",
                  "repro_torch.launch.ibert_encoder",
                  "repro_torch.serving.wave", "repro_torch.core.quant",
-                 "repro_torch.configs.phi3_medium_14b"):
+                 "repro_torch.configs.phi3_medium_14b",
+                 "repro_torch.core.plan_search",
+                 "repro_torch.roofline.op_cost"):
         assert want in names
 
 
