@@ -13,7 +13,8 @@ callers keep scales on the CPU (the I-BERT model does).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -55,6 +56,45 @@ GEMM_BK = 64
 GEMM_MAX_SPLIT = 8
 
 
+# row_norm's geometry, as csrc/row_norm.cu's kSlots and kMaxBlock (a CPU
+# test holds them equal): a thread holds at most ROW_NORM_SLOTS 16-byte
+# vectors of its row in registers, a row takes at most ROW_NORM_MAX_THREADS
+# threads, and a block ROW_NORM_BLOCK threads where its rows are narrower
+ROW_NORM_SLOTS = 4
+ROW_NORM_MAX_THREADS = 512
+ROW_NORM_BLOCK = 256
+
+
+class RowNormGeometry(NamedTuple):
+    vec: int         # values in a 16-byte vector: 8 bf16 or 4 f32
+    threads: int     # threads a row, a power of two
+    slots: int       # vectors a thread: t, t + threads, t + 2 threads, ...
+    block_rows: int  # rows a block
+
+
+@functools.lru_cache(maxsize=None)
+def row_norm_geometry(d: int, dtype: torch.dtype) -> RowNormGeometry:
+    """The row_norm kernel's geometry at width d in x's dtype (bf16 or
+    float32), a function of (d, dtype) alone, so a row's order of sums,
+    and its bits, are too: the fewest threads (a power of two, at most
+    ROW_NORM_MAX_THREADS) at which each holds at most ROW_NORM_SLOTS of
+    the row's ceil(d / vec) vectors, and at least one thread a vector up
+    to a warp (a narrow row's sums are then a tree over the warp's lanes,
+    not a chain in one thread); past ROW_NORM_MAX_THREADS, more slots a
+    thread, walked in chunks of ROW_NORM_SLOTS.  `ref.row_norm_schedule`
+    repeats the kernel's order over it."""
+    if dtype not in (torch.bfloat16, torch.float32) or d < 1:
+        raise ValueError(f"row_norm: no geometry for d {d} in {dtype}")
+    vec = 16 // (2 if dtype == torch.bfloat16 else 4)
+    nvec = -(-d // vec)
+    threads = 1
+    while threads < ROW_NORM_MAX_THREADS and (
+            threads * ROW_NORM_SLOTS < nvec or threads < min(32, nvec)):
+        threads *= 2
+    return RowNormGeometry(vec, threads, -(-nvec // threads),
+                           max(1, ROW_NORM_BLOCK // threads))
+
+
 def gemm_split(k: int) -> tuple:
     """(K tiles a block, blocks a cluster) of the gemm kernel at this K:
     rank r of the cluster sums tiles [r per, (r + 1) per) in order, and
@@ -79,7 +119,7 @@ _SIGNATURES = {
     "i_softmax": ("i_softmax", [_P, _P, _I, _I, _F, _P]),
     "i_layernorm": ("i_layernorm", [_P] * 4 + [_I, _I, _P]),
     "i_gelu": ("i_gelu", [_P, _P, ctypes.c_longlong, _F, _P]),
-    "row_norm": ("row_norm", [_P] * 4 + [_I, _I, _F, _I, _P]),
+    "row_norm": ("row_norm", [_P] * 4 + [_I, _I, _F] + [_I] * 4 + [_P]),
     "gemm": ("gemm_bf16", [_P] * 3 + [_I] * 5 + [_P]),
 }
 
@@ -555,9 +595,11 @@ def _row_norm_launch(x: torch.Tensor, g: torch.Tensor,
     _check_cuda(name, dtypes, **tensors)
     out = torch.empty_like(x2)
     if out.numel():
+        geo = row_norm_geometry(d, x.dtype)
         _launch(name, x.device, x2.data_ptr(), g.data_ptr(),
                 None if b is None else b.data_ptr(), out.data_ptr(),
-                x2.shape[0], d, float(eps), int(x.dtype == torch.bfloat16))
+                x2.shape[0], d, float(eps), int(x.dtype == torch.bfloat16),
+                geo.threads, geo.slots, geo.block_rows)
     return out.view(x.shape)
 
 
@@ -594,7 +636,8 @@ def row_norm(x: torch.Tensor, g: torch.Tensor,
     in f32, returned in x's dtype: `kernels/ref.py` rmsnorm and layernorm.
 
     x: (..., D) bf16 or f32; g, b: (D,) f32.  On the card the kernel sums
-    each row in an order fixed by D alone, so a row gives the same bits
+    each row in an order fixed by (D, dtype) alone (`row_norm_geometry`;
+    `ref.row_norm_schedule` repeats it), so a row gives the same bits
     in a tensor of any row count (a speculative verify pass and a decode
     step); x is taken contiguous (one copy first where it is not), g and
     b contiguous on x's device.  Differentiable: under autograd the

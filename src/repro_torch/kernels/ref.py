@@ -24,7 +24,8 @@ docstring): unscaled q, the scale applied to the f32 score.
 
 `rmsnorm` and `layernorm` are the model's norms as the JAX package
 writes them in plain jnp (`repro/models/layers.py`), and the function of
-the port-only `row_norm` kernel.
+the port-only `row_norm` kernel; `row_norm_schedule` is the same function
+in that kernel's order of sums (for the tests and chip_smoke.py only).
 """
 from __future__ import annotations
 
@@ -202,3 +203,58 @@ def layernorm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     var = xf.var(dim=-1, keepdim=True, unbiased=False)
     y = (xf - mu) * torch.rsqrt(var + eps) * g + b
     return y.to(x.dtype)
+
+
+def row_norm_schedule(x: torch.Tensor, g: torch.Tensor,
+                      b: Optional[torch.Tensor] = None,
+                      eps: float = 1e-6) -> torch.Tensor:
+    """rmsnorm (b None) or layernorm in the row_norm kernel's exact order
+    (csrc/row_norm.cu), over `ops.row_norm_geometry(D, x.dtype)`: value e
+    of thread t's slot i is column (i * threads + t) * vec + e; a slot's
+    vec values are added as a pairwise tree, a thread's slot trees in slot
+    order from +0, the threads' sums by the xor butterfly over the row's
+    lanes of a warp, then the warps' sums in warp order.  Only elementwise
+    f32 adds and multiplies, IEEE sqrt and division (tensor by tensor: a
+    CUDA tensor divided by a scalar is multiplied by its reciprocal), so
+    it gives the kernel's bits on the CPU and on the card.  Not on the
+    main path: the card tests and chip_smoke.py hold the kernel to it."""
+    from repro_torch.kernels.ops import row_norm_geometry
+
+    d = x.shape[-1]
+    geo = row_norm_geometry(d, x.dtype)
+    vec, th, slots = geo.vec, geo.threads, geo.slots
+    xf = x.reshape(-1, d).float()
+    n, width = xf.shape[0], slots * th * vec
+    xp = torch.zeros((n, width), dtype=torch.float32, device=x.device)
+    xp[:, :d] = xf
+    inside = torch.arange(width, device=x.device) < d
+    lane = torch.arange(th, device=x.device)
+
+    def row_sum(f):  # f: (n, width), zeros outside the row
+        v = f.view(n, slots, th, vec)
+        while v.shape[-1] > 1:
+            v = v[..., 0::2] + v[..., 1::2]
+        acc = torch.zeros((n, th), dtype=torch.float32, device=x.device)
+        for i in range(slots):
+            acc = acc + v[:, i, :, 0]
+        o = min(th, 32) // 2
+        while o:
+            acc = acc + acc[:, lane ^ o]
+            o //= 2
+        tot = acc[:, 0]
+        for w in range(1, th // 32):
+            tot = tot + acc[:, 32 * w]
+        return tot[:, None]
+
+    fd = torch.full((n, 1), float(d), dtype=torch.float32, device=x.device)
+    one = torch.ones_like(fd)
+    if b is None:
+        r = one / torch.sqrt(row_sum(xp * xp) / fd + eps)
+        y = (xf * r) * g
+    else:
+        mu = row_sum(xp) / fd
+        c = xp - mu
+        r = one / torch.sqrt(row_sum(torch.where(inside, c * c, 0.0)) / fd
+                             + eps)
+        y = ((xf - mu) * r) * g + b
+    return y.to(x.dtype).view(x.shape)

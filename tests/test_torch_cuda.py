@@ -916,13 +916,17 @@ def test_spec_engine_matches_plain_engine_on_card(dev, kv_dtype):
 # ---------------------------------------------------------------------------
 # row_norm: the port-only rmsnorm / layernorm kernel against its plain
 # version, at the widths of the served families (64: reduced; 576, 896,
-# 1536, 4096, 7168: smollm-135m, internvl2-1b, musicgen-medium,
-# minitron-8b, deepseek-coder-33b) and the row counts of a lane, a decode
-# step, a verify pass and a long prompt.  Limits: a bf16 output within
-# one bf16 ulp of the plain one, an f32 one within 1e-6 of itself;
-# layernorm adds 1e-6 of the row's largest |output| (x - mu cancels near
-# the mean).  And bit for bit: a row's output does not depend on the
-# row count of its launch.
+# 1536, 2048, 2560, 4096, 5120, 7168: smollm-135m, internvl2-1b,
+# musicgen-medium, moonshot-v1-16b-a3b and xlstm-1.3b, recurrentgemma-2b,
+# minitron-8b, llama4-maverick-400b-a17b, deepseek-coder-33b), at widths
+# that fill no whole 16-byte vector (7, 100: the kernel's scalar loads),
+# past what a row's registers hold (20000, and 10001 unaligned: the row
+# walked in chunks) and the row counts of a lane, a decode step, a verify
+# pass and a long prompt.  Limits: a bf16 output within one bf16 ulp of the plain one, an
+# f32 one within 1e-6 of itself; layernorm adds 1e-6 of the row's largest
+# |output| (x - mu cancels near the mean).  And bit for bit: the kernel
+# equals its order of sums in torch (`ref.row_norm_schedule`), and a
+# row's output does not depend on the row count of its launch.
 # ---------------------------------------------------------------------------
 
 ROW_NORM_ROWS = (1, 8, 40, 4096)
@@ -941,7 +945,8 @@ def _row_norm_close(out, want, layer):
     assert bool((diff <= limit).all()), f"max_abs_err {diff.max().item()}"
 
 
-@pytest.mark.parametrize("d", [64, 576, 896, 1536, 4096, 7168])
+@pytest.mark.parametrize("d", [64, 576, 896, 1536, 2048, 2560, 4096, 5120,
+                               7168, 7, 100, 20000, 10001])
 @pytest.mark.parametrize("layer", [False, True])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_row_norm_kernel_matches_plain(dev, d, layer, dtype):
@@ -959,8 +964,11 @@ def test_row_norm_kernel_matches_plain(dev, d, layer, dtype):
         assert ops.launches["row_norm"] == n0 + 1
         want = (ref.layernorm(x[:rows], g, b) if layer
                 else ref.rmsnorm(x[:rows], g))
+        sched = ref.row_norm_schedule(x[:rows], g, b)
         torch.cuda.synchronize()
         _row_norm_close(outs[rows], want, layer)
+        assert torch.equal(outs[rows], sched), (
+            rows, int((outs[rows] != sched).sum()))
     # row-count invariance, bit for bit
     for small, big in zip(ROW_NORM_ROWS, ROW_NORM_ROWS[1:]):
         assert torch.equal(outs[small], outs[big][:small]), (small, big)
@@ -986,6 +994,15 @@ def test_row_norm_kernel_takes_any_row_layout(dev, layer):
     shifted = flat[1:].view(x.shape)
     shifted.copy_(x)
     assert torch.equal(ops.row_norm(shifted, g, b), whole)
+    # g (and b) one element into their buffers: the scalar loads
+    gs = torch.empty(577, dtype=torch.float32, device=dev)[1:]
+    gs.copy_(g)
+    bs = None
+    if layer:
+        bs = torch.empty(577, dtype=torch.float32, device=dev)[1:]
+        bs.copy_(b)
+    assert torch.equal(ops.row_norm(x, gs, bs), whole)
+    assert torch.equal(whole, ref.row_norm_schedule(x, g, b))
 
 
 def test_row_norm_gradient_is_the_plain_versions(dev):

@@ -8,8 +8,10 @@ share, expert reads); with `--gemm`, the gemm kernel's shapes first
 (trees that have it); with `--host`, the host time of one launch of the
 decode step's products and norms (wrapper against the library call, at
 smollm-135m's shapes, 2,000 back to back: the host, not the card, bounds
-them); with `--quick`, the serve phase alone.  Two trees compared in one
-call, on one card:
+them); with `--quick`, the serve phase alone; with `--row-norm`, the
+tree's row-norm kernel phase alone (every width and row count, checked,
+bf16 timed beside the plain version and F.rms_norm / F.layer_norm).  Two
+trees compared in one call, on one card:
 
     python tools/route_times.py _parent && python tools/route_times.py . \
         && python tools/route_times.py . && python tools/route_times.py _parent
@@ -93,6 +95,11 @@ def main() -> None:
         del flush
     if "--host" in sys.argv:
         host_phase(cs)
+    if "--row-norm" in sys.argv:
+        flush = torch.empty(256 * 2 ** 20, dtype=torch.int32, device=dev)
+        cs.timed("row_norm", lambda: cs.row_norm_phase(dev, flush))
+        cs.log(f"route_times: tree {root} done")
+        return
     cs.timed("serve", lambda: cs.serve_phase("poisson", 16))
     if "--quick" in sys.argv:
         cs.log(f"route_times: tree {root} done")
