@@ -110,7 +110,12 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    through the dense-slot cb engine at full depth (recurrentgemma with
    bf16 and with W8A8 weights), exact flash_decode, int8_matmul and
    row_norm launch counts, 8 fused decode steps under torch.profiler
-   (their reduced fits gated in the fitted phase);
+   (their reduced fits gated in the fitted phase); then xlstm-1.3b x48
+   on 6 drained serve_pipeline stages, B 12 (`family_pipeline`: tokens
+   and last-step logits equal to Model.decode_steps, d = 0, ticks
+   8 x pipeline_steps(6, 6), row_norm and gemm launches one device's
+   scaled per microbatch; recurrentgemma-2b's 2-layer tail takes no
+   stage);
 12. moe: moonshot-v1-16b-a3b (64 experts top-6, 2 shared) and
    llama4-maverick-400b-a17b (a dense layer, then 128 experts top-1 and
    1 shared) at full width on random weights: card vs CPU (paged) on 2
@@ -127,7 +132,13 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    one group at its own capacity and parts where it drops a pair), d = 0
    required on the rows with no drop; 8 fused decode steps profiled (the
    expert products' share of device time and their bytes against the
-   bound) (their reduced fits gated in the fitted phase);
+   bound) (their reduced fits gated in the fitted phase); then moonshot
+   x48 on 6 serve_pipeline stages at B 12, drained on dense slot rows
+   and request-skewed on a paged bf16 arena (lane groups of 2), on the
+   phase's weights: tokens and last-step logits equal to
+   Model.decode_steps (d = 0), ticks, and flash_decode / paged_flash_decode
+   48 x 6 launches a step (`family_pipeline`; llama4's one period takes
+   no 6 stages);
 13. plans: the multi-device serve plans on the single-controller mesh,
    every shard on the one card (shards share it, so this checks the
    program and its contract, not multi-card scaling): the GMI
@@ -221,7 +232,9 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    plansearch phase's and the fitted phase's;
    row_norm's are the serve phases' and the families', recurrent, MoE,
    plans, fleet and plansearch models' served streams; gemm's the serve
-   phases' and the plans, fleet and plansearch phases' streams; int8_matmul's the encoder's and recurrentgemma's W8A8
+   phases' and the plans, fleet and plansearch phases' streams and the
+   recurrent and moe phases' pipelines; int8_matmul's the encoder's and
+   recurrentgemma's W8A8
    stream), then the device line.
 
 Each phase logs its wall seconds ("phase ...").
@@ -261,7 +274,7 @@ from repro_torch.models import moe, synthetic  # noqa: E402
 from repro_torch.models.quantized import (  # noqa: E402
     is_quantized, quantize_leaf)
 from repro_torch.models.transformer import (  # noqa: E402
-    init_params, make_model, paged_cache_map)
+    init_params, layer_plan, make_model, paged_cache_map)
 from repro_torch.roofline import analysis  # noqa: E402
 from repro_torch.serving import replica, router  # noqa: E402
 from repro_torch.serving.engine import (  # noqa: E402
@@ -1212,18 +1225,24 @@ def profile_phase(dev) -> None:
         f"{wall_us / 1e3 / max(steps, 1):.3f}")
 
 
-def _counted(fn, want: dict, what: str):
-    """fn() with the launch counts set to 0 just before and read just
-    after: each attention kernel must have launched want.get(name, 0)
-    times.  Returns (fn's result, wall seconds to a synchronize, the
-    counts read)."""
+def _launched(fn) -> tuple:
+    """fn() with every launch count set to 0 just before and read just
+    after: (fn's result, wall seconds to a synchronize, the counts)."""
     torch.cuda.synchronize()
     ops.reset_launches()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    got = {k: ops.launches[k] for k in ATTN_KERNELS}
+    return out, time.perf_counter() - t0, dict(ops.launches)
+
+
+def _counted(fn, want: dict, what: str):
+    """fn() with the launch counts set to 0 just before and read just
+    after: each attention kernel must have launched want.get(name, 0)
+    times.  Returns (fn's result, wall seconds to a synchronize, the
+    counts read)."""
+    out, wall, got = _launched(fn)
+    got = {k: got[k] for k in ATTN_KERNELS}
     need = {k: want.get(k, 0) for k in ATTN_KERNELS}
     require(got == need, f"{what}: launches {got} != {need}")
     return out, wall, got
@@ -2206,14 +2225,171 @@ def _recurrent_profile(model, params) -> None:
         f"device_ops={len(spans)}")
 
 
+def _dense_state(ex, cfg, b: int, seed: int) -> dict:
+    """A dense-slot decode state of `b` admitted lanes (prompts of 5 + 7i
+    tokens, budget 64) on a drained-pipeline executor."""
+    st = ex.fresh_state(ex.init_caches(False), paged=False)
+    rng = np.random.default_rng(seed)
+    for sl in range(b):
+        p = rng.integers(0, cfg.vocab_size, 5 + 7 * sl).astype(np.int32)
+        lg, small = ex.prefill_prompts([p], 1, bucket_cache=True)
+        st["caches"] = ex.insert(st["caches"], small, sl)
+        ex.admit_lane(st, sl, int(lg[0].argmax()), -1, 64)
+    return st
+
+
+def _stage_rows_probe(model, params, st, what: str) -> None:
+    """The hazard a stage's rows meet, on the first layer period of an
+    admitted dense state: each block on lanes 2-3 of the 12 (a stage's
+    microbatch), its input the 12-lane call's output at those rows, run
+    as the rows alone (cuBLAS's products at 2 rows) and at one device's
+    12 lanes (`block_apply`'s ``lanes``), each against the 12-lane call
+    at those rows.  The rows alone are logged; ``lanes`` must give d =
+    0."""
+    from repro_torch.models.transformer import _index, block_apply
+    cfg, rows = model.cfg, slice(2, 4)
+    caches = _whole(st["caches"])
+    pp, pc = _index(params["scan"], 0), _index(caches["scan"], 0)
+    act, pos = st["active"], caches["pos"][:, None]
+    h = model.embed_inputs(params, tokens=st["cur"][:, None])
+    b, parts = h.shape[0], []
+    with torch.no_grad():
+        for j in range(len(pp)):
+            def run(x, state, sl, lanes=None):
+                return block_apply(cfg, j, pp[f"b{j}"], x, pos[sl], None,
+                                   {k: v.clone() for k, v in state.items()},
+                                   active=act[sl], lanes=lanes)[0]
+            whole = slice(0, b)
+            out = run(h, pc[f"b{j}"], whole)
+            full = out[rows].float()
+            alone = run(h[rows], {k: v[rows] for k, v in pc[f"b{j}"].items()},
+                        rows)
+            lanes = run(h[rows], pc[f"b{j}"], rows, (rows, b))
+            d_alone = (alone.float() - full).abs().max().item()
+            d_lanes = (lanes.float() - full).abs().max().item()
+            parts.append(f"{cfg.block_kind(j)} {d_alone:.4g} / {d_lanes:g}")
+            require(d_lanes == 0, f"{what}: block {j} on a stage's rows at "
+                    f"{b} lanes parts from the {b}-lane call by {d_lanes:.4g}")
+            h = out
+    log(f"{what}: period 0's blocks on 2 of {b} lanes against the "
+        f"full call, max |d| rows alone / at one device's lanes: "
+        + "; ".join(parts))
+
+
+def family_pipeline(model, params, skewed: bool) -> dict:
+    """A recurrent or MoE model at full width on PLAN_STAGES stages of a
+    serve_pipeline plan (every stage on the card; its blocks are views of
+    the weights the phase already holds), B = PLAN_SKEW_B: drained on
+    dense slot rows (6 microbatches of 2 lanes), or request-skewed on a
+    paged bf16 arena (6 lane groups of 2; odd lanes with forced-token
+    queues).  On one admitted state the loop's tokens and each lane's
+    last-step logits equal `Model.decode_steps`' on the whole state bit
+    for bit (d = 0); ticks steps x pipeline_steps(6, 6), or steps x 6 + 5;
+    every kernel's launches the one-device run's a step, scaled: drained,
+    the layers' x 6 and the final norm's and head's once (on all 12
+    rows); skewed, all x 6 (the head runs per lane group).  One fused
+    step of each profiled (wall ms and device ops a step beside one
+    device's); a MoE model's expert bytes a step logged.  Returns the
+    kernels' launches."""
+    from repro_torch.core.pipeline import pipeline_steps
+    cfg, b, steps, n = model.cfg, PLAN_SKEW_B, 8, PLAN_STAGES
+    plan = build_plan(cfg, make_mesh((n,), ("stage",)),
+                      mode="serve_pipeline", exact=not skewed)
+    what = (f"pipeline {cfg.name} x{cfg.n_layers} {n} "
+            + ("skewed stages, paged bf16" if skewed
+               else "drained stages, dense slots") + f" (B={b})")
+    if skewed:
+        ex = Executor(model, params, max_batch=b, cache_len=16 * 12,
+                      buckets=serve_cli.BUCKETS, plan=plan)
+        st = _skew_state(model, ex, b, 16, 12, 15)
+        kw = dict(forced=st["forced"], forced_len=st["flen"])
+    else:
+        ex = Executor(model, params, max_batch=b, cache_len=176,
+                      buckets=serve_cli.BUCKETS, plan=plan)
+        st = _dense_state(ex, cfg, b, 13)
+        kw = {}
+        _stage_rows_probe(model, params, st, what)
+    per = layer_plan(cfg)[0] // n
+    for blk in st["caches"]["scan"].values():
+        for name, leaf in blk.items():
+            require([t.shape[0] for t in leaf] == [per] * n,
+                    f"{what}: {name} stage blocks "
+                    f"{[t.shape[0] for t in leaf]}")
+
+    def one(k, caches):
+        extra = dict(kw, forced_ptr=st["fptr"].clone()) if skewed else {}
+        with torch.no_grad():
+            return model.decode_steps(
+                params, caches, st["cur"].clone(), st["active"].clone(), k,
+                eos_id=st["eos"], budget=st["budget"].clone(), pad_token=0,
+                **extra)
+
+    want, one_wall, one_n = _launched(lambda: one(steps, _whole(
+        st["caches"])))
+    pre = one(steps - 1, _whole(st["caches"]))
+    with torch.no_grad():
+        want_logits, _ = model.decode_step(params, pre[-1], pre[1],
+                                           active=pre[2])
+    del pre
+    t0 = ex.pipeline_ticks
+    got, wall, got_n = _launched(lambda: ex.decode(st, steps, paged=skewed))
+    require(torch.equal(got, want[0]), f"{what}: tokens part from "
+            "Model.decode_steps")
+    d = (ex.logits - want_logits).abs().max().item()
+    require(d == 0, f"{what}: last-step logits part from Model."
+            f"decode_steps by {d:.4g}")
+    ticks = ex.pipeline_ticks - t0
+    want_ticks = (steps * n + n - 1 if skewed
+                  else steps * pipeline_steps(n, n))
+    require(ticks == want_ticks, f"{what}: {ticks} ticks != {want_ticks}")
+    heads = {"row_norm": 1, "gemm": 1}  # the final norm and the head
+    need = {}
+    for k, c in one_n.items():
+        require(c % steps == 0, f"{what}: one device's {k} launches {c} "
+                f"over {steps} steps")
+        per, head = c // steps, heads.get(k, 0) if c else 0
+        need[k] = steps * (per * n if skewed else (per - head) * n + head)
+    require(got_n == need, f"{what}: launches {got_n} != {need}")
+    kernel = "paged_flash_decode" if skewed else "flash_decode"
+    extra = ""
+    if cfg.n_experts:
+        n_moe = sum(map(cfg.is_moe_layer, range(cfg.n_layers)))
+        nbytes = n_moe * cfg.n_experts * cfg.ffn_params() * 2
+        extra = (f" expert_bytes_per_step={n * nbytes} (= {n} x {nbytes}, "
+                 f"one device's: every {'lane group' if skewed else 'micro'}"
+                 f"{'' if skewed else 'batch'}'s MoE call reads every "
+                 "expert, the dense dispatch)")
+    log(f"{what}: {steps} fused steps equal Model.decode_steps bit for bit "
+        f"(tokens; last-step logits d = {d:g}); ticks {ticks}; launches a "
+        f"step {kernel}={got_n.get(kernel, 0) // steps} row_norm="
+        f"{got_n['row_norm'] // steps} gemm={got_n['gemm'] // steps} (one "
+        f"device: {one_n.get(kernel, 0) // steps}, "
+        f"{one_n['row_norm'] // steps}, {one_n['gemm'] // steps}); "
+        f"wall_ms_per_step={wall * 1e3 / steps:.2f} (one device "
+        f"{one_wall * 1e3 / steps:.2f}){extra}")
+    _route_profile(f"{what}, 1 fused step",
+                   lambda: ex.decode(st, 1, paged=skewed), 1)
+    whole = _whole(st["caches"])
+    _route_profile(f"{what}: its state on one device, 1 fused step",
+                   lambda: one(1, whole), 1)
+    return {k: v for k, v in got_n.items() if v}
+
+
 def recurrent_phase(dev) -> dict:
     """recurrentgemma-2b and xlstm-1.3b on the card at full width on
     init_params weights (seed 0): card vs CPU on one period of layers
     (model_phase, dense slot rows); served at full depth through the
     dense-slot cb engine (recurrentgemma with bf16 and W8A8 weights),
-    with exact launch counts; 8 fused decode steps profiled.  Returns
-    flash_decode's, int8_matmul's and row_norm's launches."""
-    launches = {"flash_decode": 0, "int8_matmul": 0, "row_norm": 0}
+    with exact launch counts; 8 fused decode steps profiled; xlstm on 6
+    drained pipeline stages (`family_pipeline`).  Returns flash_decode's,
+    int8_matmul's, row_norm's and the pipeline's gemm launches."""
+    launches = {"flash_decode": 0, "int8_matmul": 0, "row_norm": 0,
+                "gemm": 0}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
     for i, (arch, cut) in enumerate(RECURRENT_CUT.items()):
         t0 = time.perf_counter()
         cfg = get_config(arch)
@@ -2245,6 +2421,9 @@ def recurrent_phase(dev) -> dict:
             for k, v in recurrent_serve(model, params, i, quant).items():
                 launches[k] += v
         _recurrent_profile(model, params)
+        if layer_plan(cfg)[1] == 0:  # recurrentgemma's tail takes no stage
+            _plan_step(f"recurrent pipeline {arch} drained", lambda: add(
+                family_pipeline(model, params, skewed=False)))
         del model, params
         torch.cuda.empty_cache()
         log(f"recurrent {arch}: {time.perf_counter() - t0:.1f} s")
@@ -2617,13 +2796,7 @@ def _plan_pipeline(model, params, launches: dict) -> None:
     what = f"plans serve_pipeline {cfg.name} x{cfg.n_layers} {PLAN_STAGES} stages"
     ex = Executor(model, params, max_batch=b, cache_len=176,
                   buckets=serve_cli.BUCKETS, plan=plan)
-    st = ex.fresh_state(ex.init_caches(False), paged=False)
-    rng = np.random.default_rng(13)
-    for sl in range(b):
-        p = rng.integers(0, cfg.vocab_size, 5 + 7 * sl).astype(np.int32)
-        lg, small = ex.prefill_prompts([p], 1, bucket_cache=True)
-        st["caches"] = ex.insert(st["caches"], small, sl)
-        ex.admit_lane(st, sl, int(lg[0].argmax()), -1, 64)
+    st = _dense_state(ex, cfg, b, 13)
     k = st["caches"]["scan"]["b0"]["k"]
     require([t.shape[0] for t in k] == [cfg.n_layers // PLAN_STAGES] * b,
             f"{what}: stage blocks {[t.shape[0] for t in k]}")
@@ -3743,8 +3916,16 @@ def moe_phase(dev) -> dict:
     (moonshot at all 48 layers, llama4 at its 2-layer period) with exact
     launch counts; one verify block against its chained decode steps,
     logged, d = 0 required on its clean rows; 8 fused decode steps
-    profiled.  Returns paged_flash_decode's and row_norm's launches."""
-    launches = {"paged_flash_decode": 0, "row_norm": 0}
+    profiled; moonshot on 6 drained and 6 skewed pipeline stages
+    (`family_pipeline`).  Returns the decode kernels', row_norm's and the
+    pipelines' gemm launches."""
+    launches = {"paged_flash_decode": 0, "row_norm": 0, "flash_decode": 0,
+                "gemm": 0}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
     torch.cuda.empty_cache()
     log(f"moe: card memory allocated before the phase "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB (peak so far "
@@ -3785,6 +3966,12 @@ def moe_phase(dev) -> dict:
         require(v["d_clean"] == 0, f"moe {arch}: a verify row with no "
                 "dropped pair parts from the chained decode steps")
         _moe_profile(model, params)
+        if layer_plan(cut)[0] % PLAN_STAGES == 0:  # not llama4's one period
+            for skewed in (False, True):
+                _plan_step(f"moe pipeline {arch} "
+                           f"{'skewed' if skewed else 'drained'}",
+                           lambda: add(family_pipeline(model, params,
+                                                       skewed)))
         del model, params
         torch.cuda.empty_cache()
         log(f"moe {arch}: {time.perf_counter() - t0:.1f} s; card peak "
@@ -4060,7 +4247,8 @@ def main_rest(dev, main_shape, fa_launches, served, gated,
                             + moe_launches["row_norm"] + plans["row_norm"]
                             + fleet["row_norm"] + searched["row_norm"])
     launches["gemm"] = (sum(s["gemm"] for s in served) + plans["gemm"]
-                        + fleet["gemm"] + searched["gemm"])
+                        + fleet["gemm"] + searched["gemm"] + recurrent["gemm"]
+                        + moe_launches["gemm"])
     launches.update(timed("encode", encode_phase))
     launches["int8_matmul"] += recurrent["int8_matmul"]
     launches["flash_attention"] = fa_launches

@@ -25,14 +25,18 @@ a card on a smaller host):
   --plan serve_pipeline  the layer stack cut over a `stage` mesh axis,
                          decode microbatches streamed through the stages
                          (the paper's 6-FPGA encoder pipeline), on dense
-                         slot rows
+                         slot rows; every family whose layer periods
+                         divide the stages (xlstm-1.3b and the MoE ones
+                         too; recurrentgemma-2b's tail refuses)
   --plan none            single-device
 
 `--no-exact` switches a plan to throughput mode: under `--plan serve`
 psum-form TP, token streams gated by a match-rate band instead of
 bitwise equality; under `--plan serve_pipeline` the request-skewed
 schedule over lane groups, from stage-local paged arenas (bf16 or
-int8), whose streams stay bit for bit one device's.
+int8; the attention-only and MoE families), whose streams stay bit
+for bit one device's.  A `--plan serve` plan that cuts refuses the
+recurrent and MoE families and `--quant-weights` (not ported yet).
 `--dryrun` prints the chosen plan's per-leaf shardings (params + serving
 cache) and exits, allocating nothing.
 
@@ -79,6 +83,10 @@ it stops with an error instead of falling back to the CPU.
       --plan serve_pipeline --mesh 2
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \\
       --plan serve_pipeline --mesh 2 --no-exact --kv-dtype int8
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \\
+      --arch xlstm-1.3b --plan serve_pipeline --mesh 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \\
+      --arch moonshot-v1-16b-a3b --plan serve_pipeline --mesh 2 --no-exact
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \\
       --plan serve --mesh 1,2 --draft-config smollm-135m
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \\

@@ -80,6 +80,19 @@ def by_column(fn, x: torch.Tensor, *args) -> torch.Tensor:
                       for j in range(x.shape[1])], 1)
 
 
+def at_lanes(x: torch.Tensor, lanes) -> torch.Tensor:
+    """x (n, ...), the lanes `rows` of a `total`-lane batch (lanes =
+    (rows, total), rows a slice), at those lanes of a zero (False) tensor
+    of `total` lanes: a pipeline stage's rows at one device's shape, for
+    the products that run on cuBLAS (the MoE FFN's, the recurrent
+    mixers'), which picks its kernel, and with it a row's bits, by the
+    row count."""
+    rows, total = lanes
+    out = x.new_zeros((total,) + tuple(x.shape[1:]))
+    out[rows] = x
+    return out
+
+
 def dense(x: torch.Tensor, w, partial: bool = False) -> torch.Tensor:
     """x (..., d) @ w (d, f) in the working dtype; W8A8 (`quantized.qdense`)
     when w is a {"q", "s"} leaf.  partial: the f32 sums, unrounded (a

@@ -39,7 +39,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import act_fn, by_column, dense
+from repro_torch.models.layers import act_fn, at_lanes, by_column, dense
 
 Params = Dict[str, Any]
 
@@ -105,14 +105,26 @@ def route(x: torch.Tensor, p: Params, cfg, columns: bool = False
     return Routing(gates, experts, rank, rank < cap, aux, cap)
 
 
-def moe_ffn(x: torch.Tensor, p: Params, cfg, columns: bool = False
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_ffn(x: torch.Tensor, p: Params, cfg, columns: bool = False,
+            lanes=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) bf16 -> (y (B, S, D) bf16, aux 0-d f32).  columns: a
     verify pass, whose router product runs one query column at a time as
     a decode step's does (its f32 product is cuBLAS's, whose rows part by
     row count; the shared experts' bf16 products are K-ordered, one
     product of B*S rows); the routed experts group each row's S tokens
-    together, as the reference's verify pass does."""
+    together, as the reference's verify pass does.
+
+    lanes: (rows, n) when x holds the lanes `rows` of an n-lane batch (a
+    serve_pipeline stage's microbatch or lane group).  The FFN then runs
+    at one device's shape, x at its own lanes of a zero n-lane input
+    (`layers.at_lanes`), and returns those lanes' rows, so that the
+    router's f32 product and the expert products, cuBLAS's, give each row
+    one device's bits.  Every batch row is its own routing group and the
+    capacity comes from S, so the zero lanes take only their own slots
+    and change no real row's routing; aux is the n-lane call's."""
+    if lanes is not None:
+        y, aux = moe_ffn(at_lanes(x, lanes), p, cfg, columns)
+        return y[lanes[0]], aux
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     r = route(x, p, cfg, columns)

@@ -27,7 +27,8 @@ from repro_torch.models import recurrent as rec_mod
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.shard_hints import Shards, zip_parts
 from repro_torch.models.layers import (
-    COMPUTE_DTYPE, cross_entropy_chunked, embed, lm_head, mlp, norm,
+    COMPUTE_DTYPE, at_lanes, cross_entropy_chunked, embed, lm_head, mlp,
+    norm,
 )
 
 Params = Dict[str, Any]
@@ -79,7 +80,8 @@ def _write_state(state, new, active) -> None:
 
 def block_apply(cfg: ModelConfig, pos_in_period: int, p: Params,
                 h: torch.Tensor, positions: torch.Tensor, segment_ids, state,
-                pos_contiguous: bool = False, page_table=None, active=None):
+                pos_contiguous: bool = False, page_table=None, active=None,
+                lanes=None):
     """The block at `pos_in_period` of a layer period: the pre-norm mixer
     of its kind ("attn", "rglru", "mlstm", "slstm"), then (all but the
     xLSTM family's blocks) a pre-norm MLP, or the MoE FFN on a MoE layer,
@@ -87,10 +89,21 @@ def block_apply(cfg: ModelConfig, pos_in_period: int, p: Params,
     load-balance loss, else None.  `state` (a KV cache or a recurrent
     state) is updated in place; a recurrent state keeps an inactive lane's
     values, and pad steps (positions at 2^30, or segment -1) leave it
-    alone."""
+    alone.
+
+    lanes: (rows, n) when h holds the lanes `rows` of an n-lane batch (a
+    serve_pipeline stage's microbatch or lane group; positions and active
+    are those lanes', a dense `state` holds all n).  Attention then reads
+    and writes the rows' views of a dense cache; a recurrent mixer and the
+    MoE FFN, whose products are cuBLAS's, run at one device's n lanes (h
+    at its lanes, zeros and pad steps elsewhere: `layers.at_lanes`) and
+    only the rows' state is written, so each row gets one device's bits."""
     kind = cfg.block_kind(pos_in_period)
+    rows = None if lanes is None else lanes[0]
     z = norm(h, p["norm1"], cfg)
     if kind == "attn":
+        if rows is not None and page_table is None and state is not None:
+            state = {k: v[rows] for k, v in state.items()}
         y, _ = attn_mod.attention(z, p["mix"], cfg, positions, segment_ids,
                                   cache=state, pos_contiguous=pos_contiguous,
                                   page_table=page_table, active=active)
@@ -98,7 +111,13 @@ def block_apply(cfg: ModelConfig, pos_in_period: int, p: Params,
         valid = positions < 2 ** 29
         if segment_ids is not None:
             valid = valid & (segment_ids >= 0)
-        y, new = _RECURRENT[kind](z, p["mix"], cfg, state, valid)
+        if rows is None:
+            y, new = _RECURRENT[kind](z, p["mix"], cfg, state, valid)
+        else:
+            y, new = _RECURRENT[kind](at_lanes(z, lanes), p["mix"], cfg,
+                                      state, at_lanes(valid, lanes))
+            y, new = y[rows], {k: v[rows] for k, v in new.items()}
+            state = {k: v[rows] for k, v in state.items()}
         if state is not None:
             _write_state(state, new, active)
     h = h + y
@@ -106,7 +125,8 @@ def block_apply(cfg: ModelConfig, pos_in_period: int, p: Params,
     if "ffn" in p:
         z = norm(h, p["norm2"], cfg)
         if cfg.is_moe_layer(pos_in_period):
-            y, aux = moe_ffn(z, p["ffn"], cfg, columns=page_table is not None)
+            y, aux = moe_ffn(z, p["ffn"], cfg, columns=page_table is not None,
+                             lanes=lanes)
         else:
             y = mlp(z, p["ffn"], cfg)
         h = h + y

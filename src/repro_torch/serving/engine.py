@@ -21,10 +21,11 @@ device mesh through the executor: a ``mode="serve"`` plan serves the
 paged arena sharded by kv head (exact gather-form TP, or the psum form
 under ``exact=False``), speculation included; an exact
 ``mode="serve_pipeline"`` plan streams the dense slot path through its
-stages, and an ``exact=False`` one (the request-skewed throughput
-pipeline) serves from stage-local paged arenas with one lane group per
-stage.  A plan whose axis is 1 wide runs the plain programs on its
-mesh's device.
+stages (any family whose layer periods divide the stages: the recurrent
+and MoE ones too), and an ``exact=False`` one (the request-skewed
+throughput pipeline) serves from stage-local paged arenas with one lane
+group per stage (the attention-only and MoE families).  A plan whose
+axis is 1 wide runs the plain programs on its mesh's device.
 
 ``disagg=(P, D)`` splits a paged engine into a prefill pool and a decode
 pool: cold admissions prefill on the prefill pool into a staging arena,
@@ -79,9 +80,13 @@ def plan_cuts(plan) -> bool:
 
 
 def _check_plan(plan, cfg, quant_weights: bool, buckets=()) -> None:
-    """What the port's plans do not take yet (ROADMAP.md §1 item 1), and
-    a tensor-parallel plan's prefill longer than the K-ordered products
-    run (one request at its bucket: max(buckets) rows)."""
+    """What the port's plans do not take yet (ROADMAP.md §1 item 1): a
+    ``mode="serve"`` plan that cuts a recurrent or MoE family or W8A8
+    weights; and a tensor-parallel plan's prefill longer than the
+    K-ordered products run (one request at its bucket: max(buckets)
+    rows).  A serve_pipeline plan takes every family, and W8A8 too: it
+    needs the layers in whole periods (no tail), and only 2-d (tail)
+    projections are quantized, so its weights stay bf16."""
     if plan is None:
         return
     if plan.mode not in ("serve", "serve_pipeline"):
@@ -90,10 +95,10 @@ def _check_plan(plan, cfg, quant_weights: bool, buckets=()) -> None:
     if plan.mesh.abstract:
         raise ValueError("a plan on an abstract mesh has no devices: "
                          "build it on make_mesh(...) to serve")
-    if not plan_cuts(plan):
+    if not plan_cuts(plan) or plan.mode != "serve":
         return
     from repro_torch.models.layers import EXACT_ROWS_MAX
-    if plan.mode == "serve" and max(buckets, default=0) > EXACT_ROWS_MAX:
+    if max(buckets, default=0) > EXACT_ROWS_MAX:
         raise ValueError(
             f"buckets {tuple(buckets)}: a tensor-parallel serve plan "
             f"prefills at most EXACT_ROWS_MAX = {EXACT_ROWS_MAX} rows (the "
@@ -101,9 +106,11 @@ def _check_plan(plan, cfg, quant_weights: bool, buckets=()) -> None:
     from repro_torch.models.transformer import layer_plan
     _, _, kinds = layer_plan(cfg)
     _unported(**{
-        "recurrent or MoE families under a plan":
+        "recurrent or MoE families under a plan of mode='serve' (part (b) "
+        "MoE, part (c) recurrent; serve_pipeline serves them)":
             any(k != "attn" for k in kinds) or bool(cfg.n_experts),
-        "W8A8 weights under a plan": quant_weights})
+        "W8A8 weights under a plan of mode='serve' (part (d))":
+            quant_weights})
 
 
 class EngineBase:
@@ -116,8 +123,8 @@ class EngineBase:
     run through `int8_matmul`; for smollm-135m and the other
     attention-only families every projection is stacked over layers (3-d),
     so nothing changes.  Not ported yet (raises `PlanRefused`, a
-    NotImplementedError and a ValueError): a ClusterPlan that cuts a
-    recurrent or MoE family, and W8A8 weights under a plan that cuts."""
+    NotImplementedError and a ValueError): a ``mode="serve"`` plan that
+    cuts a recurrent or MoE family, or W8A8 weights under one."""
 
     def __init__(self, model: Model, params, max_batch: int = 8,
                  buckets=(32, 64, 128, 256), deadline_s: float = 0.05,

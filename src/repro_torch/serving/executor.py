@@ -121,6 +121,9 @@ class Executor:
         self.plan = plan
         self.notes = []  # what the placement did, for the log
         self.pipeline_ticks = 0  # serve_pipeline: ticks of every step
+        # serve_pipeline: the (B, V) f32 logits of each lane's last step in
+        # the last dispatch
+        self.logits = None
         # the plan's axis and its shard devices, when it cuts anything
         self._axis, self._group = None, []
         if plan is not None:
@@ -489,13 +492,17 @@ class Executor:
         s applies its layers to microbatch (t - s) and hands the hidden
         state to stage s + 1 (`gmi.cluster_send`).  A microbatch is its own
         B / n_micro lanes: their rows of x, of the positions and of each
-        cache leaf (views, written in place).  Every operation on a row
-        (the K-ordered products, the row norm, the decode kernel) gives it
-        the same bits at any row count, so each lane's row is bit for bit
-        `Model.decode_steps`'.  The last stage's rows go back to the
-        controller, where the final norm, the head and
+        KV cache leaf (views, written in place).  Every operation on such
+        rows (the K-ordered products, the row norm, the decode kernel)
+        gives a row the same bits at any row count; the recurrent mixers
+        and the MoE FFN, whose products are cuBLAS's, run at the B lanes
+        with the microbatch's rows at their own lanes and write only its
+        lanes' state (`block_apply`'s `lanes`).  So each lane's row is bit
+        for bit `Model.decode_steps`'.  The last stage's rows go back to
+        the controller, where the final norm, the head and
         `greedy_token_update` run as in `Model.decode_steps`.  Ticks per
-        step: `pipeline_steps(n_micro, n_stages)`.
+        step: `pipeline_steps(n_micro, n_stages)`.  Leaves the last step's
+        logits in `self.logits`.
         """
         model, cfg = self.model, self.model.cfg
         devs, per, kinds = self._stages()
@@ -526,14 +533,14 @@ class Executor:
                         h = x[lanes].to(dev) if s == 0 else buf[s]
                         positions = pos[lanes, None].to(dev)
                         on = act[lanes].to(dev)
-                        sub = _batch_rows(caches, lanes)
                         for i in range(s * per, (s + 1) * per):
                             pp = _index(params["scan"], i)
-                            pc = _index(sub["scan"], i)
+                            pc = _index(caches["scan"], i)
                             for j in range(len(kinds)):
                                 h, _ = block_apply(cfg, j, pp[f"b{j}"], h,
                                                    positions, None,
-                                                   pc[f"b{j}"], active=on)
+                                                   pc[f"b{j}"], active=on,
+                                                   lanes=(lanes, b))
                         ys.append(h)
                     m_out = t - (n_stages - 1)
                     if m_out >= 0:  # the last stage finished m_out
@@ -541,7 +548,7 @@ class Executor:
                     buf = gmi.cluster_send(ys, ring, self._axis)
                 self.pipeline_ticks += steps
                 h = norm(out, rest_p["final_norm"], cfg)
-                logits = lm_head(h, rest_p["embed"])[:, 0]
+                logits = self.logits = lm_head(h, rest_p["embed"])[:, 0]
                 emit, cur, nxt_act, rem = greedy_token_update(
                     logits, cur, act, rem, eos, PAD_TOKEN)
                 caches["pos"] = torch.where(act, pos + 1, pos)
@@ -575,8 +582,10 @@ class Executor:
         g + kG + S - 1 and its next read is at tick g + (k+1)G, so every
         stage reads the state the sequential loop would: the schedule
         changes when a lane decodes, never what it decodes.  Every
-        operation on a row gives it the same bits at any row count, so
-        the tokens are `Model.decode_steps`' bit for bit.
+        operation on a group's rows gives a row the same bits at any row
+        count, the MoE FFN's at the B lanes (`block_apply`'s `lanes`), so
+        the tokens are `Model.decode_steps`' bit for bit.  Leaves each
+        lane's last-step logits in `self.logits`.
         """
         model, cfg = self.model, self.model.cfg
         devs, per, kinds = self._stages()
@@ -597,6 +606,8 @@ class Executor:
         buf = [torch.zeros((mb, 1, cfg.d_model), dtype=COMPUTE_DTYPE,
                            device=d) for d in devs]
         out = torch.full((n, b), -1, dtype=torch.int32, device=self.device)
+        self.logits = torch.zeros((b, cfg.vocab_size), dtype=torch.float32,
+                                  device=self.device)
         with torch.no_grad():
             for t in range(total):
                 ys = []
@@ -618,13 +629,14 @@ class Executor:
                                                qpos[:, None], None,
                                                pc[f"b{j}"],
                                                page_table=pts[s][lanes],
-                                               active=on)
+                                               active=on, lanes=(lanes, b))
                     pos[s][lanes] = torch.where(on, qpos + 1, qpos)
                     ys.append(h)
                     if s == n_stages - 1:  # the group's step is done
                         hn = norm(h.to(self.device), rest_p["final_norm"],
                                   cfg)
                         logits = lm_head(hn, rest_p["embed"])[:, 0]
+                        self.logits[lanes] = logits
                         (out[m // n_stages, lanes], cur[lanes], act[lanes],
                          rem[lanes], fptr[lanes]) = forced_token_update(
                             logits, cur[lanes], act[lanes], rem[lanes],

@@ -1313,3 +1313,40 @@ def test_plan_auto_equals_plain_engine_on_card(dev, tmp_path):
     _, _, want = served(["--plan", "none", "--page-size", "8",
                          "--kv-dtype", "int8", "--quant-weights"])
     assert got == want
+
+
+def test_moe_ffn_stage_rows_equal_the_batch_call(dev, monkeypatch):
+    """moonshot-v1-16b-a3b's MoE FFN at full width (64 experts, D 2048,
+    F 1408; one layer of `init_params` weights): each 2-lane group of a
+    12-lane batch, run through `moe_ffn`'s ``lanes`` (at one device's 12
+    lanes, as a pipeline stage runs it), equals the 12-row call at those
+    rows bit for bit, its routing included.  cuBLAS picks its kernels for
+    the f32 router product and the bf16 expert products by row count."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import init_params
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"), n_layers=1)
+    p = {k: v[0] for k, v in
+         init_params(cfg, seed=0, device=dev)["scan"]["b0"]["ffn"].items()}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((12, 1, cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    routes = []
+    orig = moe.route
+
+    def spy(*args, **kw):
+        routes.append(orig(*args, **kw))
+        return routes[-1]
+
+    monkeypatch.setattr(moe, "route", spy)
+    with torch.no_grad():
+        want, _ = moe.moe_ffn(x, p, cfg)
+        full = routes[-1]
+        for r0 in range(0, 12, 2):
+            rows = slice(r0, r0 + 2)
+            got, _ = moe.moe_ffn(x[rows], p, cfg, lanes=(rows, 12))
+            assert torch.equal(got, want[rows]), r0
+            for name in ("gates", "experts", "rank", "keep"):
+                assert torch.equal(getattr(routes[-1], name)[rows],
+                                   getattr(full, name)[rows]), (r0, name)
