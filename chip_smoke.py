@@ -29,7 +29,10 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    ibert-base's max_seq_len, (6144, 512); kernels 1 and 2 also at the
    speculative verify pass's shape (8 lanes x 5 queries folded into 40),
    kernel 1 also at the MoE models' heads (KVH 16, G 1 and KVH 8, G 5,
-   hd 128);
+   hd 128) and at their serve plans' shard heads (KVH 8 and 4, G 1;
+   KVH 1, G 5); torch.bmm over a shard's block of E / n experts equal to
+   the E-expert call bit for bit at moonshot's and llama4's expert
+   shapes (`expert_bmm_probe`, the MoE serve plans' premise);
    the port-only row norm (rmsnorm, layernorm) at every served width
    (ROW_NORM_DS) and at 1, 8, 40 and 4096 rows, within ROW_NORM_TOL, in
    bf16 beside F.rms_norm / F.layer_norm, equal bit for bit to its order
@@ -38,7 +41,8 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    row_norm step logs its seconds); the port-only gemm
    (every served `layers.dense` product and the head, f32 sums in an
    order fixed by K) at the served product shapes, within 2^-8 |want| + 1e-5
-   |x||w| of its plain version, timed beside it and torch.matmul, and a
+   |x||w| of its plain version, timed beside it and torch.matmul (and
+   checked, untimed, at the MoE serve plans' shard columns), and a
    column block of w or a row block of x equal to the whole product bit
    for bit (where torch.matmul parts);
 4. long forward: smollm-135m at full width (30 layers, random weights
@@ -118,13 +122,9 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    stage);
 12. moe: moonshot-v1-16b-a3b (64 experts top-6, 2 shared) and
    llama4-maverick-400b-a17b (a dense layer, then 128 experts top-1 and
-   1 shared) at full width on random weights: card vs CPU (paged) on 2
-   of moonshot's layers (llama4's period's CPU half is cut for chip
-   time), with the routing
-   compared on the card's own rows (a pair may go elsewhere only at a
-   top-k margin of at most MOE_MARGIN) and end to end (logged; logits
-   gated at LOGIT_TOL on each lane up to its first pair routed
-   otherwise); moonshot served at all 48
+   1 shared) at full width on random weights (their card-vs-CPU halves
+   are cut for chip time; the fitted phase gates both reduced models
+   card vs CPU): moonshot served at all 48
    layers and llama4 at its period (depth cut from 48 to 2) through the
    paged cb engine, 8 requests of 32 tokens, exact paged_flash_decode
    and row_norm launch counts; one verify block against its chained
@@ -138,7 +138,17 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    phase's weights: tokens and last-step logits equal to
    Model.decode_steps (d = 0), ticks, and flash_decode / paged_flash_decode
    48 x 6 launches a step (`family_pipeline`; llama4's one period takes
-   no 6 stages);
+   no 6 stages); then each under a mode="serve" plan, every shard on the
+   card running its block of the experts (MOE_PLAN: moonshot's first 12
+   layers, views of the phase's tree, on (1, 2) and (1, 4), llama4's
+   period on (1, 8), the narrowest mesh where its plan drops FSDP and so
+   keeps its reductions whole): 8 admitted lanes, 8 fused decode steps and one
+   more step's logits through the plan and through one device on the
+   same state, tokens and logits d = 0, paged_flash_decode n x L,
+   row_norm 2 L + 1 and gemm launches a step exact, both routes
+   profiled one step, the placement's memory and the expert bytes a step
+   logged; moonshot x12 on (1, 2) with exact=False, its token match and
+   logits against the exact plan's logged;
 13. plans: the multi-device serve plans on the single-controller mesh,
    every shard on the one card (shards share it, so this checks the
    program and its contract, not multi-card scaling): the GMI
@@ -168,8 +178,9 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    lane groups of 2: the loop equal to Model.decode_steps (tokens, lane
    state, counters, arena), 4 x 6 + 5 ticks and 30 x 6 kernel-1 launches
    a step, one step profiled beside one device's, the engine's streams
-   equal the plain paged engine's on bf16 and int8, cold then hits, each
-   stage's arena block 5 periods, a page's bytes 1/6; kernels 1 and 2 at
+   equal the plain paged engine's on bf16 (cold then hits) and int8
+   (cold), each stage's arena block 5 periods, a page's bytes 1/6;
+   kernels 1 and 2 at
    a 2-lane group; minitron-8b at full width, 8 of its 32 layers, on
    (1, 4): streams and logits equal one device's, and on 4 skewed
    stages at B = 8: streams equal one device's; the --dryrun CLI's
@@ -370,18 +381,21 @@ RECURRENT_CUT = {"recurrentgemma-2b": 3, "xlstm-1.3b": 8}
 # 37.1 GB; two periods do not fit beside the arenas), both at full width
 MOE_ARCHS = ("moonshot-v1-16b-a3b", "llama4-maverick-400b-a17b")
 MOE_LAYERS = {"llama4-maverick-400b-a17b": 2}
-# the full-width card-vs-CPU run (model_phase) is moonshot's alone:
-# llama4's period's CPU half (a 37 GB host copy, ~50 s of host time) was
-# cut for chip time when the plans phase grew (the skewed pipeline's steps)
-MOE_CARD_VS_CPU = ("moonshot-v1-16b-a3b",)
-# on the same input rows, card and CPU may route a (token, choice) pair
-# to other experts only where the CPU's top-k margin (the choice's
-# probability minus the next one's) is at most this: their f32 router
-# products sum in other orders.  End to end the hidden rows themselves
-# part by bf16 ulps (on 2 of moonshot's layers on an H100 the first flip
-# came at a margin of 5.4e-5), and its capacity ranks carry a flip on,
-# so that comparison is logged
-MOE_MARGIN = 1e-5
+# the moe phase's mode="serve" plans: arch -> (layers, mesh shapes), the
+# layers the first of the phase's tree (views): moonshot's experts are
+# 1.107 GB a layer, and an exact plan's placement copies the wi and wg
+# blocks (2/3 of them), 35.4 GB at 48 layers beside the 57.8 GB tree, past
+# the card's 80 GB; 8.9 GB at 12.  llama4's one period stacks to a leading
+# dim of 1, so its expert blocks are contiguous views (no copy).  An exact
+# plan is gather-form (reductions whole) only where the plan drops FSDP,
+# at most 8 GB of weights a shard (build_plan, the reference's capacity
+# rule): moonshot x12 takes 7.7 GB a shard on (1, 2), llama4's period
+# 18.6 GB on (1, 2), 9.3 on (1, 4) and 4.6 on (1, 8).  The archs in
+# MOE_NO_EXACT also run exact=False on the first shape (their expert wo
+# cut too: 4.4 GB more at moonshot x12)
+MOE_PLAN = {"moonshot-v1-16b-a3b": (12, ((1, 2), (1, 4))),
+            "llama4-maverick-400b-a17b": (2, ((1, 8),))}
+MOE_NO_EXACT = ("moonshot-v1-16b-a3b",)
 # the fleet phase: lanes a replica (and a disaggregated engine), and the
 # affinity rebalance margin in token-steps, past the 16 requests' whole
 # backlog (16 x (128 + 16)), so every prefix group stays on one replica
@@ -1435,11 +1449,7 @@ def model_phase(kind: str, cfg=None, note: str = "",
     gated=False logs the error without requiring LOGIT_TOL, beside the
     CPU's own spread: the same CPU run once more on one thread (another
     summation order of its bf16 products), and that run's distance from
-    the first.  A
-    MoE model's routing is compared too (`_route_diff`), and LOGIT_TOL
-    holds on each lane up to its first step that card and CPU route
-    otherwise: from there the lane's tokens take other experts or drop
-    other pairs, and its logits part by design."""
+    the first."""
     cfg = cfg or get_config("smollm-135m")
     ps, maxp, steps = 16, 6, 8
     rng = np.random.default_rng(1)
@@ -1447,28 +1457,17 @@ def model_phase(kind: str, cfg=None, note: str = "",
                for n in (21, 37)]
     gpu_params = init_params(cfg, seed=0, device="cuda")
     cpu_params = {k: _to(v, "cpu") for k, v in gpu_params.items()}
-    runs, routes = {}, {}
+    runs = {}
     for name in ("cpu", "cuda"):
         params = gpu_params if name == "cuda" else cpu_params
         model = make_model(cfg, device=name)
-        t0 = time.perf_counter()
-        with torch.no_grad(), _RouteTally(on_cpu=True) as tally:
+        with torch.no_grad():
             runs[name] = _model_run(model, params, prompts, ps, maxp, steps,
                                     runs.get("cpu"), kind)
-        routes[name] = tally.calls
-        if cfg.n_experts:
-            log(f"model {cfg.name}{note}: the {name} run took "
-                f"{time.perf_counter() - t0:.1f} s")
     del gpu_params
     cpu, gpu = runs["cpu"], runs["cuda"]
     errs = [(g - c).abs().max().item() for c, g in zip(cpu["logits"],
                                                        gpu["logits"])]
-    held = errs  # the errors LOGIT_TOL holds
-    if cfg.n_experts:
-        agree = _route_diff(routes, cfg, prompts, ps, steps)
-        held = [(g - c)[lane].abs().max().item()
-                for t, (c, g) in enumerate(zip(cpu["logits"], gpu["logits"]))
-                for lane in range(len(prompts)) if t < agree[lane]]
     scale = max(c.abs().max().item() for c in cpu["logits"])
     match = (cpu["block"] == gpu["block"]).float().mean().item()
     spread = ""
@@ -1483,18 +1482,14 @@ def model_phase(kind: str, cfg=None, note: str = "",
                   for a, b in zip(cpu["logits"], one["logits"]))
         spread = (f" (logged, not gated; the CPU on 1 thread vs on "
                   f"{threads}: {own:.4g})")
-    elif cfg.n_experts:
-        spread = (f" (gated per lane up to its first routing difference: "
-                  f"{len(held)} of {len(errs) * len(prompts)} lane-steps, "
-                  f"max {max(held, default=0.0):.4g})")
     del cpu_params
     log(f"model {cfg.name}{note} {kind} cache, prefill+{steps} decode "
         f"steps, card vs CPU: max_abs_logit_err={max(errs):.4g} (tol {LOGIT_TOL}, "
         f"|logit| max {scale:.3g}){spread} per step="
         f"{['%.3g' % e for e in errs]} fused {steps}-step token match="
         f"{match:.3f}; {_first_divergence(cpu, gpu)}")
-    require(not gated or max(held, default=0.0) <= LOGIT_TOL,
-            f"{cfg.name} {kind}: card vs CPU logits: {held}")
+    require(not gated or max(errs) <= LOGIT_TOL,
+            f"{cfg.name} {kind}: card vs CPU logits: {errs}")
 
 
 def card_model_phase(kind: str) -> None:
@@ -2516,8 +2511,30 @@ def gemm_phase(dev, flush) -> dict:
                          main=True)
         if main is None:
             main = got
+    # the MoE serve plans' products at a decode step, checked: a shard's
+    # columns of wq/wk/wv, shared_wi/shared_wg (and llama4's dense wi/wg)
+    # and the head, and the products that stay whole on the controller
+    # (attention's wo, shared_wo, llama4's dense wo)
+    for k, n, what in ((2048, 1024, "moonshot wq/wk/wv shard of 2"),
+                       (2048, 512, "moonshot wq/wk/wv shard of 4"),
+                       (2048, 1408, "moonshot shared_wi shard of 2"),
+                       (2048, 704, "moonshot shared_wi shard of 4"),
+                       (2048, 81920, "moonshot head shard of 2"),
+                       (2048, 40960, "moonshot head shard of 4"),
+                       (2048, 2048, "moonshot wo"),
+                       (2816, 2048, "moonshot shared_wo"),
+                       (5120, 640, "llama4 wq shard of 8"),
+                       (5120, 128, "llama4 wk/wv shard of 8"),
+                       (5120, 1024, "llama4 shared_wi / dense wi shard of 8"),
+                       (5120, 25256, "llama4 head shard of 8"),
+                       (5120, 5120, "llama4 wo"),
+                       (8192, 5120, "llama4 shared_wo / dense wo")):
+        _gemm_case(f"{what}, decode M=8 K={k} N={n}", rnd(8, k),
+                   rnd(k, n, scale=k ** -0.5), False, flush)
     for k, n, shards in ((576, 576, 3), (576, 1536, 3), (4096, 4096, 4),
-                         (4096, 1024, 4), (4096, 16384, 4)):
+                         (4096, 1024, 4), (4096, 16384, 4), (2048, 2048, 2),
+                         (2048, 2048, 4), (2048, 2816, 2), (2048, 2816, 4),
+                         (5120, 5120, 8), (5120, 1024, 8), (5120, 8192, 8)):
         x, w = rnd(128, k), rnd(k, n, scale=k ** -0.5)
         whole = ops.gemm(x, w)
         cols = n // shards
@@ -2539,6 +2556,57 @@ def gemm_phase(dev, flush) -> dict:
     return main
 
 
+# the MoE expert products a tensor-parallel shard runs over its block of
+# experts: (arch, E, D, F, shard counts, rows an expert).  moonshot's rows:
+# a decode step's 8 lanes at capacity 1, and one request's prefill at the
+# buckets 32-256 (capacity ceil(6 S 1.25 / 64) = 4, 8, 15, 30); llama4's:
+# a decode step's 8, and buckets at capacity ceil(S 1.25 / 128) = 1-3
+EXPERT_PROBE = (("moonshot-v1-16b-a3b", 64, 2048, 1408, (2, 4),
+                 (8, 4, 15, 30)),
+                ("llama4-maverick-400b-a17b", 128, 5120, 8192, (2, 4, 8),
+                 (8, 1, 3)))
+
+
+def expert_bmm_probe(dev) -> None:
+    """A tensor-parallel shard's expert products against one device's:
+    torch.bmm over a block of E / n experts, the block's weights a
+    contiguous copy (as a plan's placement holds them), must give the
+    same bits as those experts' outputs in the E-expert call, for wi and
+    wg ((E, rows, D) @ (E, D, F)) and wo ((E, rows, F) @ (E, F, D)) at
+    each row count of EXPERT_PROBE.  cuBLAS picks its kernel by shape, and
+    the batch count is part of the shape; on an H100 it does not part
+    here, so models/moe.py keeps torch.bmm for the expert products, and
+    this gate shows a cuBLAS that comes to part."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    t0 = time.perf_counter()
+    cases = 0
+    for arch, e, d, f, shards, rows_all in EXPERT_PROBE:
+        for k, n, mat in ((d, f, "wi/wg"), (f, d, "wo")):
+            w = (torch.randn((e, k, n), generator=gen, device=dev)
+                 * k ** -0.5).bfloat16()
+            for rows in rows_all:
+                x = torch.randn((e, rows, k), generator=gen,
+                                device=dev).bfloat16()
+                whole = torch.bmm(x, w)
+                for sh in shards:
+                    per = e // sh
+                    diff = sum(int((torch.bmm(x[i * per:(i + 1) * per], w[
+                        i * per:(i + 1) * per].contiguous()) != whole[
+                            i * per:(i + 1) * per]).sum()) for i in range(sh))
+                    require(diff == 0, f"expert probe {arch} {mat} K={k} "
+                            f"N={n} rows={rows}: {sh} blocks of {per} "
+                            f"experts part from the {e}-expert call at "
+                            f"{diff} of {e * rows * n} outputs")
+                    cases += 1
+            del w
+    torch.cuda.empty_cache()
+    log(f"expert probe: torch.bmm over blocks of E/n experts equals the "
+        f"E-expert call bit for bit in all {cases} cases ("
+        + "; ".join(f"{a} E {e}, K {d} <-> {f}, n {shards}, rows an expert "
+                    f"{rows}" for a, e, d, f, shards, rows in EXPERT_PROBE)
+        + f") in {time.perf_counter() - t0:.1f} s")
+
+
 PLAN_ARCH = "smollm-135m"  # served on a (1, 3) model axis: 1 kv head a shard
 PLAN_TP = (1, 3)
 PLAN_BIG = ("minitron-8b", (1, 4), 8)  # 2 kv heads a shard, 8 of 32 layers
@@ -2552,14 +2620,25 @@ PLAN_FIT_STEPS = 400
 
 def _gemms_per_call(cfg, n: int, exact: bool) -> int:
     """gemm launches of one backbone call and its head under a serve plan
-    on n tensor-parallel shards."""
-    attn_tp = cfg.n_kv_heads % n == 0 and cfg.n_heads % n == 0
-    mlp_tp = cfg.d_ff % n == 0
+    on n tensor-parallel shards: a projection group whose columns divide
+    runs its column products once a shard and its reduction once (whole,
+    exact) or once a shard (row blocks, psum form), else each once.  A
+    MoE layer's gemm products are its shared experts' (the router's f32
+    product and the experts' run elsewhere)."""
+    def group(cols: int, width: int) -> int:
+        split = width % n == 0
+        return cols * (n if split else 1) + (n if split and not exact else 1)
+
+    attn = cfg.n_kv_heads % n == 0 and cfg.n_heads % n == 0
     mats = 2 if cfg.mlp_style == "swiglu" else 1
-    attn = 3 * (n if attn_tp else 1) + (n if attn_tp and not exact else 1)
-    mlp = mats * (n if mlp_tp else 1) + (n if mlp_tp and not exact else 1)
-    vocab_tp = cfg.vocab_size % n == 0
-    return cfg.n_layers * (attn + mlp) + (n if vocab_tp else 1)
+    total = n if cfg.vocab_size % n == 0 else 1
+    for layer in range(cfg.n_layers):
+        total += 3 * (n if attn else 1) + (n if attn and not exact else 1)
+        if not cfg.is_moe_layer(layer):
+            total += group(mats, cfg.d_ff)
+        elif cfg.n_shared_experts:
+            total += group(mats, cfg.d_ff * cfg.n_shared_experts)
+    return total
 
 
 def _plan_engine_pass(eng, reqs, what: str) -> tuple:
@@ -2998,12 +3077,13 @@ def _plan_skew_loop(model, params, launches: dict) -> None:
                    f"(B={b})", plain, 1)
 
 
-def _plan_skew_serve(model, params, n_stages: int, b: int, kvs, passes,
+def _plan_skew_serve(model, params, n_stages: int, b: int, kvs: dict,
                      launches: dict) -> None:
     """The cb engine under a request-skewed serve_pipeline plan on
     `n_stages` stages at B = b, beside the plan-free paged engine, over
     the shared-prefix stream (b requests of 16 tokens): each kv dtype's
-    passes (cold, then radix hits on the stage-local arenas) must give
+    passes (`kvs`: kv dtype -> passes; cold, then radix hits on the
+    stage-local arenas) must give
     the plain engine's streams, kernel 1 (2) n_layers x n_stages launches
     a decode step, row_norm and gemm once a layer (and the head) per
     group a step and per prefill, n*S + S - 1 ticks a dispatch; each
@@ -3016,7 +3096,7 @@ def _plan_skew_serve(model, params, n_stages: int, b: int, kvs, passes,
             f"{n_stages} stages engine (B={b})")
     args = serve_cli.parse_args(["--requests", str(b), "--max-new", "16",
                                  "--stream", "shared-prefix", "--seed", "0"])
-    for kv in kvs:
+    for kv, passes in kvs.items():
         kernel = ("paged_flash_decode_q" if kv == "int8"
                   else "paged_flash_decode")
         engines = {name: ContinuousBatchingEngine(
@@ -3249,8 +3329,8 @@ def plans_phase(dev) -> dict:
     _plan_step("skewed loop",
                lambda: _plan_skew_loop(model, params, launches))
     _plan_step("skewed engine", lambda: _plan_skew_serve(
-        model, params, PLAN_STAGES, PLAN_SKEW_B, ("bf16", "int8"),
-        ("cold", "hits"), launches))
+        model, params, PLAN_STAGES, PLAN_SKEW_B,
+        {"bf16": ("cold", "hits"), "int8": ("cold",)}, launches))
     del model, params
     torch.cuda.empty_cache()
     arch, shape, layers = PLAN_BIG
@@ -3263,7 +3343,7 @@ def plans_phase(dev) -> dict:
     torch.cuda.reset_peak_memory_stats()
     _plan_serve(model, params, shape, "bf16", launches, passes=("cold",))
     _plan_step(f"skewed engine {arch}", lambda: _plan_skew_serve(
-        model, params, PLAN_BIG_STAGES, 8, ("bf16",), ("cold",), launches))
+        model, params, PLAN_BIG_STAGES, 8, {"bf16": ("cold",)}, launches))
     log(f"plans {arch}: peak device memory with the plain and the plan "
         f"engine's params "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
@@ -3698,38 +3778,17 @@ def plansearch_phase(dev) -> dict:
 
 
 class _RouteTally:
-    """Records every `moe.route` call while installed (a pass-through
-    around the port's function, which `moe_ffn` looks up at each call):
-    the expert ids (B, S, k), the keep mask (B, S*k) and each choice's
-    top-k margin (B, S, k): the j-th minus the (j+1)-th sorted router
-    probability, the distance a choice has from trading places with the
-    next expert.  With `on_cpu`, each call also routes copies of its input
-    rows on the CPU (`cpu_experts`, `cpu_margin`).  The margins cost
-    a softmax and a sort a call, so the tally is installed only around
-    runs it reads, never a timed one."""
-
-    def __init__(self, on_cpu: bool = False):
-        self.on_cpu = on_cpu
+    """Records the keep mask (B, S*k) of every `moe.route` call while
+    installed (a pass-through around the port's function, which `moe_ffn`
+    looks up at each call)."""
 
     def __enter__(self):
         self.calls = []
         self.orig = moe.route
 
-        def margins(x, router, k):
-            probs = torch.softmax(torch.matmul(x.float(), router), -1)
-            srt = torch.sort(probs, -1, descending=True).values
-            return (srt[..., :k] - srt[..., 1:k + 1]).cpu()
-
         def spy(x, p, cfg, columns=False):
             r = self.orig(x, p, cfg, columns)
-            k = cfg.top_k
-            call = dict(experts=r.experts.cpu(), keep=r.keep.cpu(),
-                        margin=margins(x, p["router"], k))
-            if self.on_cpu:
-                xc, wc = x.cpu(), {"router": p["router"].cpu()}
-                call.update(cpu_experts=self.orig(xc, wc, cfg).experts,
-                            cpu_margin=margins(xc, wc["router"], k))
-            self.calls.append(call)
+            self.calls.append(dict(keep=r.keep.cpu()))
             return r
 
         moe.route = spy
@@ -3737,77 +3796,6 @@ class _RouteTally:
 
     def __exit__(self, *exc):
         moe.route = self.orig
-
-
-def _route_diff(routes: dict, cfg, prompts, ps: int, steps: int) -> bool:
-    """Card against CPU routing in model_phase, two ways.
-
-    Same rows: each route call on the card routed again on the CPU from
-    the card's own input rows; an assignment may differ only at a CPU
-    top-k margin of at most MOE_MARGIN (the f32 router product summed in
-    another order), and this is required.  End to end, logged: the
-    teacher-fed calls (each prompt's prefill, the teacher-fed decode
-    steps, the prefills once more), where both devices see the same
-    tokens, real tokens only (a bucket's pad rows sit at position 2^30,
-    where the two devices' RoPE differs).  There the router reads hidden
-    rows a few bf16 ulps apart, and one near-tie flip moves the capacity
-    ranks of the later pairs of its expert, so a dropped pair on one
-    device and not the other changes that token's rows, its later layers'
-    routing and the keys later tokens read: the first call that differs
-    and its smallest margin are logged beside the totals.  Returns, per
-    lane, the index of the first logits row (0: the prefill, t: decode
-    step t) whose call routed one of the lane's real pairs otherwise
-    (steps + 1 where none did)."""
-    gpu_all = routes["cuda"]
-    same = [(c["experts"] != c["cpu_experts"], c["cpu_margin"])
-            for c in gpu_all]
-    same_diff = sum(int(d.sum()) for d, _ in same)
-    same_m = [m for d, mg in same for m in mg[d].tolist()]
-    n_moe = sum(map(cfg.is_moe_layer, range(cfg.n_layers)))
-    real = [torch.arange(-(-len(p) // ps) * ps)[None, :, None] < len(p)
-            for p in prompts]
-    masks = real + [torch.ones((len(prompts), 1, 1), dtype=torch.bool)
-                    ] * steps + real
-    calls = len(masks) * n_moe
-    cpu, gpu = routes["cpu"][:calls], gpu_all[:calls]
-    require(len(cpu) == len(gpu) == calls, f"model {cfg.name}: {len(cpu)} "
-            f"CPU and {len(gpu)} card route calls, want {calls}")
-    n_pairs = n_diff = drops = 0
-    margins, first = [], None
-    agree = [steps + 1] * len(prompts)
-    for i, (c, g) in enumerate(zip(cpu, gpu)):
-        real_i = masks[i // n_moe].expand_as(c["experts"])
-        differ = (c["experts"] != g["experts"]) & real_i
-        call = i // n_moe  # prefill of prompt `call`, or a decode step
-        for row in differ.any(-1).any(-1).nonzero().flatten().tolist():
-            lane, t = ((call, 0) if call < len(prompts) else
-                       (row, call - len(prompts) + 1))
-            if t <= steps:  # not the second admission's prefills
-                agree[lane] = min(agree[lane], t)
-        n_pairs += int(real_i.sum())
-        n_diff += int(differ.sum())
-        margins += c["margin"][differ].tolist()
-        if differ.any() and first is None:
-            first = (f"call {i} (backbone call {i // n_moe}, MoE layer "
-                     f"{i % n_moe}), smallest margin there "
-                     f"{c['margin'][differ].min().item():.3g}")
-        drops += int((c["keep"] != g["keep"]).reshape(real_i.shape)[
-            real_i].sum())
-    log(f"model {cfg.name} routing, card vs CPU: on the card's own rows "
-        f"({len(gpu_all)} calls) {same_diff} assignments differ (CPU "
-        f"margins there: largest {max(same_m, default=float('nan')):.3g}; "
-        f"limit {MOE_MARGIN:g}); end to end over {calls} teacher-fed calls "
-        f"{n_diff} of {n_pairs} (token, choice) assignments of real tokens "
-        f"differ (first at {first}; CPU margins there: smallest "
-        f"{min(margins, default=float('nan')):.3g}, largest "
-        f"{max(margins, default=float('nan')):.3g}), keep masks at {drops} "
-        f"pairs; each lane's logits rows before its first difference: "
-        f"{agree} of {steps + 1}")
-    if same_diff:
-        require(max(same_m) <= MOE_MARGIN, f"model {cfg.name}: on the same "
-                f"rows card and CPU route a pair otherwise at a top-k "
-                f"margin of {max(same_m):.3g} > {MOE_MARGIN:g}")
-    return agree
 
 
 def _moe_verify(model, params, seed: int) -> dict:
@@ -3909,6 +3897,104 @@ def _moe_profile(model, params) -> None:
         f"paged_flash_decode_spans={len(ks)} of {n} launches")
 
 
+def _first_layers(tree, n: int, scan: bool = False):
+    """A params tree with every scan leaf narrowed to its first n layer
+    periods (views, no copy), for a model of fewer layers on the same
+    weights."""
+    if isinstance(tree, dict):
+        return {k: _first_layers(v, n, scan or k == "scan")
+                for k, v in tree.items()}
+    return tree.narrow(0, 0, n) if scan else tree
+
+
+def _moe_plan_step(model, params, shape, exact: bool, base=None) -> dict:
+    """A MoE model under a mode="serve" plan on `shape`, every shard on
+    the card: one paged bf16 state of 8 admitted lanes (`_skew_state`:
+    odd lanes in the radix-hit form) through a one-device executor and
+    through the plan's, each running 8 fused decode steps, then one more
+    step fed the same tokens for its logits.  Exact: tokens and logits
+    equal one device's (d = 0), and a step launches paged_flash_decode
+    n x L times, row_norm 2 L + 1 and gemm `_gemms_per_call`; the
+    placement's card memory, each route's wall ms and device ops a step
+    (profiled, 1 fused step), and the expert bytes a step logged.
+    exact=False (`base`: the exact step's result): the token match and
+    the logits' max |d| against it, logged.  Returns {"tokens",
+    "logits", "launches"}."""
+    cfg, steps = model.cfg, 8
+    n = shape[1]
+    form = "exact" if exact else "no-exact"
+    what = f"moe plan serve {form} {cfg.name} x{cfg.n_layers} mesh {shape}"
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    plan = build_plan(cfg, make_mesh(shape, ("data", "model")),
+                      mode="serve", exact=exact)
+    runs = {}
+    for name, p in (("one device", None), ("plan", plan)):
+        ex = Executor(model, params, max_batch=8, cache_len=16 * 12,
+                      buckets=serve_cli.BUCKETS, plan=p)
+        if p is not None:
+            torch.cuda.synchronize()
+            placed = torch.cuda.memory_allocated() - held
+            ffn = next(b["ffn"] for b in ex.params["scan"].values()
+                       if "router" in b.get("ffn", {}))
+            require([t.shape[1] for t in ffn["wi"]] == [cfg.n_experts // n]
+                    * n and isinstance(ffn["wo"], list) != exact,
+                    f"{what}: experts placed as {[tuple(t.shape) for t in ffn['wi']]}"
+                    f", wo {'whole' if exact else 'by expert'} wanted")
+        st = _skew_state(model, ex, 8, 16, 12, 23)
+        toks, wall, got = _launched(lambda: ex.decode(st, steps, True))
+        with torch.no_grad(), ex._ctx():
+            lg, _ = model.decode_step(ex.params, st["caches"], st["cur"],
+                                      active=st["active"])
+        runs[name] = dict(tokens=toks.cpu(), logits=lg.float().cpu(),
+                          wall=wall, launches=got, ex=ex, st=st)
+    one, run = runs["one device"], runs["plan"]
+    d = (run["logits"] - one["logits"]).abs().max().item()
+    got = run["launches"]
+    if exact:
+        require(torch.equal(run["tokens"], one["tokens"]), f"{what}: "
+                "tokens part from one device's")
+        require(d == 0, f"{what}: logits part from one device's by {d:.4g}")
+        want = {"paged_flash_decode": n * cfg.n_layers * steps,
+                "row_norm": _norms_per_call(cfg) * steps,
+                "gemm": _gemms_per_call(cfg, n, True) * steps}
+        have = {k: got[k] for k in want}
+        require(have == want and not any(
+            got[k] for k in ATTN_KERNELS if k != "paged_flash_decode"),
+            f"{what}: launches {got} != {want}")
+        check = "tokens and logits equal one device's (d = 0)"
+    else:
+        match = (run["tokens"] == base["tokens"]).float().mean().item()
+        d = (run["logits"] - base["logits"]).abs().max().item()
+        check = (f"token match against the exact plan {match:.4f}, max "
+                 f"|logits - exact| = {d:.4g} (logged: the row blocks of "
+                 "attention's wo and of shared_wo add their f32 partial sums "
+                 "in shard order)")
+    n_moe = sum(map(cfg.is_moe_layer, range(cfg.n_layers)))
+    nbytes = n_moe * cfg.n_experts * cfg.ffn_params() * 2
+    log(f"{what}: {steps} fused steps on 8 lanes, {check}; launches a step "
+        f"paged_flash_decode={got['paged_flash_decode'] // steps} row_norm="
+        f"{got['row_norm'] // steps} gemm={got['gemm'] // steps} (one "
+        f"device: {one['launches']['paged_flash_decode'] // steps}, "
+        f"{one['launches']['row_norm'] // steps}, "
+        f"{one['launches']['gemm'] // steps}); wall_ms_per_step="
+        f"{run['wall'] * 1e3 / steps:.2f} (one device "
+        f"{one['wall'] * 1e3 / steps:.2f}); the placement's copies "
+        f"{placed / 2 ** 30:.2f} GiB, card peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB; "
+        f"expert_bytes_per_step={nbytes} (one device's: each shard reads "
+        f"its own {cfg.n_experts // n} experts once)")
+    for name, r in runs.items():
+        _route_profile(f"{what}, {name}, 1 fused step (B=8)",
+                       lambda: r["ex"].decode(r["st"], 1, True), 1)
+    log(f"{what}: {time.perf_counter() - t0:.1f} s")
+    return dict(tokens=run["tokens"], logits=run["logits"],
+                launches={k: got[k] for k in ("paged_flash_decode",
+                                              "row_norm", "gemm")})
+
+
 def moe_phase(dev) -> dict:
     """moonshot-v1-16b-a3b and llama4-maverick-400b-a17b on the card at
     full width on init_params weights (seed 0): card vs CPU (model_phase,
@@ -3934,10 +4020,6 @@ def moe_phase(dev) -> dict:
     for i, arch in enumerate(MOE_ARCHS):
         t0 = time.perf_counter()
         cfg = get_config(arch)
-        if arch in MOE_CARD_VS_CPU:
-            _moe_card_vs_cpu(cfg)
-        else:
-            log(f"moe {arch}: card vs CPU at full width cut for chip time")
         n = MOE_LAYERS.get(arch, cfg.n_layers)
         cut = dataclasses.replace(cfg, n_layers=n)
         depth = f"x{n}" + (f" (depth cut from {cfg.n_layers})"
@@ -3972,24 +4054,37 @@ def moe_phase(dev) -> dict:
                            f"{'skewed' if skewed else 'drained'}",
                            lambda: add(family_pipeline(model, params,
                                                        skewed)))
-        del model, params
+        layers, shapes = MOE_PLAN[arch]
+        tp_cfg = dataclasses.replace(cut, n_layers=layers)
+        tp_model = make_model(tp_cfg, device=dev)
+        tp_params = _first_layers(params, layer_plan(tp_cfg)[0])
+        if shapes[0] != (1, 2):  # the narrowest mesh keeps FSDP
+            kept = build_plan(tp_cfg, make_mesh((1, 2), ("data", "model")),
+                              mode="serve").fsdp
+            require(kept, f"moe serve plan {arch} x{layers} (1, 2): FSDP "
+                    "dropped, so MOE_PLAN can serve it exact")
+            log(f"moe serve plan {arch} x{layers} (1, 2): the plan keeps "
+                f"FSDP ({tp_cfg.param_count() * 2 / 2e9:.1f} GB of weights "
+                "a shard, past the 8 GB line), so its exact plan's "
+                "reductions are row blocks (psum form) and its bits are "
+                f"not one device's; gated on {shapes} instead")
+        exact = {}
+        for shape in shapes:
+            _plan_step(f"moe serve plan {arch} x{layers} {shape}",
+                       lambda: exact.setdefault(shape, _moe_plan_step(
+                           tp_model, tp_params, shape, True)))
+            add(exact[shape]["launches"])
+        if arch in MOE_NO_EXACT:
+            shape = shapes[0]
+            _plan_step(f"moe serve plan {arch} x{layers} {shape} no-exact",
+                       lambda: add(_moe_plan_step(
+                           tp_model, tp_params, shape, False,
+                           exact[shape])["launches"]))
+        del model, params, tp_model, tp_params
         torch.cuda.empty_cache()
         log(f"moe {arch}: {time.perf_counter() - t0:.1f} s; card peak "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
     return launches
-
-
-def _moe_card_vs_cpu(cfg) -> None:
-    """Card against CPU at full width on the same weights (model_phase,
-    paged): 2 of moonshot's 48 layers (a 3.7 GB host copy) and llama4's
-    2-layer period whole, a dense layer then a MoE one: its 37 GB host
-    copy fits the card machine's 96 GiB (about 35 GiB of the ~95 GiB
-    available) and one CPU decode step through it takes ~2 s (it reads
-    the 32 GB of experts), so the whole period runs on both devices."""
-    model_phase("paged", dataclasses.replace(cfg, n_layers=2),
-                note=f" (full width, 2 of {cfg.n_layers} layers"
-                + (", one period: dense, then MoE)" if cfg.moe_every == 2
-                   else ")"))
 
 
 def _mem_available_gib() -> float:
@@ -4140,6 +4235,11 @@ def kernels_phase(dev) -> dict:
     # llama4-maverick-400b-a17b's 8 of five
     kernel_phase(dev, flush, maxp=12, kvh=16, g=1, hd=128)
     kernel_phase(dev, flush, maxp=12, kvh=8, g=5, hd=128)
+    # and at a shard's heads under the MoE serve plans: moonshot's 8 and 4
+    # kv heads on (1, 2) and (1, 4), llama4-maverick's 1 on (1, 8)
+    kernel_phase(dev, flush, maxp=12, kvh=8, g=1, hd=128)
+    kernel_phase(dev, flush, maxp=12, kvh=4, g=1, hd=128)
+    kernel_phase(dev, flush, maxp=12, kvh=1, g=5, hd=128)
     # flash_decode at recurrentgemma-2b's decode heads: hd 256, MQA at
     # G = 10 (two head chunks of 5, each reading the kv head's rows), its
     # window of 2048 over a serve lane's 192 slots, and a window of 512
@@ -4151,6 +4251,7 @@ def kernels_phase(dev) -> dict:
     main_shape["row_norm"] = timed("kernels row_norm",
                                    lambda: row_norm_phase(dev, flush))
     main_shape["gemm"] = gemm_phase(dev, flush)
+    expert_bmm_probe(dev)
     bf, f32 = torch.bfloat16, torch.float32
     main_shape["flash_attention"] = flash_attention_phase(
         dev, flush, 2, 4096, 9, 3, 64, bf, True)  # smollm's forward_logits
@@ -4201,6 +4302,7 @@ def main() -> None:
                     f"spill bytes {spills}; want 0 at every instance")
 
     dev = torch.device("cuda")
+    t_phases = time.perf_counter()
     main_shape = timed("kernels", lambda: kernels_phase(dev))
 
     fa_launches = timed("long forward", lambda: long_forward_phase(dev)
@@ -4219,14 +4321,16 @@ def main() -> None:
     gated.append(timed("spec", lambda: spec_phase(dev, fits)))
     worker = FitWorker()  # the reduced fits, beside phases 10-15
     try:
-        main_rest(dev, main_shape, fa_launches, served, gated, worker)
+        main_rest(dev, main_shape, fa_launches, served, gated, worker,
+                  t_phases)
     finally:
         worker.close()
 
 
 def main_rest(dev, main_shape, fa_launches, served, gated,
-              worker: FitWorker) -> None:
-    """Phases 10-18, the fit worker running until the fitted phase."""
+              worker: FitWorker, t_phases: float) -> None:
+    """Phases 10-18, the fit worker running until the fitted phase;
+    t_phases: the clock at the kernels phase's start."""
     family = timed("families", lambda: families_phase(dev))
     gated.append(family)
     recurrent = timed("recurrent", lambda: recurrent_phase(dev))
@@ -4270,6 +4374,8 @@ def main_rest(dev, main_shape, fa_launches, served, gated,
                    ("i_gelu", "kernels/i_gelu.py:41"),
                    ("row_norm", "models/layers.py:39"),
                    ("gemm", "models/layers.py:28"))]
+    log(f"phases: {time.perf_counter() - t_phases:.1f} s from the kernels "
+        "phase to this summary")
     log(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,8 +35,9 @@ psum-form TP, token streams gated by a match-rate band instead of
 bitwise equality; under `--plan serve_pipeline` the request-skewed
 schedule over lane groups, from stage-local paged arenas (bf16 or
 int8; the attention-only and MoE families), whose streams stay bit
-for bit one device's.  A `--plan serve` plan that cuts refuses the
-recurrent and MoE families and `--quant-weights` (not ported yet).
+for bit one device's.  A `--plan serve` plan that cuts serves the MoE
+families with each shard running its block of the experts, and refuses
+the recurrent families and `--quant-weights` (not ported yet).
 `--dryrun` prints the chosen plan's per-leaf shardings (params + serving
 cache) and exits, allocating nothing.
 

@@ -151,27 +151,28 @@ def act_fn(name: str):
     }[name]
 
 
-def mlp(x: torch.Tensor, p: Params, cfg) -> torch.Tensor:
-    """The MLP block.  Tensor parallel (a serve plan: `wi`, `wg` column
-    `Shards`): shard i computes its block of the hidden units, which meet
-    at `wo` as attention's head outputs do (gathered before a replicated
-    `wo`, or partial products summed, models/shard_hints.py)."""
-    a = act_fn(cfg.act)
-    wi = p["wi"]
+def ffn(x: torch.Tensor, wi, wg, wo, act) -> torch.Tensor:
+    """act(x wg) * (x wi) @ wo (act(x wi) @ wo when wg is None).  Tensor
+    parallel (a serve plan: `wi`, `wg` column `Shards`): shard i computes
+    its block of the hidden units, which meet at `wo` as attention's head
+    outputs do (gathered before a replicated `wo`, or partial products
+    summed, models/shard_hints.py)."""
     xs = broadcast_to(x, wi) if isinstance(wi, Shards) else [x]
     hs = []
     for i, xi in enumerate(xs):
         h = dense(xi, part(wi, i))
-        if cfg.mlp_style == "swiglu":
-            h = a(dense(xi, part(p["wg"], i))) * h
-        else:
-            h = a(h)
-        hs.append(h)
-    wo = p["wo"]
+        hs.append(act(h) if wg is None
+                  else act(dense(xi, part(wg, i))) * h)
     if isinstance(wo, Shards):  # psum form
         return hint([dense(h, wo[i], partial=True)
                      for i, h in enumerate(hs)], "psum").to(h.dtype)
     return dense(hint(hs, "gather"), wo)
+
+
+def mlp(x: torch.Tensor, p: Params, cfg) -> torch.Tensor:
+    """The MLP block (`ffn`, tensor parallel under a serve plan)."""
+    return ffn(x, p["wi"], p["wg"] if cfg.mlp_style == "swiglu" else None,
+               p["wo"], act_fn(cfg.act))
 
 
 # -- embedding / head -------------------------------------------------------

@@ -24,6 +24,13 @@ its keep mask in bf16 and sums over the k choices (f32 accumulation,
 rounded once).  Shared experts are a plain bf16 MLP of width
 ``n_shared_experts * d_ff`` added to the routed sum.
 
+Under a tensor-parallel serve plan (`Shards` leaves) the router runs
+once, whole, on the controller, so every shard drops the same pairs;
+shard i runs the experts of its block of E / n, and the shared experts
+split by column as the MLP does (`layers.ffn`).  No expert's
+contraction is cut, so in an exact plan the output is one device's bit
+for bit (`_experts`).
+
 The experts' SiLU is the reference's on a bf16 array, ``x *
 logistic(x)``, whose lowering rounds each of its ops to bf16 (negate,
 exp, add 1, reciprocal, multiply); `F.silu` rounds once and gives ~40%
@@ -39,7 +46,8 @@ from typing import Any, Dict, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import act_fn, at_lanes, by_column, dense
+from repro_torch.models.layers import act_fn, at_lanes, by_column, ffn
+from repro_torch.models.shard_hints import Shards, hint, part
 
 Params = Dict[str, Any]
 
@@ -105,6 +113,38 @@ def route(x: torch.Tensor, p: Params, cfg, columns: bool = False
     return Routing(gates, experts, rank, rank < cap, aux, cap)
 
 
+def _hidden(xe: torch.Tensor, wi, wg, cfg, act) -> torch.Tensor:
+    """The experts' hidden rows: act(xe wg) * (xe wi), or act(xe wi)."""
+    hi = torch.bmm(xe, wi)
+    if cfg.mlp_style == "swiglu":
+        return act(torch.bmm(xe, wg)) * hi
+    return act(hi)
+
+
+def _experts(xe: torch.Tensor, p: Params, cfg, act) -> torch.Tensor:
+    """The routed experts over their slots, xe (E, rows, D) -> (E, rows,
+    D).  Under a tensor-parallel plan `wi` and `wg` are `Shards` of E / n
+    experts each: shard i takes its experts' block of xe on its device
+    (the single-controller form of the reference's all-to-all at
+    ``hint(xe, "moe")``) and runs their products; the blocks join in
+    expert order on the controller, the hidden rows before a whole `wo`
+    (an exact plan: one product over all E experts, one device's shape)
+    or each shard's outputs where `wo` is `Shards` too (``exact=False``).
+    No expert's contraction is cut, so nothing is summed across shards:
+    each expert's rows are its own products'.  On the card a block of
+    E / n experts gives the same bits as those experts of the E-expert
+    call (chip_smoke.py's expert probe holds it)."""
+    wi, wg, wo = p["wi"], p.get("wg"), p["wo"]
+    ws = wi if isinstance(wi, Shards) else [wi]
+    per = xe.shape[0] // len(ws)
+    hs = [_hidden(xe[i * per:(i + 1) * per].to(w.device), w, part(wg, i),
+                  cfg, act) for i, w in enumerate(ws)]
+    if isinstance(wo, Shards):
+        return hint([torch.bmm(h, w) for h, w in zip(hs, wo)], "gather",
+                    dim=0)
+    return torch.bmm(hint(hs, "gather", dim=0), wo)
+
+
 def moe_ffn(x: torch.Tensor, p: Params, cfg, columns: bool = False,
             lanes=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) bf16 -> (y (B, S, D) bf16, aux 0-d f32).  columns: a
@@ -143,23 +183,13 @@ def moe_ffn(x: torch.Tensor, p: Params, cfg, columns: bool = False,
     buf = buf.index_put((dest.reshape(-1),), src.reshape(-1, d))
     xe = buf[:n_rows].view(e, b * cap, d)
 
-    hi = torch.bmm(xe, p["wi"])
-    if cfg.mlp_style == "swiglu":
-        hi = act(torch.bmm(xe, p["wg"])) * hi
-    else:
-        hi = act(hi)
-    ye = torch.bmm(hi, p["wo"]).reshape(n_rows, d)
-
+    ye = _experts(xe, p, cfg, act).reshape(n_rows, d)
     ye = torch.cat([ye, ye.new_zeros((1, d))])
     back = ye[dest]  # (B, S*k, D)
     w = (r.gates.reshape(b, s * k) * r.keep).to(x.dtype)
     y = torch.sum((back * w[..., None]).reshape(b, s, k, d), dim=2)
 
     if cfg.n_shared_experts:
-        hs = dense(x, p["shared_wi"])
-        if cfg.mlp_style == "swiglu":
-            hs = act(dense(x, p["shared_wg"])) * hs
-        else:
-            hs = act(hs)
-        y = y + dense(hs, p["shared_wo"])
+        y = y + ffn(x, p["shared_wi"], p["shared_wg"] if cfg.mlp_style
+                    == "swiglu" else None, p["shared_wo"], act)
     return y, r.aux

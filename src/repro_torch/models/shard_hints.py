@@ -13,6 +13,8 @@ of the reference's hints:
     linear_o): the per-shard activations concatenated on their last dim,
     in shard order, on shard 0's device (the controller, where the
     replicated projection runs once).  Bit-identical to one device.
+    ``dim=0`` joins the MoE experts' blocks in expert order
+    (models/moe.py), where the reference's all-to-all returns them.
   * `hint(xs, "psum")` — the throughput form (serve_psum, ``--no-exact``):
     the per-shard partial products of a row-sharded reduction projection
     summed in shard order on shard 0's device (`gmi.reduce`, Megatron
@@ -129,20 +131,21 @@ def paged_shard_ctx() -> Optional[Tuple]:
     return c["mesh"], c["tp"], c["tp_n"]
 
 
-def hint(x, kind: str):
-    """kind 'gather' (a list of per-shard activations -> one tensor, the
-    last dims concatenated in shard order on shard 0's device), 'psum'
-    (a list of per-shard partial products -> their sum in shard order on
-    shard 0's device), or a layout kind (returned as it is).  A list is
-    gathered (or summed) whichever serve form is active: the placement
-    decides which list a site holds, and a one-shard list is its part."""
+def hint(x, kind: str, dim: int = -1):
+    """kind 'gather' (a list of per-shard activations -> one tensor,
+    concatenated on `dim` (the last by default; 0 for the MoE experts'
+    blocks) in shard order on shard 0's device), 'psum' (a list of
+    per-shard partial products -> their sum in shard order on shard 0's
+    device), or a layout kind (returned as it is).  A list is gathered (or
+    summed) whichever serve form is active: the placement decides which
+    list a site holds, and a one-shard list is its part."""
     if kind not in ("gather", "psum") or not isinstance(x, list):
         return x
     if len(x) == 1:
         return x[0]
     root = x[0].device
     if kind == "gather":
-        return torch.cat([t.to(root) for t in x], -1)
+        return torch.cat([t.to(root) for t in x], dim)
     acc = x[0]
     for t in x[1:]:
         acc = acc + t.to(root)

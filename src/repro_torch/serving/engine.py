@@ -19,7 +19,8 @@ token fetch, host-side reconciliation.
 A `plan` (core/cluster_builder.build_plan) places the model over a
 device mesh through the executor: a ``mode="serve"`` plan serves the
 paged arena sharded by kv head (exact gather-form TP, or the psum form
-under ``exact=False``), speculation included; an exact
+under ``exact=False``), speculation included, for the attention-only
+and MoE families (a MoE layer's experts split over the shards); an exact
 ``mode="serve_pipeline"`` plan streams the dense slot path through its
 stages (any family whose layer periods divide the stages: the recurrent
 and MoE ones too), and an ``exact=False`` one (the request-skewed
@@ -81,12 +82,14 @@ def plan_cuts(plan) -> bool:
 
 def _check_plan(plan, cfg, quant_weights: bool, buckets=()) -> None:
     """What the port's plans do not take yet (ROADMAP.md §1 item 1): a
-    ``mode="serve"`` plan that cuts a recurrent or MoE family or W8A8
-    weights; and a tensor-parallel plan's prefill longer than the
-    K-ordered products run (one request at its bucket: max(buckets)
-    rows).  A serve_pipeline plan takes every family, and W8A8 too: it
-    needs the layers in whole periods (no tail), and only 2-d (tail)
-    projections are quantized, so its weights stay bf16."""
+    ``mode="serve"`` plan that cuts a recurrent family (part (c)) or W8A8
+    weights (part (d)); and a tensor-parallel plan's prefill longer than
+    the K-ordered products run (one request at its bucket: max(buckets)
+    rows).  A ``mode="serve"`` plan takes the attention-only and MoE
+    families (each shard runs its block of the experts,
+    models/moe.py).  A serve_pipeline plan takes every family, and W8A8
+    too: it needs the layers in whole periods (no tail), and only 2-d
+    (tail) projections are quantized, so its weights stay bf16."""
     if plan is None:
         return
     if plan.mode not in ("serve", "serve_pipeline"):
@@ -106,9 +109,8 @@ def _check_plan(plan, cfg, quant_weights: bool, buckets=()) -> None:
     from repro_torch.models.transformer import layer_plan
     _, _, kinds = layer_plan(cfg)
     _unported(**{
-        "recurrent or MoE families under a plan of mode='serve' (part (b) "
-        "MoE, part (c) recurrent; serve_pipeline serves them)":
-            any(k != "attn" for k in kinds) or bool(cfg.n_experts),
+        "recurrent families under a plan of mode='serve' (part (c); "
+        "serve_pipeline serves them)": any(k != "attn" for k in kinds),
         "W8A8 weights under a plan of mode='serve' (part (d))":
             quant_weights})
 
@@ -124,7 +126,7 @@ class EngineBase:
     attention-only families every projection is stacked over layers (3-d),
     so nothing changes.  Not ported yet (raises `PlanRefused`, a
     NotImplementedError and a ValueError): a ``mode="serve"`` plan that
-    cuts a recurrent or MoE family, or W8A8 weights under one."""
+    cuts a recurrent family, or W8A8 weights under one."""
 
     def __init__(self, model: Model, params, max_batch: int = 8,
                  buckets=(32, 64, 128, 256), deadline_s: float = 0.05,

@@ -17,11 +17,15 @@ plan's `shard_hints.hints` context:
   * ``mode="serve"``: leaves whose spec names the `model` axis become
     `Shards`, one block per shard of the tensor-parallel group (the paged
     arena and dense slot rows by kv head, `wq`/`wk`/`wv`/`wi`/`wg` and
-    the vocabulary by column, and under ``exact=False`` the reduction
-    projections by row); the rest stays whole on the controller (shard
-    0's device).  Kernels 1 and 2 then launch once per shard at its kv
-    heads.  When the kv heads do not divide the axis, attention runs
-    unsharded over a replicated arena (the reference's rule, logged).
+    the vocabulary by column, a MoE layer's `wi`/`wg` by expert and its
+    shared experts' by column, and under ``exact=False`` the reduction
+    projections by row, the experts' `wo` by expert); the rest stays
+    whole on the controller (shard 0's device): the MoE router, and in
+    an exact plan the experts' `wo` and `shared_wo`.  Kernels 1 and 2
+    then launch once per shard at its kv heads.  When the kv heads do
+    not divide the axis, attention runs unsharded over a replicated
+    arena, and when the experts do not, they run whole on the controller
+    (the reference's rules, logged).
     The data axis replicates in serve plans (slot tables never shard the
     batch), so one tensor-parallel group runs.
   * ``mode="serve_pipeline"``: the scan-stacked leaves become `Shards`
@@ -137,6 +141,18 @@ class Executor:
         self.device = model.device
         if self._axis is not None:
             params = self._place(params, plan.specs_for_params(params))
+            n, e = plan.mesh.shape[self._axis], model.cfg.n_experts
+            if self._axis == "model" and e and e % n:
+                self.notes.append(
+                    f"plan: {e} experts do not divide '{self._axis}' ({n}):"
+                    " the routed experts run whole on the controller")
+            if (plan.mode == "serve" and plan.exact and plan.fsdp
+                    and plan.axes.dp):
+                self.notes.append(
+                    "plan: over 8 GB of weights a shard keeps FSDP, so the"
+                    f" reductions are cut over '{self._axis}' ({n}) even in"
+                    " an exact plan: the streams are the psum form's, not"
+                    " one device's bits")
         elif plan is not None:  # the plain programs, on the plan's device
             self.device = plan.mesh.device(0)
             self.model = _bound(model, self.device)

@@ -1350,3 +1350,41 @@ def test_moe_ffn_stage_rows_equal_the_batch_call(dev, monkeypatch):
             for name in ("gates", "experts", "rank", "keep"):
                 assert torch.equal(getattr(routes[-1], name)[rows],
                                    getattr(full, name)[rows]), (r0, name)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_moe_ffn_per_shard_equals_one_device(dev, n):
+    """moonshot-v1-16b-a3b's MoE FFN at full width (one layer of
+    `init_params` weights) under an exact (1, n) serve plan's placement,
+    every shard on the card: each shard runs its 64 / n experts' wi and wg
+    products (torch.bmm over the block) and its columns of the shared
+    experts, the whole wo on the joined rows.  At a decode step (B 8, S 1)
+    and a bucket of 32 (B 1), with the verify pass's `columns` on and off,
+    its output equals the plan-free `moe_ffn` bit for bit."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.cluster_builder import build_plan
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.shard_hints import Shards
+    from repro_torch.models.transformer import (_index, init_params,
+                                                make_model)
+    from repro_torch.serving.executor import Executor
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"), n_layers=1)
+    params = init_params(cfg, seed=0, device=dev)
+    ex = Executor(make_model(cfg, device=dev), params, plan=build_plan(
+        cfg, make_mesh((1, n), ("data", "model")), mode="serve"))
+    whole = _index(params["scan"]["b0"]["ffn"], 0)
+    placed = _index(ex.params["scan"]["b0"]["ffn"], 0)
+    assert isinstance(placed["wi"], Shards) and len(placed["wi"]) == n
+    assert not isinstance(placed["wo"], Shards)
+    gen = torch.Generator(device=dev).manual_seed(n)
+    for b, s in ((8, 1), (1, 32)):
+        x = torch.randn((b, s, cfg.d_model), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        for columns in (False, True):
+            with torch.no_grad():
+                want, _ = moe.moe_ffn(x, whole, cfg, columns=columns)
+                with ex._ctx():
+                    got, _ = moe.moe_ffn(x, placed, cfg, columns=columns)
+            assert torch.equal(got, want), (b, s, columns)

@@ -28,9 +28,13 @@ device's.
     and serves the bf16 streams.
   * Refusals: recurrentgemma-2b (a 2-layer tail) keeps the reference's
     ValueError, xlstm under the skewed plan the engine's (no paged
-    arena), and a ``mode="serve"`` plan `PlanRefused` for both families
-    and W8A8 (ROADMAP.md §1 item 1, parts (b) to (d)); the serve CLI and
-    a plan search's serve_pipeline choice serve them.
+    arena), and a ``mode="serve"`` plan `PlanRefused` for the recurrent
+    families and W8A8 (ROADMAP.md §1 item 1, parts (c) and (d)); the
+    serve CLI and a plan search's serve_pipeline choice serve them, and
+    its ``mode="serve"`` choice serves moonshot.
+  * Against JAX under a ``mode="serve"`` plan: the exact (1, 2) cb
+    engine's streams on the fitted moonshot equal the JAX plan-free paged
+    engine's; the fitted xlstm under the same plan refuses (part (c)).
 
 Tolerances: none, every comparison is exact.
 """
@@ -283,6 +287,26 @@ def test_pipeline_engines_equal_jax_plan_free(fitted):
             2 * eng.stats["decode_steps"] + eng.stats["decode_dispatches"])
 
 
+def test_serve_plan_equals_jax_plan_free(fitted):
+    """The exact (1, 2) ``mode="serve"`` plan: moonshot's paged cb engine,
+    each shard running its block of the experts, gives the JAX plan-free
+    paged engine's streams; xlstm under the same plan still refuses
+    (ROADMAP.md §1 item 1, part (c))."""
+    jm, params, tm, tp = fitted
+    plan = build_plan(tm.cfg, make_mesh((1, 2), ("data", "model"),
+                                        device="cpu"), mode="serve")
+    if not tm.cfg.n_experts:
+        with pytest.raises(teng.PlanRefused, match=r"part \(c\)"):
+            _streams(teng, tm, tp, plan=plan)
+        return
+    with pinned_impl("ref"):
+        want, _ = _streams(jeng, jm, params)
+    got, eng = _streams(teng, tm, tp, plan=plan)
+    assert eng.paged and got == want
+    wi = eng.executor.params["scan"]["b0"]["ffn"]["wi"]
+    assert isinstance(wi, Shards) and len(wi) == 2
+
+
 def test_w8a8_under_a_pipeline_plan_serves_bf16(fitted):
     """A serve_pipeline plan needs the layers in whole periods (no tail),
     and W8A8 quantizes only 2-d (tail) projections: the quantized tree
@@ -322,8 +346,8 @@ def test_refusals():
     layers in periods of 3), which no stage holds: the reference's
     ValueError at the first decode, from the CLI too.  xlstm has no paged
     arena for the skewed loop.  A ``mode="serve"`` plan keeps refusing
-    both families and W8A8 by name (ROADMAP.md §1 item 1, parts (b) to
-    (d))."""
+    the recurrent families and W8A8 by name (ROADMAP.md §1 item 1, parts
+    (c) and (d))."""
     with pytest.raises(ValueError, match="periods to divide the stage"):
         serve_cli.main(CLI + ["--arch", "recurrentgemma-2b"])
     cfg = _cfg(XLSTM)
@@ -332,7 +356,7 @@ def test_refusals():
         teng.ContinuousBatchingEngine(model, params, plan=_plan(cfg, 2, False),
                                       **ENGINE)
     tp_mesh = make_mesh((1, 2), ("data", "model"), device="cpu")
-    for arch in (XLSTM, MOONSHOT, "smollm-135m"):
+    for arch in (XLSTM, "smollm-135m"):
         cfg = _cfg(arch)
         model = tmake(cfg, device="cpu")
         params = init_params(cfg, device="cpu")
@@ -340,21 +364,23 @@ def test_refusals():
             teng.ContinuousBatchingEngine(
                 model, params, plan=build_plan(cfg, tp_mesh, mode="serve"),
                 quant_weights=arch == "smollm-135m", **ENGINE)
-        what = "W8A8" if arch == "smollm-135m" else "recurrent or MoE"
+        what = "W8A8" if arch == "smollm-135m" else "recurrent families"
         assert what in str(err.value) and "mode='serve'" in str(err.value)
 
 
 def test_a_pipeline_choice_of_the_plan_search_serves():
     """`realize` on a serve_pipeline choice for moonshot builds an engine
-    that serves (it raised `PlanRefused` before); a ``mode="serve"``
-    choice still raises."""
+    that serves (it raised `PlanRefused` before), and so does a bf16
+    ``mode="serve"`` choice."""
     cfg = _cfg(MOONSHOT)
     model, params = tmake(cfg, device="cpu"), init_params(cfg, device="cpu")
     for cand, mesh in (
             (Candidate("serve_pipeline", stages=2, exact=False, page_size=4),
              make_mesh((2,), ("stage",), device="cpu")),
             (Candidate("serve_pipeline", stages=2, page_size=0),
-             make_mesh((2,), ("stage",), device="cpu"))):
+             make_mesh((2,), ("stage",), device="cpu")),
+            (Candidate("serve", tp=2, page_size=4),
+             make_mesh((1, 2), ("data", "model"), device="cpu"))):
         score = Score(cand=cand, feasible=True)
         eng = teng.ContinuousBatchingEngine(
             model, params, plan=realize(cfg, score, mesh),
@@ -364,9 +390,3 @@ def test_a_pipeline_choice_of_the_plan_search_serves():
         for i, p in enumerate(affine_prompts(rng, 3, cfg.vocab_size, (4, 20))):
             eng.submit(teng.Request(rid=i, prompt=p, max_new_tokens=4))
         assert [len(r.tokens_out) for r in eng.run()] == [4] * 3
-    score = Score(cand=Candidate("serve", tp=2), feasible=True)
-    plan = realize(cfg, score, make_mesh((1, 2), ("data", "model"),
-                                         device="cpu"))
-    with pytest.raises(teng.PlanRefused, match="mode='serve'"):
-        teng.ContinuousBatchingEngine(model, params, plan=plan,
-                                      **engine_kwargs(score), **ENGINE)

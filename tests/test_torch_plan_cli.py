@@ -106,7 +106,7 @@ def test_plan_auto_dryrun_prints_the_choices_shardings(tmp_path, capsys):
 
 @pytest.mark.parametrize("arch,match", [
     ("smollm-135m", "W8A8 weights under a plan"),
-    ("moonshot-v1-16b-a3b", "recurrent or MoE families under a plan")])
+    ("moonshot-v1-16b-a3b", "W8A8 weights under a plan")])
 def test_a_choice_the_port_refuses_raises(arch, match, tmp_path, capsys):
     with pytest.raises(ValueError, match=match) as err:
         serve_cli.main(BASE + ["--arch", arch, "--plan", "auto",

@@ -316,10 +316,10 @@ def _refuses(match, fn):
 def test_unported_plan_options_refuse(models):
     _, _, tm, tp = models
     plan = _plan(tm.cfg)
-    for arch in ("recurrentgemma-2b", "xlstm-1.3b", "moonshot-v1-16b-a3b"):
+    for arch in ("recurrentgemma-2b", "xlstm-1.3b"):
         cfg = tget(arch).reduced()
         m = tmake(cfg, device="cpu")
-        _refuses("recurrent or MoE", lambda: TorchEngine(
+        _refuses("recurrent families", lambda: TorchEngine(
             m, init_params(cfg, seed=0, device="cpu"),
             plan=_plan(cfg), max_batch=2, buckets=(16,)))
     _refuses("W8A8", lambda: TorchEngine(tm, tp, plan=plan,
