@@ -108,8 +108,7 @@ the JAX package.  Phases, in order — any fault exits non-zero:
 11. recurrent: recurrentgemma-2b (RG-LRU blocks, sliding-window MQA
    attention at hd 256 / G 10, W8A8 tail MLPs) and xlstm-1.3b (mLSTM and
    sLSTM blocks) at full width on random weights: card vs CPU on one
-   period of layers (dense slot rows; xlstm's 8-layer period logged
-   beside the CPU's own 1-thread spread, and gated on 2 layers, an mLSTM
+   period of layers (dense slot rows; xlstm gated on 2 layers, an mLSTM
    then an sLSTM), 8 requests of 32 tokens served
    through the dense-slot cb engine at full depth (recurrentgemma with
    bf16 and with W8A8 weights), exact flash_decode, int8_matmul and
@@ -119,7 +118,11 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    and last-step logits equal to Model.decode_steps, d = 0, ticks
    8 x pipeline_steps(6, 6), row_norm and gemm launches one device's
    scaled per microbatch; recurrentgemma-2b's 2-layer tail takes no
-   stage);
+   stage); then each under mode="serve" plans at full depth
+   (`_recurrent_plan_step`, 8 lanes, dense slots): xlstm on (1, 2) and
+   (1, 4), recurrentgemma on (1, 2), tokens and logits d = 0 against one
+   device on the same admitted state, exact flash_decode, row_norm and
+   gemm launches a step, and recurrentgemma with exact=False logged;
 12. moe: moonshot-v1-16b-a3b (64 experts top-6, 2 shared) and
    llama4-maverick-400b-a17b (a dense layer, then 128 experts top-1 and
    1 shared) at full width on random weights (their card-vs-CPU halves
@@ -282,6 +285,7 @@ from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models import ibert as ib  # noqa: E402
 from repro_torch.models import moe, synthetic  # noqa: E402
+from repro_torch.models import recurrent as rec  # noqa: E402
 from repro_torch.models.quantized import (  # noqa: E402
     is_quantized, quantize_leaf)
 from repro_torch.models.transformer import (  # noqa: E402
@@ -371,10 +375,11 @@ SPEC_PAGES = 30
 # phase came, 8 before the plans phase; the profiler's handling of the
 # window's events took ~100 s at 16)
 PROFILE_REQUESTS = 4
-# the recurrent phase: each model at full width, card vs CPU on one
-# period of its layers (every block kind: recurrentgemma's rglru, rglru,
-# attn; xlstm's 7 mLSTM and 1 sLSTM), then served at full depth
-RECURRENT_CUT = {"recurrentgemma-2b": 3, "xlstm-1.3b": 8}
+# the recurrent phase: each model at full width, card vs CPU on the
+# layers that hold every block kind (recurrentgemma's period: rglru,
+# rglru, attn; xlstm's mLSTM and sLSTM at slstm_every=2), then served at
+# full depth
+RECURRENT_CUT = {"recurrentgemma-2b": 3, "xlstm-1.3b": 2}
 # the moe phase: moonshot-v1-16b-a3b served at all 48 layers (28.9 B
 # parameters, 57.8 GB in bf16) and llama4-maverick-400b-a17b at its
 # 2-layer period (a dense layer, then a MoE layer of 128 experts: 18.6 B,
@@ -2370,14 +2375,107 @@ def family_pipeline(model, params, skewed: bool) -> dict:
     return {k: v for k, v in got_n.items() if v}
 
 
+def _recurrent_plan_step(model, params, shape, exact: bool,
+                         base=None) -> dict:
+    """A recurrent model under a mode="serve" plan on `shape`, every
+    shard on the card: one dense-slot state of 8 admitted lanes
+    (`_dense_state`) through a one-device executor and through the
+    plan's, each running 8 fused decode steps, then one more step fed
+    the same tokens for its logits.  Exact: tokens and logits equal one
+    device's (d = 0), and a step launches flash_decode once an attention
+    layer (recurrentgemma's, whole on the controller), row_norm
+    `_norms_per_call` and gemm `_gemms_per_call` times, no
+    other attention kernel nor int8_matmul; the placement's card memory,
+    each route's wall ms a step and its device ops (profiled, 1 fused
+    step) logged.  exact=False (`base`: the exact step's result): the
+    token match and the logits' max |d| against it, logged.  Returns
+    {"tokens", "logits", "launches"}."""
+    cfg, steps = model.cfg, 8
+    n = shape[1]
+    form = "exact" if exact else "no-exact"
+    what = (f"recurrent plan serve {form} {cfg.name} x{cfg.n_layers} mesh "
+            f"{shape}")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    plan = build_plan(cfg, make_mesh(shape, ("data", "model")),
+                      mode="serve", exact=exact)
+    runs = {}
+    for name, p in (("one device", None), ("plan", plan)):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        ex = Executor(model, params, max_batch=8, cache_len=176,
+                      buckets=serve_cli.BUCKETS, plan=p)
+        if p is not None:
+            torch.cuda.synchronize()
+            placed = torch.cuda.memory_allocated() - held
+            cut = [k for b in ex.params["scan"].values()
+                   for k, v in b["mix"].items() if isinstance(v, list)]
+            require(cut, f"{what}: no mixer leaf is cut")
+            log(f"{what}: placement notes: " + "; ".join(ex.notes))
+        st = _dense_state(ex, cfg, 8, 29)
+        toks, wall, got = _launched(lambda: ex.decode(st, steps, False))
+        with torch.no_grad(), ex._ctx():
+            lg, _ = model.decode_step(ex.params, st["caches"], st["cur"],
+                                      active=st["active"])
+        runs[name] = dict(tokens=toks.cpu(), logits=lg.float().cpu(),
+                          wall=wall, launches=got, ex=ex, st=st)
+    one, run = runs["one device"], runs["plan"]
+    got = run["launches"]
+    kernels = ("flash_decode", "row_norm", "gemm")
+    want = {"flash_decode": _attn_layers(cfg) * steps,
+            "row_norm": _norms_per_call(cfg) * steps,
+            "gemm": _gemms_per_call(cfg, n, exact) * steps}
+    require({k: one["launches"][k] for k in kernels} == dict(
+        want, gemm=_gemms_per_call(cfg, 1, True) * steps),
+        f"{what}: one device's launches {one['launches']}")
+    require({k: got[k] for k in kernels} == want and not any(
+        got[k] for k in ATTN_KERNELS + ("int8_matmul",)
+        if k != "flash_decode"), f"{what}: launches {got} != {want}")
+    if exact:
+        require(torch.equal(run["tokens"], one["tokens"]), f"{what}: "
+                "tokens part from one device's")
+        d = (run["logits"] - one["logits"]).abs().max().item()
+        require(d == 0, f"{what}: logits part from one device's by {d:.4g}")
+        check = "tokens and logits equal one device's (d = 0)"
+    else:
+        match = (run["tokens"] == base["tokens"]).float().mean().item()
+        d = (run["logits"] - base["logits"]).abs().max().item()
+        check = (f"token match against the exact plan {match:.4f}, max "
+                 f"|logits - exact| = {d:.4g} (logged: the reductions' row "
+                 "blocks add their f32 partial sums in shard order)")
+    log(f"{what}: {steps} fused steps on 8 lanes, {check}; launches a step "
+        f"flash_decode={got['flash_decode'] // steps} row_norm="
+        f"{got['row_norm'] // steps} gemm={got['gemm'] // steps} (one "
+        f"device: {one['launches']['flash_decode'] // steps}, "
+        f"{one['launches']['row_norm'] // steps}, "
+        f"{one['launches']['gemm'] // steps}); wall_ms_per_step="
+        f"{run['wall'] * 1e3 / steps:.2f} (one device "
+        f"{one['wall'] * 1e3 / steps:.2f}); the placement's copies "
+        f"{placed / 2 ** 30:.2f} GiB, card peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+    for name, r in runs.items():
+        _route_profile(f"{what}, {name}, 1 fused step (B=8)",
+                       lambda: r["ex"].decode(r["st"], 1, False), 1)
+    log(f"{what}: {time.perf_counter() - t0:.1f} s")
+    return dict(tokens=run["tokens"], logits=run["logits"],
+                launches={k: got[k] for k in kernels})
+
+
+# the recurrent serve plans' steps: (mesh, exact), each at full depth
+RECURRENT_PLAN = {"recurrentgemma-2b": (((1, 2), True), ((1, 2), False)),
+                  "xlstm-1.3b": (((1, 2), True), ((1, 4), True))}
+
+
 def recurrent_phase(dev) -> dict:
     """recurrentgemma-2b and xlstm-1.3b on the card at full width on
-    init_params weights (seed 0): card vs CPU on one period of layers
+    init_params weights (seed 0): card vs CPU on RECURRENT_CUT's layers
     (model_phase, dense slot rows); served at full depth through the
     dense-slot cb engine (recurrentgemma with bf16 and W8A8 weights),
     with exact launch counts; 8 fused decode steps profiled; xlstm on 6
-    drained pipeline stages (`family_pipeline`).  Returns flash_decode's,
-    int8_matmul's, row_norm's and the pipeline's gemm launches."""
+    drained pipeline stages (`family_pipeline`); each under the
+    mode="serve" plans of RECURRENT_PLAN (`_recurrent_plan_step`).
+    Returns flash_decode's, int8_matmul's, row_norm's and the pipeline's
+    and plans' gemm launches."""
     launches = {"flash_decode": 0, "int8_matmul": 0, "row_norm": 0,
                 "gemm": 0}
 
@@ -2389,16 +2487,11 @@ def recurrent_phase(dev) -> dict:
         t0 = time.perf_counter()
         cfg = get_config(arch)
         if arch == "xlstm-1.3b":
-            # one period, 8 layers, is logged beside the CPU's own spread
-            # (random-init mLSTM layers amplify a summation order's
-            # rounding layer by layer); the gate runs both block kinds in
-            # 2 full-width layers, the sLSTM every 2nd
-            model_phase("dense", dataclasses.replace(cfg, n_layers=cut),
-                        note=f" (full width, {cut} of {cfg.n_layers} "
-                        "layers, one period)", gated=False)
+            # the gate runs both block kinds in 2 full-width layers, the
+            # sLSTM every 2nd
             model_phase("dense", dataclasses.replace(
-                cfg, n_layers=2, slstm_every=2), note=" (full width, 2 "
-                "layers: mLSTM, then sLSTM with slstm_every=2)")
+                cfg, n_layers=cut, slstm_every=2), note=f" (full width, "
+                f"{cut} layers: mLSTM, then sLSTM with slstm_every=2)")
         else:
             model_phase("dense", dataclasses.replace(cfg, n_layers=cut),
                         note=f" (full width, depth cut to {cut} of "
@@ -2419,6 +2512,11 @@ def recurrent_phase(dev) -> dict:
         if layer_plan(cfg)[1] == 0:  # recurrentgemma's tail takes no stage
             _plan_step(f"recurrent pipeline {arch} drained", lambda: add(
                 family_pipeline(model, params, skewed=False)))
+        base = None
+        for shape, exact in RECURRENT_PLAN[arch]:
+            got = _recurrent_plan_step(model, params, shape, exact, base)
+            add(got["launches"])
+            base = got if exact else base
         del model, params
         torch.cuda.empty_cache()
         log(f"recurrent {arch}: {time.perf_counter() - t0:.1f} s")
@@ -2429,20 +2527,22 @@ def recurrent_phase(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _gemm_case(label: str, x, w, nk: bool, flush, main: bool = False):
+def _gemm_case(label: str, x, w, nk: bool, flush, main: bool = False,
+               out_dtype=torch.bfloat16):
     """The gemm kernel at one shape against its plain version (the f32
-    product of the same bf16 inputs, rounded to bf16 once): within 2^-8
-    |want| + 1e-5 (|x| @ |w|) (the two sides' rounding and f32 summation
-    order), then timed beside it and beside torch.matmul (cuBLAS, the
-    library yardstick).  Bound: x and w read and out written once over
-    the HBM rate, or 2 M N K operations over the bf16 tensor-core rate."""
+    product of the same bf16 inputs, rounded to bf16 once, or kept f32
+    where out_dtype is, a shard's partial product): within 2^-8 |want| +
+    1e-5 (|x| @ |w|) (the two sides' rounding and f32 summation order),
+    then timed beside it and beside torch.matmul (cuBLAS, the library
+    yardstick).  Bound: x and w read and out written once over the HBM
+    rate, or 2 M N K operations over the bf16 tensor-core rate."""
     wk = w.t() if nk else w
 
     def kernel():
-        return ops.gemm(x, w, w_nk=nk)
+        return ops.gemm(x, w, w_nk=nk, out_dtype=out_dtype)
 
     def plain():
-        return (x.float() @ wk.float()).bfloat16()
+        return (x.float() @ wk.float()).to(out_dtype)
 
     out = kernel()
     want = x.float() @ wk.float()
@@ -2531,28 +2631,68 @@ def gemm_phase(dev, flush) -> dict:
                        (8192, 5120, "llama4 shared_wo / dense wo")):
         _gemm_case(f"{what}, decode M=8 K={k} N={n}", rnd(8, k),
                    rnd(k, n, scale=k ** -0.5), False, flush)
-    for k, n, shards in ((576, 576, 3), (576, 1536, 3), (4096, 4096, 4),
-                         (4096, 1024, 4), (4096, 16384, 4), (2048, 2048, 2),
-                         (2048, 2048, 4), (2048, 2816, 2), (2048, 2816, 4),
-                         (5120, 5120, 8), (5120, 1024, 8), (5120, 8192, 8)):
-        x, w = rnd(128, k), rnd(k, n, scale=k ** -0.5)
-        whole = ops.gemm(x, w)
+    # the recurrent serve plans' products at a decode step: a shard's
+    # columns and the reductions, whole on the controller
+    for k, n, what in ((2048, 2048, "xlstm up_z/up_g shard of 2"),
+                       (2048, 1024, "xlstm up_z/up_g shard of 4"),
+                       (2048, 2730, "xlstm glu_wi shard of 2"),
+                       (2048, 1365, "xlstm glu_wi shard of 4"),
+                       (2560, 1280, "recurrentgemma w_gate_in/w_x_in/"
+                        "w_rgate/w_igate shard of 2"),
+                       (2560, 3840, "recurrentgemma MLP wi/wg shard of 2"),
+                       (4096, 2048, "xlstm down"),
+                       (2730, 2048, "xlstm glu_wo"),
+                       (2560, 2560, "recurrentgemma w_out"),
+                       (7680, 2560, "recurrentgemma MLP wo")):
+        _gemm_case(f"{what}, decode M=8 K={k} N={n}", rnd(8, k),
+                   rnd(k, n, scale=k ** -0.5), False, flush)
+    # their tied heads' column blocks (w as N x K: the embedding's rows)
+    # and, under exact=False, the f32 partial products through a shard's
+    # rows of recurrentgemma's reductions (`layers.project_out`)
+    for k, n, what in ((2560, 128000, "recurrentgemma head shard of 2"),
+                       (2048, 25152, "xlstm head shard of 2"),
+                       (2048, 12576, "xlstm head shard of 4")):
+        _gemm_case(f"{what}, decode M=8 K={k} N={n} (w as N x K)",
+                   rnd(8, k), rnd(n, k, scale=0.02), True, flush)
+    for k, n, what in ((1280, 2560, "recurrentgemma w_out rows of 2"),
+                       (3840, 2560, "recurrentgemma MLP wo rows of 2")):
+        _gemm_case(f"{what}, decode M=8 K={k} N={n} (f32 partial product)",
+                   rnd(8, k), rnd(k, n, scale=k ** -0.5), False, flush,
+                   out_dtype=torch.float32)
+    blocks = [(k, n, shards, False) for k, n, shards in (
+        (576, 576, 3), (576, 1536, 3), (4096, 4096, 4), (4096, 1024, 4),
+        (4096, 16384, 4), (2048, 2048, 2), (2048, 2048, 4), (2048, 2816, 2),
+        (2048, 2816, 4), (5120, 5120, 8), (5120, 1024, 8), (5120, 8192, 8),
+        (2048, 4096, 2), (2048, 4096, 4), (2048, 5460, 2), (2048, 5460, 4),
+        (2560, 2560, 2), (2560, 7680, 2))]
+    # the tied heads, w as N x K: a shard's block is rows of the embedding
+    blocks += [(2048, 50304, 2, True), (2048, 50304, 4, True),
+               (2560, 256000, 2, True)]
+    for k, n, shards, nk in blocks:
+        x = rnd(128, k)
+        w = rnd(n, k, scale=0.02) if nk else rnd(k, n, scale=k ** -0.5)
+        whole = ops.gemm(x, w, w_nk=nk)
         cols = n // shards
-        parts = [w[:, i * cols:(i + 1) * cols].contiguous()
+        parts = [(w[i * cols:(i + 1) * cols] if nk
+                  else w[:, i * cols:(i + 1) * cols]).contiguous()
                  for i in range(shards)]
-        cublas = torch.matmul(x, w)
+        cublas = torch.matmul(x, w.t() if nk else w)
         parted = []
         for m in (1, 6, 8, 40, 64, 128):
-            got = torch.cat([ops.gemm(x[:m], p) for p in parts], 1)
+            got = torch.cat([ops.gemm(x[:m], p, w_nk=nk) for p in parts], 1)
             require(torch.equal(got, whole[:m])
-                    and torch.equal(ops.gemm(x[m - 1:m], w), whole[m - 1:m]),
-                    f"gemm K={k} N={n}: a block parts from the whole at "
-                    f"M={m}")
-            cub = torch.cat([torch.matmul(x[:m], p) for p in parts], 1)
+                    and torch.equal(ops.gemm(x[m - 1:m], w, w_nk=nk),
+                                    whole[m - 1:m]),
+                    f"gemm K={k} N={n}{' (w as N x K)' if nk else ''}: a "
+                    f"block parts from the whole at M={m}")
+            cub = torch.cat([torch.matmul(x[:m], p.t() if nk else p)
+                             for p in parts], 1)
             parted.append(int((cub != cublas[:m]).sum()))
-        log(f"kernel gemm K={k} N={n} in {shards} column blocks at M 1, 6, "
-            f"8, 40, 64, 128: equal to the whole product bit for bit "
-            f"(torch.matmul parts at {parted} outputs)")
+        log(f"kernel gemm K={k} N={n}{' (w as N x K)' if nk else ''} in "
+            f"{shards} column blocks at M 1, 6, 8, 40, 64, 128: equal to "
+            f"the whole product bit for bit (torch.matmul parts at "
+            f"{parted} outputs)")
+        del x, w, whole, parts, cublas
     return main
 
 
@@ -2607,6 +2747,92 @@ def expert_bmm_probe(dev) -> None:
         + f") in {time.perf_counter() - t0:.1f} s")
 
 
+# the mLSTM cell over a block of heads, at xlstm-1.3b's widths: (lanes,
+# steps) of a decode step and of one request's prefill chunks (a bucket
+# of 32, and MLSTM_CHUNK = 128)
+MLSTM_PROBE = ((8, 1), (1, 32), (1, 128))
+# the cell's einsums and sums, each run over a block of heads alone in
+# the probe: (name, the einsum or reduction, the head dim of each operand)
+MLSTM_FORMS = (("q/k/v projection", "bsnh,nhk->bsnk", (2, 0)),
+               ("scores", "binK,bjnK->bijn", (2, 2)),
+               ("intra num", "bijn,bjnh->binh", (3, 2)),
+               ("intra den", "sum2", (3,)),
+               ("inter num", "binK,bnKh->binh", (2, 1)),
+               ("inter den", "binK,bnK->bin", (2, 1)),
+               ("inter den as mul-sum", "mulsum", (2, 1)),
+               ("carry C", "bjn,bjnK,bjnh->bnKh", (2, 2, 2)),
+               ("carry n", "bjn,bjnK->bnK", (2, 2)))
+
+
+def mlstm_head_probe(dev) -> list:
+    """Why a serve plan runs the mLSTM cell whole on the controller
+    (models/recurrent.mlstm_block), logged, not gated (the plan runs no
+    block of heads alone, so nothing on its path rests on it): at
+    xlstm-1.3b's widths (nh 4, ih 1024, dk 512) and each (lanes, steps)
+    of MLSTM_PROBE, each einsum and sum of the cell, MLSTM_FORMS, run
+    over blocks of nh/2 and nh/4 heads alone (contiguous copies), against
+    those heads of the nh-head call.  Returns [(form, B, S, outputs that
+    part at nh/2, at nh/4, outputs)]."""
+    cfg = get_config("xlstm-1.3b")
+    _, nh, ih, dk = rec._mlstm_dims(cfg, cfg.d_model)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    t0 = time.perf_counter()
+
+    def rnd(shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    def block(t, dim, i, per):
+        return t.narrow(dim, i * per, per).contiguous()
+
+    def run(eq, ts):
+        if eq == "sum2":
+            return ts[0].sum(2)
+        if eq == "mulsum":
+            return (ts[0] * ts[1][:, None]).sum(-1)
+        return torch.einsum(eq, *ts)
+
+    wq, wk = (rnd((nh, ih, dk), ih ** -0.5, torch.bfloat16) for _ in "qk")
+    wv = rnd((nh, ih, ih), ih ** -0.5, torch.bfloat16)
+    table = []
+    for b, s in MLSTM_PROBE:
+        z = rnd((b, s, nh, ih), 1.0, torch.bfloat16)
+        C, n_ = rnd((b, nh, dk, ih), 0.1), rnd((b, nh, dk)).abs()
+        qf = (torch.einsum("bsnh,nhk->bsnk", z, wq) / dk ** 0.5).float()
+        kf = (torch.einsum("bsnh,nhk->bsnk", z, wk) / dk ** 0.5).float()
+        vf = torch.einsum("bsnh,nhj->bsnj", z, wv).float()
+        sw = torch.einsum("binK,bjnK->bijn", qf, kf) * 0.01
+        wj = rnd((b, s, nh)).exp()
+        args = {"q/k/v projection": (z, wq), "scores": (qf, kf),
+                "intra num": (sw, vf), "intra den": (sw,),
+                "inter num": (qf, C), "inter den": (qf, n_),
+                "inter den as mul-sum": (qf, n_),
+                "carry C": (wj, kf, vf), "carry n": (wj, kf)}
+        for name, eq, dims in MLSTM_FORMS:
+            ts = args[name]
+            whole = run(eq, ts)
+            out_dim = whole.dim() - 1 if eq in ("sum2", "mulsum") else (
+                eq.split("->")[1].index("n"))
+            parted = []
+            for n in (2, 4):
+                per = nh // n
+                parted.append(sum(int((run(eq, [
+                    block(t, d, i, per) for t, d in zip(ts, dims)])
+                    != whole.narrow(out_dim, i * per, per)).sum())
+                    for i in range(n)))
+            table.append((name, b, s, parted[0], parted[1], whole.numel()))
+    del wq, wk, wv
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"mlstm probe (logged): the cell's forms over blocks of heads "
+        f"alone against the {nh}-head call (xlstm-1.3b: ih {ih}, dk {dk}), "
+        f"outputs that part at nh/2 / nh/4 heads a call, in "
+        f"{time.perf_counter() - t0:.1f} s: " + "; ".join(
+            f"{name} B={b} S={s} {p2}/{p4} of {m}"
+            for name, b, s, p2, p4, m in table))
+    return table
+
+
 PLAN_ARCH = "smollm-135m"  # served on a (1, 3) model axis: 1 kv head a shard
 PLAN_TP = (1, 3)
 PLAN_BIG = ("minitron-8b", (1, 4), 8)  # 2 kv heads a shard, 8 of 32 layers
@@ -2620,24 +2846,40 @@ PLAN_FIT_STEPS = 400
 
 def _gemms_per_call(cfg, n: int, exact: bool) -> int:
     """gemm launches of one backbone call and its head under a serve plan
-    on n tensor-parallel shards: a projection group whose columns divide
-    runs its column products once a shard and its reduction once (whole,
-    exact) or once a shard (row blocks, psum form), else each once.  A
-    MoE layer's gemm products are its shared experts' (the router's f32
-    product and the experts' run elsewhere)."""
+    on n tensor-parallel shards (n = 1: one device): a projection group
+    whose columns divide runs its column products once a shard and its
+    reduction once (whole, exact) or once a shard (row blocks, psum
+    form), else each once; attention whole where its heads do not divide.
+    A MoE layer's gemm products are its shared experts' (the router's f32
+    product and the experts' run elsewhere); an RG-LRU's are `w_gate_in`,
+    `w_x_in`, `w_rgate`, `w_igate` and `w_out`, by width; an mLSTM's a
+    whole `w_if`, then `up_z`, `up_g` and `down` by its inner width (its
+    q/k/v projections are torch.matmul's, whole); an sLSTM's a whole
+    `w_in`, then `glu_wi` by its 2 glu columns and `glu_wo` by its glu
+    rows."""
     def group(cols: int, width: int) -> int:
         split = width % n == 0
         return cols * (n if split else 1) + (n if split and not exact else 1)
 
     attn = cfg.n_kv_heads % n == 0 and cfg.n_heads % n == 0
     mats = 2 if cfg.mlp_style == "swiglu" else 1
+    glu = int(4 * cfg.d_model / 3)
     total = n if cfg.vocab_size % n == 0 else 1
     for layer in range(cfg.n_layers):
-        total += 3 * (n if attn else 1) + (n if attn and not exact else 1)
-        if not cfg.is_moe_layer(layer):
+        kind = cfg.block_kind(layer)
+        if kind == "attn":
+            total += 3 * (n if attn else 1) + (n if attn and not exact else 1)
+        elif kind == "rglru":
+            total += group(4, cfg.rnn_width or cfg.d_model)
+        elif kind == "mlstm":
+            total += 1 + group(2, int(cfg.proj_factor * cfg.d_model))
+        else:  # slstm: glu_wi by its columns, glu_wo by its rows
+            total += 1 + (n if 2 * glu % n == 0 else 1) + group(0, glu)
+        if cfg.is_moe_layer(layer):
+            if cfg.n_shared_experts:
+                total += group(mats, cfg.d_ff * cfg.n_shared_experts)
+        elif cfg.mlp_style != "none" and cfg.d_ff:
             total += group(mats, cfg.d_ff)
-        elif cfg.n_shared_experts:
-            total += group(mats, cfg.d_ff * cfg.n_shared_experts)
     return total
 
 
@@ -4252,6 +4494,7 @@ def kernels_phase(dev) -> dict:
                                    lambda: row_norm_phase(dev, flush))
     main_shape["gemm"] = gemm_phase(dev, flush)
     expert_bmm_probe(dev)
+    mlstm_head_probe(dev)
     bf, f32 = torch.bfloat16, torch.float32
     main_shape["flash_attention"] = flash_attention_phase(
         dev, flush, 2, 4096, 9, 3, 64, bf, True)  # smollm's forward_logits

@@ -36,8 +36,11 @@ bitwise equality; under `--plan serve_pipeline` the request-skewed
 schedule over lane groups, from stage-local paged arenas (bf16 or
 int8; the attention-only and MoE families), whose streams stay bit
 for bit one device's.  A `--plan serve` plan that cuts serves the MoE
-families with each shard running its block of the experts, and refuses
-the recurrent families and `--quant-weights` (not ported yet).
+families with each shard running its block of the experts, and the
+recurrent families on dense slot rows with each shard running its block
+of the RG-LRU's width, or its columns of the mLSTM's and sLSTM's
+projections (both cells whole on the controller); it refuses
+`--quant-weights` (not ported yet).
 `--dryrun` prints the chosen plan's per-leaf shardings (params + serving
 cache) and exits, allocating nothing.
 
@@ -88,6 +91,10 @@ it stops with an error instead of falling back to the CPU.
       --arch xlstm-1.3b --plan serve_pipeline --mesh 2
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \\
       --arch moonshot-v1-16b-a3b --plan serve_pipeline --mesh 2 --no-exact
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \\
+      --arch xlstm-1.3b --plan serve --mesh 1,2 [--no-exact]
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \\
+      --arch recurrentgemma-2b --plan serve --mesh 1,2 [--no-exact]
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \\
       --plan serve --mesh 1,2 --draft-config smollm-135m
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \\

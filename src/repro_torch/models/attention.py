@@ -43,8 +43,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.quant import kv_quantize
-from repro_torch.models.layers import COMPUTE_DTYPE, apply_rope, dense
-from repro_torch.models.shard_hints import Shards, broadcast_to, hint, part
+from repro_torch.models.layers import (COMPUTE_DTYPE, apply_rope, dense,
+                                      project_out)
+from repro_torch.models.shard_hints import Shards, broadcast_to, part
 
 Params = Dict[str, Any]
 
@@ -236,11 +237,7 @@ def attention(x: torch.Tensor, p: Params, cfg, positions: torch.Tensor,
                 None if segment_ids is None else segment_ids.to(dev),
                 pos_contiguous, None if active is None else active.to(dev)))
     outs = [o.reshape(x.shape[0], x.shape[1], -1) for o in outs]
-    wo = p["wo"]
-    if isinstance(wo, Shards):  # psum form: f32 partial products, one sum
-        return hint([dense(o, wo[i], partial=True)
-                     for i, o in enumerate(outs)], "psum").to(x.dtype), cache
-    return dense(hint(outs, "gather"), wo), cache
+    return project_out(outs, p["wo"]), cache
 
 
 def _attend(qs, q, k, v, cfg, cache, positions, segment_ids,

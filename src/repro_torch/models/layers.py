@@ -163,9 +163,18 @@ def ffn(x: torch.Tensor, wi, wg, wo, act) -> torch.Tensor:
         h = dense(xi, part(wi, i))
         hs.append(act(h) if wg is None
                   else act(dense(xi, part(wg, i))) * h)
+    return project_out(hs, wo)
+
+
+def project_out(hs, wo) -> torch.Tensor:
+    """The reduction projection of per-shard blocks `hs` (a list in shard
+    order; one block plan-free): gathered on the controller before a
+    whole `wo` (an exact plan: one device's product), or, where `wo` is
+    row `Shards` (``exact=False``), each block's f32 partial product
+    through its rows, summed in shard order and rounded once."""
     if isinstance(wo, Shards):  # psum form
         return hint([dense(h, wo[i], partial=True)
-                     for i, h in enumerate(hs)], "psum").to(h.dtype)
+                     for i, h in enumerate(hs)], "psum").to(hs[0].dtype)
     return dense(hint(hs, "gather"), wo)
 
 

@@ -6,7 +6,15 @@ chunkwise stabilised recurrence for the mLSTM (`MLSTM_CHUNK` steps a
 chunk, the max-stabiliser ``m`` carried across chunks); the sLSTM is
 sequential by nature.  Decode is a single step on O(1) state.  The
 reference has no kernel here: its products are einsums, so these are
-plain torch products on both devices.
+plain torch products on both devices (the projections `layers.dense`'s).
+
+Under a tensor-parallel serve plan (serving/executor.py places the
+leaves) each block runs per shard in `layers.ffn`'s form: the RG-LRU
+shard i its block of the width; the mLSTM its columns of `up_z` and
+`up_g`, the sLSTM its columns of `glu_wi`, each gathered before the
+cell (or the GLU) runs whole on the controller; the blocks gathered, or
+summed, at the block's reduction projection (`layers.project_out`).  An
+exact plan's outputs and states are one device's, bit for bit.
 
 Pads: a step whose `valid` is False leaves the state alone (RG-LRU: a = 1,
 b = 0; mLSTM: input gate log -1e30, forget gate log 0; sLSTM: the step is
@@ -27,7 +35,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense
+from repro_torch.models.layers import dense, project_out
+from repro_torch.models.shard_hints import Shards, broadcast_to, hint, part
 
 Params = Dict[str, Any]
 
@@ -86,48 +95,74 @@ def rglru_block(x: torch.Tensor, p: Params, cfg,
                 valid: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Griffin recurrent block.  x (B, S, D); state {"h": (B, W) f32,
-    "conv": (B, cw-1, W)}; valid (B, S) bool."""
-    gate = _gelu(dense(x, p["w_gate_in"]))
-    xi_raw = dense(x, p["w_x_in"])
-    conv_state = state["conv"] if state is not None else None
-    xi, new_conv = _causal_conv(xi_raw, p["conv"], conv_state)
-    if valid is not None and state is not None and x.shape[1] > 1:
-        # a prefill with trailing pads: the decode conv state holds the
-        # last valid inputs, not the pad columns
-        cw1 = p["conv"].shape[0] - 1
-        lengths = valid.to(torch.int64).sum(1)
-        gather = torch.clamp(lengths[:, None] - cw1 + torch.arange(
-            cw1, device=x.device)[None], min=0)
-        new_conv = torch.gather(
-            xi_raw, 1, gather[..., None].expand(-1, -1, xi_raw.shape[2]))
-        new_conv = new_conv.to(state["conv"].dtype)
+    "conv": (B, cw-1, W)}; valid (B, S) bool.
 
-    xf = xi.float()
-    # the gate products stay bf16; the sigmoids run in f32
-    r = torch.sigmoid(dense(xi, p["w_rgate"]).float())
-    i = torch.sigmoid(dense(xi, p["w_igate"]).float())
-    log_a = _RGLRU_C * r * F.logsigmoid(p["lam"])  # (B, S, W) <= 0
-    if valid is not None:
-        log_a = _where_valid(valid, log_a, 0.0)
-    a = torch.exp(log_a)
-    b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) * (
-        i * xf)
-    if valid is not None:
-        b = _where_valid(valid, b, 0.0)
+    Tensor parallel (a serve plan: `w_gate_in`, `w_x_in`, `conv`, `lam`
+    and the state by width, `w_rgate` and `w_igate` by column): shard i
+    runs its block of the width end to end, the recurrence being
+    elementwise in W; only the gates' products need the whole conv
+    output, which is gathered and broadcast (a row block of `w_rgate`
+    would be a partial sum).  `y`'s blocks meet at `w_out`
+    (`layers.project_out`)."""
+    wg = p["w_gate_in"]
+    xs = broadcast_to(x, wg) if isinstance(wg, Shards) else [x]
+    gates, convs, new_convs = [], [], []
+    for i, xi in enumerate(xs):
+        gates.append(_gelu(dense(xi, part(wg, i))))
+        xi_raw = dense(xi, part(p["w_x_in"], i))
+        conv = part(p["conv"], i)
+        conv_state = None if state is None else part(state["conv"], i)
+        xc, new_conv = _causal_conv(xi_raw, conv, conv_state)
+        if valid is not None and state is not None and x.shape[1] > 1:
+            # a prefill with trailing pads: the decode conv state holds
+            # the last valid inputs, not the pad columns
+            cw1 = conv.shape[0] - 1
+            lengths = valid.to(xi.device, torch.int64).sum(1)
+            at = torch.clamp(lengths[:, None] - cw1 + torch.arange(
+                cw1, device=xi.device)[None], min=0)
+            new_conv = torch.gather(
+                xi_raw, 1, at[..., None].expand(-1, -1, xi_raw.shape[2]))
+            new_conv = new_conv.to(conv_state.dtype)
+        convs.append(xc)
+        new_convs.append(new_conv)
 
-    if state is None:
-        h = _rglru_scan(a, b)
-        new_state = None
-    elif x.shape[1] == 1:  # decode
-        h = a * state["h"][:, None, :] + b
-        new_state = {"h": h[:, -1], "conv": new_conv}
-    else:  # a prefill from a state: h0 folds into the first step
-        b = torch.cat([b[:, :1] + a[:, :1] * state["h"][:, None], b[:, 1:]],
-                      1)
-        h = _rglru_scan(a, b)
-        new_state = {"h": h[:, -1], "conv": new_conv}
-    y = (gate.float() * h).to(x.dtype)
-    return dense(y, p["w_out"]), new_state
+    xc = hint(convs, "gather")  # the gates' products take the whole width
+    ys, hs = [], []
+    for i, xci in enumerate(broadcast_to(xc, wg) if len(xs) > 1 else [xc]):
+        xf = convs[i].float()
+        # the gate products stay bf16; the sigmoids run in f32
+        r = torch.sigmoid(dense(xci, part(p["w_rgate"], i)).float())
+        g = torch.sigmoid(dense(xci, part(p["w_igate"], i)).float())
+        log_a = _RGLRU_C * r * F.logsigmoid(part(p["lam"], i))  # <= 0
+        v = None if valid is None else valid.to(xci.device)
+        if v is not None:
+            log_a = _where_valid(v, log_a, 0.0)
+        a = torch.exp(log_a)
+        b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a),
+                                   min=1e-12)) * (g * xf)
+        if v is not None:
+            b = _where_valid(v, b, 0.0)
+        if state is None:
+            h = _rglru_scan(a, b)
+        elif x.shape[1] == 1:  # decode
+            h = a * part(state["h"], i)[:, None, :] + b
+        else:  # a prefill from a state: h0 folds into the first step
+            b = torch.cat([b[:, :1] + a[:, :1] * part(state["h"], i)[:, None],
+                           b[:, 1:]], 1)
+            h = _rglru_scan(a, b)
+        hs.append(h[:, -1])
+        ys.append((gates[i].float() * h).to(x.dtype))
+    new_state = None if state is None else {
+        "h": _like(hs, state["h"]), "conv": _like(new_convs, state["conv"])}
+    return project_out(ys, p["w_out"]), new_state
+
+
+def _like(parts, leaf):
+    """Per-shard results held as `leaf` is: `Shards` like it, or the one
+    tensor."""
+    if isinstance(leaf, Shards):
+        return Shards(parts, leaf.axis, leaf.dim)
+    return parts[0]
 
 
 def init_rglru_state(cfg, batch: int, device=None) -> Params:
@@ -197,12 +232,19 @@ def mlstm_block(x: torch.Tensor, p: Params, cfg,
                 valid: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """mLSTM block with its pre-up projection.  x (B, S, D); state {"C",
-    "n", "m"}; valid (B, S) bool."""
+    "n", "m"}; valid (B, S) bool.
+
+    Tensor parallel (a serve plan): `up_z` and `up_g` run per shard on
+    their column blocks, gathered in column order; the cell, its q/k/v
+    weights and its state stay whole on the controller, as the sLSTM's
+    do (a block of heads run alone parts from the nh-head call on an
+    H100: chip_smoke.py's mlstm probe); h * g meets `down`
+    (`layers.project_out`, by its rows where `down` is row `Shards`)."""
     bsz, s, d = x.shape
     inner, nh, ih, dk = _mlstm_dims(cfg, d)
 
-    z = dense(x, p["up_z"]).reshape(bsz, s, nh, ih)
-    g = F.silu(dense(x, p["up_g"]))
+    z = _columns(x, p["up_z"]).reshape(bsz, s, nh, ih)
+    g = F.silu(_columns(x, p["up_g"]))
     q = torch.einsum("bsnh,nhk->bsnk", z, p["wq"]) / math.sqrt(dk)
     k = torch.einsum("bsnh,nhk->bsnk", z, p["wk"]) / math.sqrt(dk)
     v = torch.einsum("bsnh,nhj->bsnj", z, p["wv"])
@@ -238,7 +280,26 @@ def mlstm_block(x: torch.Tensor, p: Params, cfg,
                  {"C": carry[0], "n": carry[1], "m": carry[2]})
 
     y = (g * h.reshape(bsz, s, inner).float()).to(x.dtype)
-    return dense(y, p["down"]), new_state
+    return project_out(_row_blocks(y, p["down"]), p["down"]), new_state
+
+
+def _columns(x: torch.Tensor, w) -> torch.Tensor:
+    """x @ w, where w may be column `Shards`: each shard's block of the
+    product, gathered in column order on the controller (one device's
+    bits: `ops.gemm`'s column blocks equal the whole product's)."""
+    xs = broadcast_to(x, w) if isinstance(w, Shards) else [x]
+    return hint([dense(xi, part(w, i)) for i, xi in enumerate(xs)], "gather")
+
+
+def _row_blocks(v: torch.Tensor, wo) -> list:
+    """`v`, whole on the controller, as `layers.project_out`'s blocks: its
+    column blocks on the shards' devices where `wo` is row `Shards` (the
+    psum form), else [v]."""
+    if not isinstance(wo, Shards):
+        return [v]
+    rows = wo[0].shape[0]
+    return [v[..., i * rows:(i + 1) * rows].to(w.device)
+            for i, w in enumerate(wo)]
 
 
 def init_mlstm_state(cfg, batch: int, device=None) -> Params:
@@ -280,7 +341,14 @@ def slstm_block(x: torch.Tensor, p: Params, cfg,
                 valid: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """sLSTM block with its post-up GLU.  x (B, S, D); state {"h", "c",
-    "n", "m"}; valid (B, S) bool."""
+    "n", "m"}; valid (B, S) bool.
+
+    Tensor parallel (a serve plan): the cell and its state stay whole on
+    the controller; `glu_wi`'s column blocks run per shard and `u` is
+    gathered in column order before its halves are taken (a column block
+    holds one half's columns, never a pair), and the GLU's output meets
+    `glu_wo` (`layers.project_out`, by its rows where `glu_wo` is row
+    `Shards`)."""
     bsz, s, d = x.shape
     xin = dense(x, p["w_in"])
     if state is None:
@@ -300,9 +368,10 @@ def slstm_block(x: torch.Tensor, p: Params, cfg,
     new_state = (None if state is None else
                  dict(zip(("h", "c", "n", "m"), carry)))
 
-    u = dense(y, p["glu_wi"])
+    u = _columns(y, p["glu_wi"])
     a, b = u.chunk(2, dim=-1)
-    return dense(_gelu(a) * b, p["glu_wo"]), new_state
+    return project_out(_row_blocks(_gelu(a) * b, p["glu_wo"]),
+                       p["glu_wo"]), new_state
 
 
 def init_slstm_state(cfg, batch: int, device=None) -> Params:

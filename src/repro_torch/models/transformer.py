@@ -69,13 +69,16 @@ _RECURRENT = {"rglru": rec_mod.rglru_block, "mlstm": rec_mod.mlstm_block,
 
 def _write_state(state, new, active) -> None:
     """A recurrent block's new state into its cache leaves, in place; an
-    inactive lane keeps its old state."""
+    inactive lane keeps its old state.  A leaf a serve plan cuts
+    (`Shards`) is written part by part, each on its own device."""
     for name, leaf in state.items():
-        val = new[name].to(leaf.dtype)
-        if active is not None:
-            gate = active.reshape((-1,) + (1,) * (leaf.dim() - 1))
-            val = torch.where(gate, val, leaf)
-        leaf.copy_(val)
+        for old, val in zip_parts(leaf, new[name]):
+            val = val.to(old.dtype)
+            if active is not None:
+                gate = active.to(old.device).reshape(
+                    (-1,) + (1,) * (old.dim() - 1))
+                val = torch.where(gate, val, old)
+            old.copy_(val)
 
 
 def block_apply(cfg: ModelConfig, pos_in_period: int, p: Params,

@@ -20,13 +20,15 @@ A `plan` (core/cluster_builder.build_plan) places the model over a
 device mesh through the executor: a ``mode="serve"`` plan serves the
 paged arena sharded by kv head (exact gather-form TP, or the psum form
 under ``exact=False``), speculation included, for the attention-only
-and MoE families (a MoE layer's experts split over the shards); an exact
-``mode="serve_pipeline"`` plan streams the dense slot path through its
-stages (any family whose layer periods divide the stages: the recurrent
-and MoE ones too), and an ``exact=False`` one (the request-skewed
-throughput pipeline) serves from stage-local paged arenas with one lane
-group per stage (the attention-only and MoE families).  A plan whose
-axis is 1 wide runs the plain programs on its mesh's device.
+and MoE families (a MoE layer's experts split over the shards), and the
+recurrent families' dense slot rows (the RG-LRU cut by width, the mLSTM
+and sLSTM projections by column, their cells whole on the controller);
+an exact ``mode="serve_pipeline"`` plan streams the dense slot path
+through its stages (any family whose layer periods divide the stages:
+the recurrent and MoE ones too), and an ``exact=False`` one (the
+request-skewed throughput pipeline) serves from stage-local paged arenas
+with one lane group per stage (the attention-only and MoE families).  A
+plan whose axis is 1 wide runs the plain programs on its mesh's device.
 
 ``disagg=(P, D)`` splits a paged engine into a prefill pool and a decode
 pool: cold admissions prefill on the prefill pool into a staging arena,
@@ -81,15 +83,17 @@ def plan_cuts(plan) -> bool:
 
 
 def _check_plan(plan, cfg, quant_weights: bool, buckets=()) -> None:
-    """What the port's plans do not take yet (ROADMAP.md §1 item 1): a
-    ``mode="serve"`` plan that cuts a recurrent family (part (c)) or W8A8
-    weights (part (d)); and a tensor-parallel plan's prefill longer than
-    the K-ordered products run (one request at its bucket: max(buckets)
-    rows).  A ``mode="serve"`` plan takes the attention-only and MoE
-    families (each shard runs its block of the experts,
-    models/moe.py).  A serve_pipeline plan takes every family, and W8A8
-    too: it needs the layers in whole periods (no tail), and only 2-d
-    (tail) projections are quantized, so its weights stay bf16."""
+    """What the port's plans do not take yet (ROADMAP.md §1 item 1): W8A8
+    weights under a ``mode="serve"`` plan that cuts (part (d)); and a
+    tensor-parallel plan's prefill longer than the K-ordered products run
+    (one request at its bucket: max(buckets) rows).  A ``mode="serve"``
+    plan takes every decoder family: attention by kv head, a MoE layer's
+    experts by block (models/moe.py), the recurrent mixers by width or by
+    column (models/recurrent.py; the mLSTM and sLSTM cells whole on the
+    controller).
+    A serve_pipeline plan takes every family, and W8A8 too: it needs the
+    layers in whole periods (no tail), and only 2-d (tail) projections
+    are quantized, so its weights stay bf16."""
     if plan is None:
         return
     if plan.mode not in ("serve", "serve_pipeline"):
@@ -106,13 +110,8 @@ def _check_plan(plan, cfg, quant_weights: bool, buckets=()) -> None:
             f"buckets {tuple(buckets)}: a tensor-parallel serve plan "
             f"prefills at most EXACT_ROWS_MAX = {EXACT_ROWS_MAX} rows (the "
             "K-ordered products; models/layers.py)")
-    from repro_torch.models.transformer import layer_plan
-    _, _, kinds = layer_plan(cfg)
-    _unported(**{
-        "recurrent families under a plan of mode='serve' (part (c); "
-        "serve_pipeline serves them)": any(k != "attn" for k in kinds),
-        "W8A8 weights under a plan of mode='serve' (part (d))":
-            quant_weights})
+    _unported(**{"W8A8 weights under a plan of mode='serve' (part (d))":
+                 quant_weights})
 
 
 class EngineBase:
@@ -125,8 +124,8 @@ class EngineBase:
     run through `int8_matmul`; for smollm-135m and the other
     attention-only families every projection is stacked over layers (3-d),
     so nothing changes.  Not ported yet (raises `PlanRefused`, a
-    NotImplementedError and a ValueError): a ``mode="serve"`` plan that
-    cuts a recurrent family, or W8A8 weights under one."""
+    NotImplementedError and a ValueError): W8A8 weights under a
+    ``mode="serve"`` plan that cuts."""
 
     def __init__(self, model: Model, params, max_batch: int = 8,
                  buckets=(32, 64, 128, 256), deadline_s: float = 0.05,

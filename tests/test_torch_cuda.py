@@ -1388,3 +1388,78 @@ def test_moe_ffn_per_shard_equals_one_device(dev, n):
                 with ex._ctx():
                     got, _ = moe.moe_ffn(x, placed, cfg, columns=columns)
             assert torch.equal(got, want), (b, s, columns)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "xlstm-1.3b"])
+def test_recurrent_blocks_per_shard_equal_one_device(dev, arch, n):
+    """One RG-LRU block (recurrentgemma-2b) or one mLSTM and one sLSTM
+    block (xlstm-1.3b, slstm_every=2) at full width, `init_params`
+    weights with a vocabulary of 256, under an exact (1, n) serve plan's
+    placement, every shard on the card: the RG-LRU's width a shard, the
+    mLSTM's `up_z`/`up_g` columns a shard (one head's on (1, 4)) and the
+    sLSTM's GLU columns, both cells whole on the controller.  From a random state, at a
+    decode step (B 8, S 1) and a bucket of 32 (B 1, trailing pads), each
+    block's output and new state equal the plan-free block's bit for
+    bit."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.cluster_builder import build_plan
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import recurrent as rec
+    from repro_torch.models.shard_hints import Shards
+    from repro_torch.models.transformer import (_index, cache_map,
+                                                init_params, make_model)
+    from repro_torch.serving.executor import Executor
+    blocks = {"rglru": rec.rglru_block, "mlstm": rec.mlstm_block,
+              "slstm": rec.slstm_block}
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, vocab_size=256, **(
+        dict(n_layers=1) if arch == "recurrentgemma-2b"
+        else dict(n_layers=2, slstm_every=2)))
+    model = make_model(cfg, device=dev)
+    params = init_params(cfg, seed=0, device=dev)
+    ex = Executor(model, params, max_batch=8, plan=build_plan(
+        cfg, make_mesh((1, n), ("data", "model")), mode="serve"))
+    gen = torch.Generator(device=dev).manual_seed(n)
+
+    def whole(t):
+        if not isinstance(t, Shards):
+            return t
+        return t[0] if t.dim is None else torch.cat(list(t), t.dim)
+
+    def fill(axis, t):
+        if t.dtype.is_floating_point:
+            t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+        return t
+
+    for b, s in ((8, 1), (1, 32)):
+        caches = cache_map(fill, model.init_cache(b, 32))
+        placed = ex.place_caches(cache_map(lambda a, t: t.clone(), caches),
+                                 False, slot_table=False)
+        x = torch.randn((b, s, cfg.d_model), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        valid = torch.ones((b, s), dtype=torch.bool, device=dev)
+        valid[0, s - s // 4:] = False
+        sites = [(cfg.block_kind(j), _index(params["scan"][k], 0),
+                  _index(ex.params["scan"][k], 0), _index(caches["scan"][k],
+                                                          0),
+                  _index(placed["scan"][k], 0))
+                 for j, k in enumerate(params["scan"])]
+        sites += [(cfg.block_kind(int(k)), params["tail"][k],
+                   ex.params["tail"][k], caches["tail"][k],
+                   placed["tail"][k]) for k in params["tail"]]
+        for kind, p, pp, st, pst in sites:
+            if "n" in st:
+                st["n"].abs_()
+                for part in (pst["n"] if isinstance(pst["n"], Shards)
+                             else [pst["n"]]):
+                    part.abs_()
+            with torch.no_grad():
+                y, new = blocks[kind](x, p["mix"], cfg, dict(st), valid)
+                with ex._ctx():
+                    y2, new2 = blocks[kind](x, pp["mix"], cfg, dict(pst),
+                                            valid)
+            assert torch.equal(y, y2), (kind, b, s)
+            for k in new:
+                assert torch.equal(new[k], whole(new2[k])), (kind, k, b, s)

@@ -288,23 +288,21 @@ def test_pipeline_engines_equal_jax_plan_free(fitted):
 
 
 def test_serve_plan_equals_jax_plan_free(fitted):
-    """The exact (1, 2) ``mode="serve"`` plan: moonshot's paged cb engine,
-    each shard running its block of the experts, gives the JAX plan-free
-    paged engine's streams; xlstm under the same plan still refuses
-    (ROADMAP.md §1 item 1, part (c))."""
+    """The exact (1, 2) ``mode="serve"`` plan gives the JAX plan-free
+    engine's streams: moonshot's paged cb engine, each shard running its
+    block of the experts, and xlstm's dense-slot cb engine, each shard
+    running its columns of the mLSTM's `up_z` and `up_g` (ROADMAP.md §1
+    item 1, part (c))."""
     jm, params, tm, tp = fitted
     plan = build_plan(tm.cfg, make_mesh((1, 2), ("data", "model"),
                                         device="cpu"), mode="serve")
-    if not tm.cfg.n_experts:
-        with pytest.raises(teng.PlanRefused, match=r"part \(c\)"):
-            _streams(teng, tm, tp, plan=plan)
-        return
     with pinned_impl("ref"):
         want, _ = _streams(jeng, jm, params)
     got, eng = _streams(teng, tm, tp, plan=plan)
-    assert eng.paged and got == want
-    wi = eng.executor.params["scan"]["b0"]["ffn"]["wi"]
-    assert isinstance(wi, Shards) and len(wi) == 2
+    assert eng.paged == bool(tm.cfg.n_experts) and got == want
+    blk = eng.executor.params["scan"]["b0"]
+    leaf = blk["ffn"]["wi"] if tm.cfg.n_experts else blk["mix"]["up_z"]
+    assert isinstance(leaf, Shards) and len(leaf) == 2
 
 
 def test_w8a8_under_a_pipeline_plan_serves_bf16(fitted):
@@ -346,8 +344,8 @@ def test_refusals():
     layers in periods of 3), which no stage holds: the reference's
     ValueError at the first decode, from the CLI too.  xlstm has no paged
     arena for the skewed loop.  A ``mode="serve"`` plan keeps refusing
-    the recurrent families and W8A8 by name (ROADMAP.md §1 item 1, parts
-    (c) and (d))."""
+    W8A8 by name (ROADMAP.md §1 item 1, part (d)), recurrentgemma's tail
+    MLPs as smollm's."""
     with pytest.raises(ValueError, match="periods to divide the stage"):
         serve_cli.main(CLI + ["--arch", "recurrentgemma-2b"])
     cfg = _cfg(XLSTM)
@@ -356,16 +354,16 @@ def test_refusals():
         teng.ContinuousBatchingEngine(model, params, plan=_plan(cfg, 2, False),
                                       **ENGINE)
     tp_mesh = make_mesh((1, 2), ("data", "model"), device="cpu")
-    for arch in (XLSTM, "smollm-135m"):
+    for arch in ("recurrentgemma-2b", "smollm-135m"):
         cfg = _cfg(arch)
         model = tmake(cfg, device="cpu")
         params = init_params(cfg, device="cpu")
         with pytest.raises(teng.PlanRefused, match="§1 item 1") as err:
             teng.ContinuousBatchingEngine(
                 model, params, plan=build_plan(cfg, tp_mesh, mode="serve"),
-                quant_weights=arch == "smollm-135m", **ENGINE)
-        what = "W8A8" if arch == "smollm-135m" else "recurrent families"
-        assert what in str(err.value) and "mode='serve'" in str(err.value)
+                quant_weights=True, **ENGINE)
+        assert "W8A8" in str(err.value) and "part (d)" in str(err.value)
+        assert "mode='serve'" in str(err.value)
 
 
 def test_a_pipeline_choice_of_the_plan_search_serves():

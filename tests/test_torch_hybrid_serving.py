@@ -23,7 +23,10 @@ with `params_from_jax`:
 * a parked lane's state and KV rows are untouched by decode steps;
 * W8A8 weights (recurrentgemma's two tail MLPs through `int8_matmul`)
   keep the streams within 1% of the bf16 ones, as the reference holds
-  itself (tests/test_quant_kv.py).
+  itself (tests/test_quant_kv.py);
+* under a tensor-parallel ``mode="serve"`` plan on (1, 2) the exact
+  streams equal the JAX plan-free engine's, and ``exact=False`` keeps a
+  token match of at least 0.98 against them.
 """
 import jax
 import numpy as np
@@ -99,6 +102,32 @@ def test_engine_matches_jax_engine(fitted):
     assert got == want
     assert eng.stats == jeng_.stats
     assert [len(t) for t in got] == [b for _, b in stream]
+
+
+def test_serve_plan_equals_jax_plan_free(fitted):
+    """The port's dense-slot cb engine under a ``mode="serve"`` plan on
+    (1, 2) against the JAX plan-free engine, the stream and buckets of
+    `test_engine_matches_jax_engine`: the exact plan's streams are
+    identical; ``exact=False`` (the reductions' row blocks summed in
+    shard order) keeps a token match of at least 0.98."""
+    from repro_torch.core.cluster_builder import build_plan
+    from repro_torch.launch.mesh import make_mesh
+    cfg, jm, params, tm, tp = fitted
+    stream = _stream(cfg, 2, long=True)
+    buckets = (16, 32, 64)
+    with pinned_impl("ref"):
+        want, _ = _serve(jeng, jm, params, stream, buckets=buckets)
+    mesh = make_mesh((1, 2), ("data", "model"), device="cpu")
+    got = {}
+    for exact in (True, False):
+        plan = build_plan(tm.cfg, mesh, mode="serve", exact=exact)
+        got[exact], eng = _serve(teng, tm, tp, stream, buckets=buckets,
+                                 plan=plan)
+        assert not eng.paged and eng.executor.notes
+    assert got[True] == want
+    pairs = [(a, b) for x, y in zip(got[False], want) for a, b in zip(x, y)]
+    match = sum(a == b for a, b in pairs) / len(pairs)
+    assert match >= 0.98, match
 
 
 @pytest.mark.parametrize("engine", ["cb", "wave"])

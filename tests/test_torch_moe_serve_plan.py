@@ -25,9 +25,9 @@ are bit for bit one device's.
     equal their plan-free streams; ``--no-exact`` keeps a token match of
     at least 0.98 against the exact plan's streams.
   * The serve CLI serves moonshot under ``--plan serve --mesh 1,2``, with
-    and without ``--no-exact``, and still refuses xlstm-1.3b (part (c));
-    a plan search's bf16 ``mode="serve"`` choice serves, a W8A8 one
-    raises part (d)'s refusal.
+    and without ``--no-exact``, and still refuses recurrentgemma-2b's
+    W8A8 weights (part (d)); a plan search's bf16 ``mode="serve"`` choice
+    serves, a W8A8 one raises part (d)'s refusal.
   * An exact plan keeps its reductions whole only where it drops FSDP
     (at most 8 GB of weights a shard): llama4's full-width period keeps
     FSDP on (1, 2) and not on (1, 8), the mesh the card run gates.  A
@@ -309,8 +309,11 @@ def test_cli_serves_moonshot_under_a_serve_plan(extra, capsys):
 
 
 def test_cli_still_refuses_a_recurrent_family():
-    with pytest.raises(teng.PlanRefused, match=r"part \(c\)"):
-        serve_cli.main(CLI + ["--arch", "xlstm-1.3b"])
+    """A recurrent family serves under the plan (part (c)); with W8A8
+    weights it still refuses, naming part (d)."""
+    with pytest.raises(teng.PlanRefused, match=r"W8A8.*part \(d\)"):
+        serve_cli.main(CLI + ["--arch", "recurrentgemma-2b",
+                              "--quant-weights"])
 
 
 def test_plan_search_serve_choices():

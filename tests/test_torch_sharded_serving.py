@@ -47,7 +47,6 @@ from repro_torch.launch import serve as serve_cli
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.shard_hints import Shards
-from repro_torch.models.transformer import init_params
 from repro_torch.models.transformer import make_model as tmake
 from repro_torch.serving.engine import ContinuousBatchingEngine as TorchEngine
 from repro_torch.serving.executor import Executor
@@ -316,12 +315,6 @@ def _refuses(match, fn):
 def test_unported_plan_options_refuse(models):
     _, _, tm, tp = models
     plan = _plan(tm.cfg)
-    for arch in ("recurrentgemma-2b", "xlstm-1.3b"):
-        cfg = tget(arch).reduced()
-        m = tmake(cfg, device="cpu")
-        _refuses("recurrent families", lambda: TorchEngine(
-            m, init_params(cfg, seed=0, device="cpu"),
-            plan=_plan(cfg), max_batch=2, buckets=(16,)))
     _refuses("W8A8", lambda: TorchEngine(tm, tp, plan=plan,
                                          quant_weights=True, **ENGINE))
     for exact in (True, False):  # the reference's refusal, by ValueError

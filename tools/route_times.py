@@ -10,8 +10,10 @@ decode step's products and norms (wrapper against the library call, at
 smollm-135m's shapes, 2,000 back to back: the host, not the card, bounds
 them); with `--quick`, the serve phase alone; with `--row-norm`, the
 tree's row-norm kernel phase alone (every width and row count, checked,
-bf16 timed beside the plain version and F.rms_norm / F.layer_norm).  Two
-trees compared in one call, on one card:
+bf16 timed beside the plain version and F.rms_norm / F.layer_norm); with
+`--xlstm`, xlstm-1.3b alone (its profiled 8 fused decode steps: wall ms,
+busy share, device ops; and the tree's mLSTM head probe where it has
+one).  Two trees compared in one call, on one card:
 
     python tools/route_times.py _parent && python tools/route_times.py . \
         && python tools/route_times.py . && python tools/route_times.py _parent
@@ -70,6 +72,18 @@ def host_phase(cs) -> None:
         f"{k}={v:.2f}" for k, v in rows.items()))
 
 
+def xlstm_phase(cs, dev) -> None:
+    """xlstm-1.3b at full depth on init_params weights (seed 0): the
+    tree's 8 fused decode steps on dense slot rows under the profiler,
+    then its mLSTM head probe where the tree has one."""
+    cfg = cs.get_config("xlstm-1.3b")
+    model = cs.make_model(cfg, device=dev)
+    params = cs.init_params(cfg, seed=0, device=dev)
+    cs._recurrent_profile(model, params)
+    if hasattr(cs, "mlstm_head_probe"):
+        cs.mlstm_head_probe(dev)
+
+
 def main() -> None:
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
     root = os.path.abspath(args[0] if args else os.path.join(
@@ -95,6 +109,10 @@ def main() -> None:
         del flush
     if "--host" in sys.argv:
         host_phase(cs)
+    if "--xlstm" in sys.argv:
+        cs.timed("xlstm", lambda: xlstm_phase(cs, dev))
+        cs.log(f"route_times: tree {root} done")
+        return
     if "--row-norm" in sys.argv:
         flush = torch.empty(256 * 2 ** 20, dtype=torch.int32, device=dev)
         cs.timed("row_norm", lambda: cs.row_norm_phase(dev, flush))
