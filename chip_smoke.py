@@ -118,11 +118,16 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    and last-step logits equal to Model.decode_steps, d = 0, ticks
    8 x pipeline_steps(6, 6), row_norm and gemm launches one device's
    scaled per microbatch; recurrentgemma-2b's 2-layer tail takes no
-   stage); then each under mode="serve" plans at full depth
-   (`_recurrent_plan_step`, 8 lanes, dense slots): xlstm on (1, 2) and
-   (1, 4), recurrentgemma on (1, 2), tokens and logits d = 0 against one
-   device on the same admitted state, exact flash_decode, row_norm and
-   gemm launches a step, and recurrentgemma with exact=False logged;
+   stage); then each under mode="serve" plans on its first layers, views
+   of the phase's weights (`_recurrent_plan_step`, 8 lanes, dense slots):
+   xlstm x8 on (1, 2) and (1, 4), recurrentgemma x5 (a period and its
+   2-layer tail) on (1, 2) with bf16 and with W8A8 weights (its tail
+   MLPs: each shard's column blocks of wi and wg, wo whole or, under
+   exact=False, by row), tokens and logits d = 0 against one device on
+   the same admitted state, exact flash_decode, row_norm, gemm and
+   int8_matmul launches a step, each W8A8 MLP on its shards' blocks
+   equal to one device's bit for bit in both forms, and recurrentgemma
+   with exact=False logged;
 12. moe: moonshot-v1-16b-a3b (64 experts top-6, 2 shared) and
    llama4-maverick-400b-a17b (a dense layer, then 128 experts top-1 and
    1 shared) at full width on random weights (their card-vs-CPU halves
@@ -136,12 +141,13 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    required on the rows with no drop; 8 fused decode steps profiled (the
    expert products' share of device time and their bytes against the
    bound) (their reduced fits gated in the fitted phase); then moonshot
-   x48 on 6 serve_pipeline stages at B 12, drained on dense slot rows
-   and request-skewed on a paged bf16 arena (lane groups of 2), on the
-   phase's weights: tokens and last-step logits equal to
-   Model.decode_steps (d = 0), ticks, and flash_decode / paged_flash_decode
-   48 x 6 launches a step (`family_pipeline`; llama4's one period takes
-   no 6 stages); then each under a mode="serve" plan, every shard on the
+   x12 (MOE_PIPELINE_LAYERS, views of the phase's weights, 2 layers a
+   stage) on 6 serve_pipeline stages at B 12, drained on dense slot rows
+   and request-skewed on a paged bf16 arena (lane groups of 2): tokens
+   and last-step logits equal to Model.decode_steps (d = 0), ticks, and
+   flash_decode / paged_flash_decode 12 x 6 launches a step
+   (`family_pipeline`; llama4's one period takes no 6 stages); then each
+   under a mode="serve" plan, every shard on the
    card running its block of the experts (MOE_PLAN: moonshot's first 12
    layers, views of the phase's tree, on (1, 2) and (1, 4), llama4's
    period on (1, 8), the narrowest mesh where its plan drops FSDP and so
@@ -231,7 +237,20 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    fit_affine_lm (Model.loss backward through its blocks) by a worker
    process (this script with --fit-worker) that runs beside phases
    10-15, then each gated card vs CPU at token match 1.0 (gate_phase);
-17. encode: the integer I-BERT encoder (ibert-base at full width, 12
+17. train: smollm-135m at full width through the train CLI
+   (`repro_torch.launch.train.main`, init_params seed 0, adamw, remat,
+   B 8, S 512, 30 steps, checkpoints every 10, a failure injected at
+   step 15): the loss falls (the last 10 steps' mean under the first
+   10's), the recovery report is exactly the injection's (1 restart,
+   step 15 failed, recovered from 10), the restored params on the card,
+   every kept checkpoint's checksums verify, row_norm launched 4n + 1
+   times a step (the forward's 2n + 1, the remat's recompute of every
+   period's 2n) and no other kernel (every recorded product runs in
+   torch.matmul); the final params saved and restored bit for bit,
+   timed; 5 steps of adamw8, finite; one step's gradients with remat
+   equal those without bit for bit; steps/s, tokens/s and peak memory
+   logged;
+18. encode: the integer I-BERT encoder (ibert-base at full width, 12
    layers, random float weights from seed 0, calibrated at batch 1, seq
    128) through `repro_torch.launch.ibert_encoder`: one forward must
    launch exactly 72 / 12 / 24 / 12 int8_matmul / i_softmax / i_layernorm
@@ -240,12 +259,13 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    tests/test_ibert_model.py's bounds, 12 within the reference's own
    12-layer error on these weights); then one forward under
    torch.profiler, and the entry point's time at seq 1, 8, 32, 64, 128;
-18. summary: a JSON line of the kernels (the decode kernels' launches
+19. summary: a JSON line of the kernels (the decode kernels' launches
    include the gate's, the spec phase's, the families', the recurrent
    phase's, the moe phase's, the plans phase's, the fleet phase's, the
    plansearch phase's and the fitted phase's;
    row_norm's are the serve phases' and the families', recurrent, MoE,
-   plans, fleet and plansearch models' served streams; gemm's the serve
+   plans, fleet and plansearch models' served streams and the train
+   phase's two CLI runs; gemm's the serve
    phases' and the plans, fleet and plansearch phases' streams and the
    recurrent and moe phases' pipelines; int8_matmul's the encoder's and
    recurrentgemma's W8A8
@@ -282,12 +302,15 @@ from repro_torch.core.quant import QTensor  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.launch import ibert_encoder  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.data.pipeline import TokenPipeline  # noqa: E402
+from repro_torch.optim.optimizer import tree_leaves  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models import ibert as ib  # noqa: E402
 from repro_torch.models import moe, synthetic  # noqa: E402
 from repro_torch.models import recurrent as rec  # noqa: E402
 from repro_torch.models.quantized import (  # noqa: E402
-    is_quantized, quantize_leaf)
+    column_major, is_quantized, quantize_leaf)
 from repro_torch.models.transformer import (  # noqa: E402
     init_params, layer_plan, make_model, paged_cache_map)
 from repro_torch.roofline import analysis  # noqa: E402
@@ -401,6 +424,9 @@ MOE_LAYERS = {"llama4-maverick-400b-a17b": 2}
 MOE_PLAN = {"moonshot-v1-16b-a3b": (12, ((1, 2), (1, 4))),
             "llama4-maverick-400b-a17b": (2, ((1, 8),))}
 MOE_NO_EXACT = ("moonshot-v1-16b-a3b",)
+# the layers of moonshot's stage pipelines: its first 12 (views), 2 a
+# stage (cut from 48 for chip time)
+MOE_PIPELINE_LAYERS = 12
 # the fleet phase: lanes a replica (and a disaggregated engine), and the
 # affinity rebalance margin in token-steps, past the 16 requests' whole
 # backlog (16 x (128 + 16)), so every prefix group stays on one replica
@@ -425,6 +451,11 @@ FIT_WAIT_S = 600
 # 8 lanes and a 128-token prefill bucket
 INT8_DECODER_SHAPES = ((8, 2560, 7680), (8, 7680, 2560), (128, 2560, 7680),
                        (128, 7680, 2560))
+# and a shard's under a (1, 2) mode="serve" plan at 8 lanes: a column
+# block of wi / wg (K 2560 -> N 3840), and a row block of wo under
+# exact=False (K 3840 -> N 2560); an exact plan's wo is whole (above).
+# Each block is stored column-major, as the executor places it
+INT8_SHARD_SHAPES = ((8, 2560, 3840, "column"), (8, 3840, 2560, "row"))
 
 
 def log(msg: str) -> None:
@@ -925,7 +956,8 @@ def ibert_kernel_phase(dev, flush) -> dict:
 
 def int8_decoder_phase(dev, flush) -> None:
     """int8_matmul at recurrentgemma-2b's W8A8 tail-MLP shapes
-    (INT8_DECODER_SHAPES), the weight quantized per channel and stored
+    (INT8_DECODER_SHAPES) and at a (1, 2) serve plan's shard blocks
+    (INT8_SHARD_SHAPES), the weight quantized per channel and stored
     column-major as `models/quantized.quantize_leaf` keeps it, the int32
     product only (qdense scales it afterwards): bit-exact against the
     plain version, timed beside torch._int_mm (whose M must exceed 16:
@@ -933,19 +965,32 @@ def int8_decoder_phase(dev, flush) -> None:
     that padded call)."""
     rng = np.random.default_rng(13)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for m, k, n in INT8_DECODER_SHAPES:
+    cases = [(m, k, n, None) for m, k, n in INT8_DECODER_SHAPES]
+    for m, k, n, block in cases + list(INT8_SHARD_SHAPES):
         a = torch.tensor(rng.integers(-127, 128, (m, k)), dtype=torch.int8,
                          device=dev)
-        w = torch.tensor(rng.normal(0, 0.02, (k, n)), dtype=torch.bfloat16,
-                         device=dev)
-        q = quantize_leaf(w)["q"]
+        if block is None:
+            w = torch.tensor(rng.normal(0, 0.02, (k, n)),
+                             dtype=torch.bfloat16, device=dev)
+            q = quantize_leaf(w)["q"]
+        else:  # shard 0's block of the whole (1, 2) weight, placed
+            whole = (k, 2 * n) if block == "column" else (2 * k, n)
+            w = torch.tensor(rng.normal(0, 0.02, whole),
+                             dtype=torch.bfloat16, device=dev)
+            q = quantize_leaf(w)["q"]
+            q = column_major(q[:, :n] if block == "column" else q[:k])
+        require(q.t().is_contiguous(), f"int8_matmul {m}x{k}x{n}: the "
+                "weight is not column-major")
         brow = q.contiguous()
         pad = 32 if m <= 16 else m
         ap = torch.zeros((pad, k), dtype=torch.int8, device=dev)
         ap[:m] = a
+        where = ("" if block is None else f", a (1, 2) shard's {block} "
+                 "block")
         _ibert_case(
-            "int8_matmul", f"{m}x{k}x{n} int32, recurrentgemma-2b W8A8 "
-            f"(B column-major; split-K {ops.int8_matmul_split(m, n, k, sms)};"
+            "int8_matmul", f"{m}x{k}x{n} int32, recurrentgemma-2b W8A8"
+            f"{where} (B column-major; split-K "
+            f"{ops.int8_matmul_split(m, n, k, sms)};"
             f" library torch._int_mm on row-major B"
             f"{', rows padded to 32' if pad != m else ''})",
             lambda: ops.int8_matmul(a, q, 1.0, 1.0),
@@ -2376,7 +2421,7 @@ def family_pipeline(model, params, skewed: bool) -> dict:
 
 
 def _recurrent_plan_step(model, params, shape, exact: bool,
-                         base=None) -> dict:
+                         base=None, quant: bool = False) -> dict:
     """A recurrent model under a mode="serve" plan on `shape`, every
     shard on the card: one dense-slot state of 8 admitted lanes
     (`_dense_state`) through a one-device executor and through the
@@ -2384,15 +2429,17 @@ def _recurrent_plan_step(model, params, shape, exact: bool,
     the same tokens for its logits.  Exact: tokens and logits equal one
     device's (d = 0), and a step launches flash_decode once an attention
     layer (recurrentgemma's, whole on the controller), row_norm
-    `_norms_per_call` and gemm `_gemms_per_call` times, no
-    other attention kernel nor int8_matmul; the placement's card memory,
-    each route's wall ms a step and its device ops (profiled, 1 fused
-    step) logged.  exact=False (`base`: the exact step's result): the
-    token match and the logits' max |d| against it, logged.  Returns
-    {"tokens", "logits", "launches"}."""
+    `_norms_per_call` and gemm and int8_matmul `_products_per_call`
+    times, no other attention kernel; the placement's card memory, each
+    route's wall ms a step and its device ops (profiled, 1 fused step)
+    logged.  exact=False (`base`: the exact step's result): the token
+    match and the logits' max |d| against it, logged.  quant: W8A8
+    weights on both routes, each quantized MLP of the plan's placement
+    (`layers.mlp` on its shards' blocks) equal to one device's bit for
+    bit in either form.  Returns {"tokens", "logits", "launches"}."""
     cfg, steps = model.cfg, 8
     n = shape[1]
-    form = "exact" if exact else "no-exact"
+    form = ("exact" if exact else "no-exact") + (" W8A8" if quant else "")
     what = (f"recurrent plan serve {form} {cfg.name} x{cfg.n_layers} mesh "
             f"{shape}")
     t0 = time.perf_counter()
@@ -2404,7 +2451,7 @@ def _recurrent_plan_step(model, params, shape, exact: bool,
         torch.cuda.synchronize()
         held = torch.cuda.memory_allocated()
         ex = Executor(model, params, max_batch=8, cache_len=176,
-                      buckets=serve_cli.BUCKETS, plan=p)
+                      buckets=serve_cli.BUCKETS, plan=p, quant_weights=quant)
         if p is not None:
             torch.cuda.synchronize()
             placed = torch.cuda.memory_allocated() - held
@@ -2421,16 +2468,24 @@ def _recurrent_plan_step(model, params, shape, exact: bool,
                           wall=wall, launches=got, ex=ex, st=st)
     one, run = runs["one device"], runs["plan"]
     got = run["launches"]
-    kernels = ("flash_decode", "row_norm", "gemm")
-    want = {"flash_decode": _attn_layers(cfg) * steps,
-            "row_norm": _norms_per_call(cfg) * steps,
-            "gemm": _gemms_per_call(cfg, n, exact) * steps}
-    require({k: one["launches"][k] for k in kernels} == dict(
-        want, gemm=_gemms_per_call(cfg, 1, True) * steps),
-        f"{what}: one device's launches {one['launches']}")
+    kernels = ("flash_decode", "row_norm", "gemm", "int8_matmul")
+
+    def want_at(shards, ex_):
+        gemm, int8 = _products_per_call(cfg, shards, ex_, quant)
+        return {"flash_decode": _attn_layers(cfg) * steps,
+                "row_norm": _norms_per_call(cfg) * steps,
+                "gemm": gemm * steps, "int8_matmul": int8 * steps}
+    want = want_at(n, exact)
+    require({k: one["launches"][k] for k in kernels} == want_at(1, True),
+            f"{what}: one device's launches {one['launches']}")
     require({k: got[k] for k in kernels} == want and not any(
-        got[k] for k in ATTN_KERNELS + ("int8_matmul",)
-        if k != "flash_decode"), f"{what}: launches {got} != {want}")
+        got[k] for k in ATTN_KERNELS if k != "flash_decode"),
+        f"{what}: launches {got} != {want}")
+    require(quant == (want["int8_matmul"] > 0), f"{what}: W8A8 {quant} but "
+            f"{want['int8_matmul']} int8_matmul launches")
+    if quant:
+        _quantized_mlps_equal(what, cfg, runs["plan"]["ex"],
+                              runs["one device"]["ex"])
     if exact:
         require(torch.equal(run["tokens"], one["tokens"]), f"{what}: "
                 "tokens part from one device's")
@@ -2445,10 +2500,12 @@ def _recurrent_plan_step(model, params, shape, exact: bool,
                  "blocks add their f32 partial sums in shard order)")
     log(f"{what}: {steps} fused steps on 8 lanes, {check}; launches a step "
         f"flash_decode={got['flash_decode'] // steps} row_norm="
-        f"{got['row_norm'] // steps} gemm={got['gemm'] // steps} (one "
+        f"{got['row_norm'] // steps} gemm={got['gemm'] // steps} "
+        f"int8_matmul={got['int8_matmul'] // steps} (one "
         f"device: {one['launches']['flash_decode'] // steps}, "
         f"{one['launches']['row_norm'] // steps}, "
-        f"{one['launches']['gemm'] // steps}); wall_ms_per_step="
+        f"{one['launches']['gemm'] // steps}, "
+        f"{one['launches']['int8_matmul'] // steps}); wall_ms_per_step="
         f"{run['wall'] * 1e3 / steps:.2f} (one device "
         f"{one['wall'] * 1e3 / steps:.2f}); the placement's copies "
         f"{placed / 2 ** 30:.2f} GiB, card peak "
@@ -2461,9 +2518,46 @@ def _recurrent_plan_step(model, params, shape, exact: bool,
                 launches={k: got[k] for k in kernels})
 
 
-# the recurrent serve plans' steps: (mesh, exact), each at full depth
-RECURRENT_PLAN = {"recurrentgemma-2b": (((1, 2), True), ((1, 2), False)),
-                  "xlstm-1.3b": (((1, 2), True), ((1, 4), True))}
+def _quantized_mlps_equal(what: str, cfg, ex, one) -> None:
+    """Each W8A8 MLP of `ex`'s placement (its shards' {"q", "s"} blocks,
+    under its plan's context) against one device's (`one`), on one
+    random 8-lane decode input and one 32-row prefill input: equal bit
+    for bit; `q`'s blocks column-major."""
+    from repro_torch.models.layers import mlp
+    gen = torch.Generator(device=one.device).manual_seed(31)
+    for t, blk in ex.params["tail"].items():
+        ffn = blk.get("ffn", {})
+        wi = ffn.get("wi")
+        if not is_quantized(wi[0] if isinstance(wi, list) else wi):
+            continue
+        for leaf in ("wi", "wg", "wo"):
+            for b in (ffn[leaf] if isinstance(ffn[leaf], list)
+                      else [ffn[leaf]]):
+                require(b["q"].t().is_contiguous(), f"{what}: tail {t} "
+                        f"{leaf}'s q block is not column-major")
+        for shape in ((8, 1), (1, 32)):
+            x = torch.randn(shape + (cfg.d_model,), generator=gen,
+                            device=one.device).bfloat16()
+            with torch.no_grad():
+                want = mlp(x, one.params["tail"][t]["ffn"], cfg)
+                with ex._ctx():
+                    got = mlp(x, ffn, cfg)
+            d = (got.float() - want.float()).abs().max().item()
+            require(torch.equal(got, want), f"{what}: tail {t}'s W8A8 MLP "
+                    f"at {shape} parts from one device's by {d:.4g}")
+    log(f"{what}: each W8A8 tail MLP on its shards' blocks equals one "
+        "device's bit for bit (8 x 1 and 1 x 32 rows); every q block "
+        "column-major")
+
+
+# the recurrent serve plans' steps: (layers, ((mesh, exact, W8A8), ...)),
+# each on the first `layers` layers of the full-depth weights (views):
+# recurrentgemma-2b's one period and its 2-layer tail (where its only
+# 2-d, W8A8 leaves are), xlstm-1.3b's one period
+RECURRENT_PLAN = {
+    "recurrentgemma-2b": (5, (((1, 2), True, False), ((1, 2), False, False),
+                              ((1, 2), True, True), ((1, 2), False, True))),
+    "xlstm-1.3b": (8, (((1, 2), True, False), ((1, 4), True, False)))}
 
 
 def recurrent_phase(dev) -> dict:
@@ -2473,7 +2567,8 @@ def recurrent_phase(dev) -> dict:
     dense-slot cb engine (recurrentgemma with bf16 and W8A8 weights),
     with exact launch counts; 8 fused decode steps profiled; xlstm on 6
     drained pipeline stages (`family_pipeline`); each under the
-    mode="serve" plans of RECURRENT_PLAN (`_recurrent_plan_step`).
+    mode="serve" plans of RECURRENT_PLAN (`_recurrent_plan_step`, on its
+    first layers as views; recurrentgemma with bf16 and W8A8 weights).
     Returns flash_decode's, int8_matmul's, row_norm's and the pipeline's
     and plans' gemm launches."""
     launches = {"flash_decode": 0, "int8_matmul": 0, "row_norm": 0,
@@ -2512,12 +2607,20 @@ def recurrent_phase(dev) -> dict:
         if layer_plan(cfg)[1] == 0:  # recurrentgemma's tail takes no stage
             _plan_step(f"recurrent pipeline {arch} drained", lambda: add(
                 family_pipeline(model, params, skewed=False)))
-        base = None
-        for shape, exact in RECURRENT_PLAN[arch]:
-            got = _recurrent_plan_step(model, params, shape, exact, base)
+        layers, plan_steps = RECURRENT_PLAN[arch]
+        cut_cfg = dataclasses.replace(cfg, n_layers=layers)
+        cut_model = make_model(cut_cfg, device=dev)
+        cut_params = _first_layers(params, layer_plan(cut_cfg)[0])
+        require(layer_plan(cut_cfg)[1] == layer_plan(cfg)[1],
+                f"{arch} x{layers}: the cut keeps another tail")
+        base = {}
+        for shape, exact, quant in plan_steps:
+            got = _recurrent_plan_step(cut_model, cut_params, shape, exact,
+                                       base.get(quant), quant)
             add(got["launches"])
-            base = got if exact else base
-        del model, params
+            if exact:
+                base[quant] = got
+        del model, params, cut_model, cut_params
         torch.cuda.empty_cache()
         log(f"recurrent {arch}: {time.perf_counter() - t0:.1f} s")
     return launches
@@ -2845,18 +2948,25 @@ PLAN_FIT_STEPS = 400
 
 
 def _gemms_per_call(cfg, n: int, exact: bool) -> int:
-    """gemm launches of one backbone call and its head under a serve plan
-    on n tensor-parallel shards (n = 1: one device): a projection group
-    whose columns divide runs its column products once a shard and its
-    reduction once (whole, exact) or once a shard (row blocks, psum
-    form), else each once; attention whole where its heads do not divide.
-    A MoE layer's gemm products are its shared experts' (the router's f32
-    product and the experts' run elsewhere); an RG-LRU's are `w_gate_in`,
-    `w_x_in`, `w_rgate`, `w_igate` and `w_out`, by width; an mLSTM's a
-    whole `w_if`, then `up_z`, `up_g` and `down` by its inner width (its
-    q/k/v projections are torch.matmul's, whole); an sLSTM's a whole
-    `w_in`, then `glu_wi` by its 2 glu columns and `glu_wo` by its glu
-    rows."""
+    return _products_per_call(cfg, n, exact)[0]
+
+
+def _products_per_call(cfg, n: int, exact: bool,
+                       quant: bool = False) -> tuple:
+    """(gemm, int8_matmul) launches of one backbone call and its head
+    under a serve plan on n tensor-parallel shards (n = 1: one device): a
+    projection group whose columns divide runs its column products once a
+    shard and its reduction once (whole, exact) or once a shard (row
+    blocks, psum form), else each once; attention whole where its heads
+    do not divide.  A MoE layer's gemm products are its shared experts'
+    (the router's f32 product and the experts' run elsewhere); an
+    RG-LRU's are `w_gate_in`, `w_x_in`, `w_rgate`, `w_igate` and `w_out`,
+    by width; an mLSTM's a whole `w_if`, then `up_z`, `up_g` and `down`
+    by its inner width (its q/k/v projections are torch.matmul's, whole);
+    an sLSTM's a whole `w_in`, then `glu_wi` by its 2 glu columns and
+    `glu_wo` by its glu rows.  quant (W8A8): the tail layers' attention
+    and MLP groups (their 2-d leaves, `models/quantized.py`) run in
+    int8_matmul instead, each as its gemm products would."""
     def group(cols: int, width: int) -> int:
         split = width % n == 0
         return cols * (n if split else 1) + (n if split and not exact else 1)
@@ -2864,23 +2974,27 @@ def _gemms_per_call(cfg, n: int, exact: bool) -> int:
     attn = cfg.n_kv_heads % n == 0 and cfg.n_heads % n == 0
     mats = 2 if cfg.mlp_style == "swiglu" else 1
     glu = int(4 * cfg.d_model / 3)
-    total = n if cfg.vocab_size % n == 0 else 1
+    counts = {"gemm": n if cfg.vocab_size % n == 0 else 1, "int8": 0}
+    tail0 = cfg.n_layers - layer_plan(cfg)[1]
     for layer in range(cfg.n_layers):
         kind = cfg.block_kind(layer)
+        w = "int8" if quant and layer >= tail0 else "gemm"
         if kind == "attn":
-            total += 3 * (n if attn else 1) + (n if attn and not exact else 1)
+            counts[w] += 3 * (n if attn else 1) + (n if attn and not exact
+                                                   else 1)
         elif kind == "rglru":
-            total += group(4, cfg.rnn_width or cfg.d_model)
+            counts["gemm"] += group(4, cfg.rnn_width or cfg.d_model)
         elif kind == "mlstm":
-            total += 1 + group(2, int(cfg.proj_factor * cfg.d_model))
+            counts["gemm"] += 1 + group(2, int(cfg.proj_factor * cfg.d_model))
         else:  # slstm: glu_wi by its columns, glu_wo by its rows
-            total += 1 + (n if 2 * glu % n == 0 else 1) + group(0, glu)
+            counts["gemm"] += 1 + (n if 2 * glu % n == 0 else 1) + group(
+                0, glu)
         if cfg.is_moe_layer(layer):
             if cfg.n_shared_experts:
-                total += group(mats, cfg.d_ff * cfg.n_shared_experts)
+                counts["gemm"] += group(mats, cfg.d_ff * cfg.n_shared_experts)
         elif cfg.mlp_style != "none" and cfg.d_ff:
-            total += group(mats, cfg.d_ff)
-    return total
+            counts[w] += group(mats, cfg.d_ff)
+    return counts["gemm"], counts["int8"]
 
 
 def _plan_engine_pass(eng, reqs, what: str) -> tuple:
@@ -4244,8 +4358,8 @@ def moe_phase(dev) -> dict:
     (moonshot at all 48 layers, llama4 at its 2-layer period) with exact
     launch counts; one verify block against its chained decode steps,
     logged, d = 0 required on its clean rows; 8 fused decode steps
-    profiled; moonshot on 6 drained and 6 skewed pipeline stages
-    (`family_pipeline`).  Returns the decode kernels', row_norm's and the
+    profiled; moonshot's first MOE_PIPELINE_LAYERS on 6 drained and 6
+    skewed pipeline stages (`family_pipeline`).  Returns the decode kernels', row_norm's and the
     pipelines' gemm launches."""
     launches = {"paged_flash_decode": 0, "row_norm": 0, "flash_decode": 0,
                 "gemm": 0}
@@ -4291,11 +4405,15 @@ def moe_phase(dev) -> dict:
                 "dropped pair parts from the chained decode steps")
         _moe_profile(model, params)
         if layer_plan(cut)[0] % PLAN_STAGES == 0:  # not llama4's one period
+            pipe_cfg = dataclasses.replace(cut, n_layers=MOE_PIPELINE_LAYERS)
+            pipe_model = make_model(pipe_cfg, device=dev)
+            pipe_params = _first_layers(params, layer_plan(pipe_cfg)[0])
             for skewed in (False, True):
-                _plan_step(f"moe pipeline {arch} "
+                _plan_step(f"moe pipeline {arch} x{MOE_PIPELINE_LAYERS} "
                            f"{'skewed' if skewed else 'drained'}",
-                           lambda: add(family_pipeline(model, params,
-                                                       skewed)))
+                           lambda: add(family_pipeline(
+                               pipe_model, pipe_params, skewed)))
+            del pipe_model, pipe_params
         layers, shapes = MOE_PLAN[arch]
         tp_cfg = dataclasses.replace(cut, n_layers=layers)
         tp_model = make_model(tp_cfg, device=dev)
@@ -4327,6 +4445,172 @@ def moe_phase(dev) -> dict:
         log(f"moe {arch}: {time.perf_counter() - t0:.1f} s; card peak "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
     return launches
+
+
+# the train phase: smollm-135m at full width through the train CLI
+TRAIN_ARCH = "smollm-135m"
+TRAIN_ARGS = ("--arch", TRAIN_ARCH, "--batch", "8", "--seq", "512",
+              "--seed", "0")
+TRAIN_FAIL_AT = 15
+
+
+def _train_run(argv, ckpt_dir: str) -> tuple:
+    """`train.main(argv)` with the launch counts set to 0 just before and
+    read just after: (its result, the launches, wall seconds)."""
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = train_cli.main(list(TRAIN_ARGS) + list(argv)
+                         + ["--ckpt-dir", ckpt_dir])
+    torch.cuda.synchronize()
+    return out, dict(ops.launches), time.perf_counter() - t0
+
+
+def _require_train_launches(what: str, cfg, got: dict, steps: int) -> int:
+    """row_norm 4n + 1 a step (the forward's 2n + 1 and the remat
+    recompute's 2n; its backward is the plain version's), no other
+    kernel (recorded products run in torch.matmul, S <= 1,024 on the
+    dense attention route).  Returns the row_norm launches."""
+    per = _norms_per_call(cfg) + 2 * cfg.n_layers
+    others = {k: v for k, v in got.items() if k != "row_norm" and v}
+    require(got["row_norm"] == per * steps and not others,
+            f"{what}: launches {got}, want row_norm {per} x {steps} steps "
+            "and nothing else")
+    return got["row_norm"]
+
+
+def _verify_checkpoint(mgr, step: int) -> int:
+    """Every leaf file's sha256 against the manifest; returns the bytes
+    read."""
+    import hashlib
+    d = os.path.join(mgr.dir, f"step_{step:08d}")
+    with open(os.path.join(d, "manifest.json")) as f:
+        manifest = json.load(f)
+    total = 0
+    for key, meta in manifest["leaves"].items():
+        with open(os.path.join(d, meta["file"]), "rb") as f:
+            raw = f.read()
+        total += len(raw)
+        require(hashlib.sha256(raw).hexdigest() == meta["sha256"],
+                f"checkpoint step {step}: {key}'s checksum fails")
+    return total
+
+
+def train_phase(dev) -> dict:
+    """Training on the card through the train CLI (module docstring, phase
+    17).  Returns the CLI runs' row_norm launches."""
+    cfg = get_config(TRAIN_ARCH)
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        out, got, wall = _train_run(
+            ["--steps", "30", "--ckpt-every", "10", "--inject-failure-at",
+             str(TRAIN_FAIL_AT), "--optimizer", "adamw"],
+            os.path.join(root, "adamw"))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        what = f"train {cfg.name} x{cfg.n_layers} adamw"
+        rep, losses = out["report"], out["losses"]
+        require((rep.restarts, rep.failed_steps, rep.recovered_from,
+                 rep.completed_steps) == (1, [TRAIN_FAIL_AT], [10], 30),
+                f"{what}: recovery report {rep}, want exactly the injected "
+                "failure's (a restart hides no fault of the program)")
+        require(len(losses) == 35 and all(np.isfinite(losses)),
+                f"{what}: {len(losses)} losses, want 35 finite (steps 10-14 "
+                "replayed)")
+        first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+        require(last < first, f"{what}: loss {first:.4f} -> {last:.4f} did "
+                "not fall")
+        require(out["restored_devices"] == [["cuda:0"]], f"{what}: the "
+                f"restore put the params on {out['restored_devices']}")
+        leaves = tree_leaves(out["state"]["params"])
+        require(all(p.is_cuda for p in leaves), f"{what}: final params "
+                "left the card")
+        norms = _require_train_launches(what, cfg, got, len(losses))
+        mgr = out["ckpt"]
+        kept = mgr.all_steps()
+        require(kept == [20, 30], f"{what}: checkpoints kept {kept}")
+        nbytes = sum(_verify_checkpoint(mgr, st) for st in kept)
+        t0 = time.perf_counter()
+        mgr.save(1000, {"params": out["state"]["params"]}, blocking=True)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, back = mgr.restore(1000, device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        require(all(torch.equal(a, b) for a, b in zip(
+            leaves, tree_leaves(back["params"]))), f"{what}: a saved and "
+            "restored leaf parts from the trained one")
+        steady = sorted(out["step_s"][2:])
+        step_s = steady[len(steady) // 2]
+        log(f"{what}: B=8 S=512, 30 steps (35 run: failure at "
+            f"{TRAIN_FAIL_AT}, recovered from 10), loss {first:.4f} -> "
+            f"{last:.4f}; median step {step_s * 1e3:.1f} ms = "
+            f"{1 / step_s:.2f} steps/s = {8 * 512 / step_s:.0f} tokens/s "
+            f"(host clock to the loss on the host, steps 3 on); wall "
+            f"{wall:.1f} s; card peak {peak:.2f} GiB; row_norm launches "
+            f"{norms} (= {norms // len(losses)} a step x {len(losses)}), "
+            f"no other kernel; checkpoints {kept} verified "
+            f"({nbytes / 2 ** 20:.1f} MiB); the CLI's restore "
+            f"{out['restore_s'][0]:.3f} s; the final params saved in "
+            f"{save_s:.3f} s (host copy and blocking write) and restored "
+            f"in {restore_s:.3f} s, bit for bit; {_card()}")
+        del out, leaves, back
+
+        out8, got8, wall8 = _train_run(
+            ["--steps", "5", "--ckpt-every", "5", "--optimizer", "adamw8"],
+            os.path.join(root, "adamw8"))
+        what8 = f"train {cfg.name} x{cfg.n_layers} adamw8"
+        require(out8["opt"] == "adamw8" and len(out8["losses"]) == 5
+                and all(np.isfinite(out8["losses"])),
+                f"{what8}: losses {out8['losses']}")
+        q = out8["state"]["opt"]["m"]["embed"]["tok"]["q"]
+        require(q.dtype == torch.int8 and q.is_cuda, f"{what8}: moment "
+                f"{q.dtype} on {q.device}")
+        norms += _require_train_launches(what8, cfg, got8, 5)
+        log(f"{what8}: 5 steps, losses "
+            + " ".join(f"{x:.4f}" for x in out8["losses"])
+            + f"; wall {wall8:.1f} s; int8 moments on the card")
+        del out8
+        _remat_probe(cfg, dev)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"row_norm": norms}
+
+
+def _remat_probe(cfg, dev) -> None:
+    """One train step's gradients from the same params and batch, with
+    and without remat: equal bit for bit; row_norm launches 4n + 1 and
+    2n + 1."""
+    params = init_params(cfg, seed=0, device=dev)
+    b = TokenPipeline(cfg.vocab_size, 8, 512, seed=0).next_batch()
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+    got = {}
+    for remat in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        loss, grads = train_cli._grads(
+            make_model(cfg, remat=remat, device=dev), params, batch)
+        torch.cuda.synchronize()
+        got[remat] = (loss, tree_leaves(grads), ops.launches["row_norm"],
+                      time.perf_counter() - t0,
+                      torch.cuda.max_memory_allocated() / 2 ** 30)
+    same = torch.equal(got[False][0], got[True][0]) and all(
+        torch.equal(a, b) for a, b in zip(got[False][1], got[True][1]))
+    n = cfg.n_layers
+    require(same, "train remat probe: remat's gradients part from no "
+            "remat's")
+    require((got[False][2], got[True][2]) == (2 * n + 1, 4 * n + 1),
+            f"train remat probe: row_norm launches {got[False][2]} / "
+            f"{got[True][2]}, want {2 * n + 1} / {4 * n + 1}")
+    log(f"train remat probe {cfg.name} B=8 S=512: loss and all "
+        f"{len(got[True][1])} gradients equal with and without remat, bit "
+        f"for bit; row_norm launches {got[False][2]} / {got[True][2]}; "
+        f"{got[False][3]:.3f} / {got[True][3]:.3f} s and card peak "
+        f"{got[False][4]:.2f} / {got[True][4]:.2f} GiB for the step's "
+        "gradients without / with remat")
 
 
 def _mem_available_gib() -> float:
@@ -4587,12 +4871,14 @@ def main_rest(dev, main_shape, fa_launches, served, gated,
     searched = timed("plansearch", lambda: plansearch_phase(dev))
     gated.append(searched)
     gated.append(timed("fitted", lambda: fitted_phase(dev, worker)))
+    trained = timed("train", lambda: train_phase(dev))
     launches = {k: sum(s["launches"] for s in served if s["kernel"] == k)
                 + sum(g.get(k, 0) for g in gated) for k in DECODE_KERNELS}
     launches["row_norm"] = (sum(s["row_norm"] for s in served)
                             + family["row_norm"] + recurrent["row_norm"]
                             + moe_launches["row_norm"] + plans["row_norm"]
-                            + fleet["row_norm"] + searched["row_norm"])
+                            + fleet["row_norm"] + searched["row_norm"]
+                            + trained["row_norm"])
     launches["gemm"] = (sum(s["gemm"] for s in served) + plans["gemm"]
                         + fleet["gemm"] + searched["gemm"] + recurrent["gemm"]
                         + moe_launches["gemm"])

@@ -39,8 +39,10 @@ for bit one device's.  A `--plan serve` plan that cuts serves the MoE
 families with each shard running its block of the experts, and the
 recurrent families on dense slot rows with each shard running its block
 of the RG-LRU's width, or its columns of the mLSTM's and sLSTM's
-projections (both cells whole on the controller); it refuses
-`--quant-weights` (not ported yet).
+projections (both cells whole on the controller), and
+`--quant-weights` with each shard running its blocks of the quantized
+projections (recurrentgemma-2b's two tail MLPs), bit for bit one
+device's in an exact plan.
 `--dryrun` prints the chosen plan's per-leaf shardings (params + serving
 cache) and exits, allocating nothing.
 
@@ -94,7 +96,8 @@ it stops with an error instead of falling back to the CPU.
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \\
       --arch xlstm-1.3b --plan serve --mesh 1,2 [--no-exact]
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \\
-      --arch recurrentgemma-2b --plan serve --mesh 1,2 [--no-exact]
+      --arch recurrentgemma-2b --plan serve --mesh 1,2 [--no-exact] \\
+      [--quant-weights]
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \\
       --plan serve --mesh 1,2 --draft-config smollm-135m
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \\

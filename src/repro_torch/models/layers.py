@@ -171,8 +171,12 @@ def project_out(hs, wo) -> torch.Tensor:
     order; one block plan-free): gathered on the controller before a
     whole `wo` (an exact plan: one device's product), or, where `wo` is
     row `Shards` (``exact=False``), each block's f32 partial product
-    through its rows, summed in shard order and rounded once."""
+    through its rows, summed in shard order and rounded once (W8A8 rows:
+    the int32 partial sums, `quantized.qdense_rows`, one device's bits)."""
     if isinstance(wo, Shards):  # psum form
+        if isinstance(wo[0], dict):  # W8A8 rows: int32 partial sums
+            from repro_torch.models.quantized import qdense_rows
+            return qdense_rows(hs, wo)
         return hint([dense(h, wo[i], partial=True)
                      for i, h in enumerate(hs)], "psum").to(hs[0].dtype)
     return dense(hint(hs, "gather"), wo)

@@ -27,8 +27,8 @@ of the reference's hints:
     'state', 'last') only constrained XLA's placement of an activation;
     there is nothing to constrain here, so they return x as it is.
 
-`fsdp_int8_gather` (int8 FSDP weight gathers) belongs to training and
-is not ported yet (ROADMAP.md, §1 item 5).
+`fsdp_int8_gather` (int8 FSDP weight gathers) belongs to the sharded
+training step and is not ported yet (ROADMAP.md §1).
 """
 from __future__ import annotations
 
@@ -154,13 +154,15 @@ def hint(x, kind: str, dim: int = -1):
 
 def broadcast_to(x: torch.Tensor, like: Sequence) -> List[torch.Tensor]:
     """x copied to the device of each shard of `like` (a `Shards` or a
-    list of tensors): the GMI broadcast of an activation that the
-    controller holds to the shards that use it (one tensor per device)."""
+    list of tensors; a part may be a W8A8 {"q", "s"} leaf, on its q's
+    device): the GMI broadcast of an activation that the controller holds
+    to the shards that use it (one tensor per device)."""
     held: Dict[str, torch.Tensor] = {}
     out = []
     for p in like:
-        key = str(p.device)
+        dev = (p["q"] if isinstance(p, dict) else p).device
+        key = str(dev)
         if key not in held:
-            held[key] = x if x.device == p.device else x.to(p.device)
+            held[key] = x if x.device == dev else x.to(dev)
         out.append(held[key])
     return out

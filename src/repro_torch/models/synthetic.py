@@ -144,7 +144,10 @@ def fit_affine_lm(model, steps: int = 1000, lr: float = 1e-2, seed: int = 0,
         from repro_torch.models.transformer import init_params
 
         params = init_params(model.cfg, seed=seed, device=model.device)
-        _FIT_CACHE[key] = _fit(model, params, steps, lr, seed,
+        # every activation kept: at S = 32 remat saves nothing, and its
+        # gradients are the same bits (tests/test_torch_train.py)
+        plain = type(model)(model.cfg, model.device, remat=False)
+        _FIT_CACHE[key] = _fit(plain, params, steps, lr, seed,
                                disagree_every, disagree_delta)
     return _FIT_CACHE[key]
 

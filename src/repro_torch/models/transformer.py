@@ -19,6 +19,7 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.quant import kv_quantize
@@ -463,9 +464,13 @@ def quantize_kv_tree(tree):
 class Model:
     """Binds a ModelConfig and a device to the apply functions."""
 
-    def __init__(self, cfg: ModelConfig, device="cuda"):
+    def __init__(self, cfg: ModelConfig, device="cuda", remat: bool = True):
         self.cfg = cfg
         self.device = torch.device(device)
+        # recompute each layer period's activations in the backward pass
+        # instead of keeping them (the reference's jax.checkpoint with
+        # nothing_saveable); only while autograd records a cache-free call
+        self.remat = remat
 
     # -- core --------------------------------------------------------------
 
@@ -476,15 +481,30 @@ class Model:
         of the MoE layers' load-balance losses (0-d f32, summed per period
         and then over periods, as the reference's scan does), None in a
         model without them.  Cache leaves are updated in place; the page
-        table is shared by every layer."""
+        table is shared by every layer.  With `remat`, a call without
+        caches that autograd records runs each period under
+        `torch.utils.checkpoint` (its activations recomputed in the
+        backward pass, through the same product routes, so the gradients
+        are the same bits); the tail's blocks are kept, as the
+        reference's are."""
         cfg = self.cfg
         n_rep, tail, kinds = layer_plan(cfg)
         kw = dict(pos_contiguous=pos_contiguous, page_table=page_table,
                   active=active)
         aux = None
+        remat = self.remat and caches is None and torch.is_grad_enabled()
 
         def add(total, a):
             return a if total is None else (total if a is None else total + a)
+
+        def period_fn(h, pp, pc, positions, segment_ids):
+            period = None
+            for j in range(len(kinds)):
+                h, a = block_apply(cfg, j, pp[f"b{j}"], h, positions,
+                                   segment_ids,
+                                   None if pc is None else pc[f"b{j}"], **kw)
+                period = add(period, a)
+            return h, period
 
         for i in range(n_rep):
             pp = _index(params["scan"], i)
@@ -497,12 +517,12 @@ class Model:
                 segment_ids, kw["page_table"], kw["active"] = (
                     None if t is None else t.to(dev)
                     for t in (segment_ids, kw["page_table"], kw["active"]))
-            period = None
-            for j in range(len(kinds)):
-                h, a = block_apply(cfg, j, pp[f"b{j}"], h, positions,
-                                   segment_ids,
-                                   None if pc is None else pc[f"b{j}"], **kw)
-                period = add(period, a)
+            if remat:
+                h, period = torch.utils.checkpoint.checkpoint(
+                    period_fn, h, pp, pc, positions, segment_ids,
+                    use_reentrant=False, preserve_rng_state=False)
+            else:
+                h, period = period_fn(h, pp, pc, positions, segment_ids)
             aux = add(aux, period)
         for t in range(tail):
             st = None if caches is None else caches["tail"][str(t)]
@@ -597,7 +617,10 @@ class Model:
         reference's: "tokens" (B, S) or "embeds" (B, S, D), "labels" (B,
         S) (< 0 = ignored), optional "positions" and "segment_ids".
         Without positions, S > 1024 runs flash_attention, which is
-        forward-only: call this under torch.no_grad() there."""
+        forward-only (the reference has no VJP for its Pallas kernel
+        either): call this under torch.no_grad() there.  So the train CLI
+        (launch/train.py) refuses --seq above 1,024 on the card unless
+        --pack gives explicit positions (the dense or chunked route)."""
         x = self.embed_inputs(params, batch.get("tokens"),
                               batch.get("embeds"))
         positions, contiguous = self._positions(x, batch.get("positions"))
@@ -911,5 +934,5 @@ class Model:
         return big
 
 
-def make_model(cfg: ModelConfig, device="cuda") -> Model:
-    return Model(cfg, device=device)
+def make_model(cfg: ModelConfig, remat: bool = True, device="cuda") -> Model:
+    return Model(cfg, device=device, remat=remat)

@@ -59,19 +59,6 @@ __all__ = ["ContinuousBatchingEngine", "WaveEngine", "EngineBase",
            "Request", "PAD_TOKEN"]
 
 
-class PlanRefused(NotImplementedError, ValueError):
-    """A plan the port does not serve yet (ROADMAP.md §1 item 1): a
-    ValueError of the plan given, and a NotImplementedError of the port."""
-
-
-def _unported(**options) -> None:
-    bad = [k for k, v in options.items() if v]
-    if bad:
-        raise PlanRefused(
-            f"not ported yet: {', '.join(bad)} (ROADMAP.md §1 item 1, what "
-            "the serve plans still refuse)")
-
-
 def plan_cuts(plan) -> bool:
     """Does `plan` place anything over more than one shard (its stage
     axis, or its tensor-parallel one)?"""
@@ -82,18 +69,17 @@ def plan_cuts(plan) -> bool:
     return plan.mesh.shape[axis] > 1
 
 
-def _check_plan(plan, cfg, quant_weights: bool, buckets=()) -> None:
-    """What the port's plans do not take yet (ROADMAP.md §1 item 1): W8A8
-    weights under a ``mode="serve"`` plan that cuts (part (d)); and a
-    tensor-parallel plan's prefill longer than the K-ordered products run
-    (one request at its bucket: max(buckets) rows).  A ``mode="serve"``
-    plan takes every decoder family: attention by kv head, a MoE layer's
-    experts by block (models/moe.py), the recurrent mixers by width or by
-    column (models/recurrent.py; the mLSTM and sLSTM cells whole on the
-    controller).
-    A serve_pipeline plan takes every family, and W8A8 too: it needs the
-    layers in whole periods (no tail), and only 2-d (tail) projections
-    are quantized, so its weights stay bf16."""
+def _check_plan(plan, buckets=()) -> None:
+    """What the port's plans do not take: a tensor-parallel plan's prefill
+    longer than the K-ordered products run (one request at its bucket:
+    max(buckets) rows).  A ``mode="serve"`` plan takes every decoder
+    family: attention by kv head, a MoE layer's experts by block
+    (models/moe.py), the recurrent mixers by width or by column
+    (models/recurrent.py; the mLSTM and sLSTM cells whole on the
+    controller), and W8A8 weights by their parent's blocks
+    (models/quantized.py).  A serve_pipeline plan takes every family, and
+    W8A8 too: it needs the layers in whole periods (no tail), and only 2-d
+    (tail) projections are quantized, so its weights stay bf16."""
     if plan is None:
         return
     if plan.mode not in ("serve", "serve_pipeline"):
@@ -110,8 +96,6 @@ def _check_plan(plan, cfg, quant_weights: bool, buckets=()) -> None:
             f"buckets {tuple(buckets)}: a tensor-parallel serve plan "
             f"prefills at most EXACT_ROWS_MAX = {EXACT_ROWS_MAX} rows (the "
             "K-ordered products; models/layers.py)")
-    _unported(**{"W8A8 weights under a plan of mode='serve' (part (d))":
-                 quant_weights})
 
 
 class EngineBase:
@@ -123,9 +107,9 @@ class EngineBase:
     the tail layers: for recurrentgemma-2b its two tail MLPs, which then
     run through `int8_matmul`; for smollm-135m and the other
     attention-only families every projection is stacked over layers (3-d),
-    so nothing changes.  Not ported yet (raises `PlanRefused`, a
-    NotImplementedError and a ValueError): W8A8 weights under a
-    ``mode="serve"`` plan that cuts."""
+    so nothing changes.  Under a ``mode="serve"`` plan that cuts, each
+    shard runs its blocks of the quantized weights (serving/executor.py),
+    and an exact plan gives one device's bits."""
 
     def __init__(self, model: Model, params, max_batch: int = 8,
                  buckets=(32, 64, 128, 256), deadline_s: float = 0.05,
@@ -133,7 +117,7 @@ class EngineBase:
                  decode_horizon: int = 8,
                  monitor: Optional[StragglerMonitor] = None,
                  quant_weights: bool = False):
-        _check_plan(plan, model.cfg, quant_weights, buckets)
+        _check_plan(plan, buckets)
         self.plan = plan
         self.model = model
         self.max_batch = max_batch

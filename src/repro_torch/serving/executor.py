@@ -29,7 +29,8 @@ plan's `shard_hints.hints` context:
     the specs but where `_DEPARTURES` says otherwise (the RG-LRU's gates
     by column; the mLSTM's q/k/v weights and the two cells' states whole
     on the controller, where the cells run), since the reference's cuts
-    there are partial sums that its partitioner reshards.
+    there are partial sums that its partitioner reshards.  A W8A8 {"q",
+    "s"} leaf becomes `Shards` of {"q", "s"} blocks (`_place_quantized`).
     The data axis replicates in serve plans (slot tables never shard the
     batch), so one tensor-parallel group runs.
   * ``mode="serve_pipeline"``: the scan-stacked leaves become `Shards`
@@ -69,7 +70,8 @@ from repro_torch.core.pipeline import pipeline_steps, stage_devices
 from repro_torch.launch.mesh import DeviceMesh
 from repro_torch.models import layers, shard_hints
 from repro_torch.models.layers import COMPUTE_DTYPE, lm_head, norm
-from repro_torch.models.quantized import quantize_params_for_serving
+from repro_torch.models.quantized import (column_major, is_quantized,
+                                          quantize_params_for_serving)
 from repro_torch.models.shard_hints import Shards
 from repro_torch.models.transformer import (Model, _index, block_apply,
                                             cache_map, forced_token_update,
@@ -251,6 +253,8 @@ class Executor:
         """The plan's leaves as `Shards` over its axis (a leaf whose spec
         does not name the axis stays as it is); under tensor parallelism
         the dim comes from `_tp_dim`."""
+        if is_quantized(tree):
+            return self._place_quantized(tree, specs, path)
         if isinstance(tree, dict):
             return {k: self._place(v, specs[k], path + (k,))
                     for k, v in tree.items()}
@@ -265,6 +269,27 @@ class Executor:
                      else None for d in range(tree.dim()))
         parts = self.plan.sharding(spec).split(tree)
         return Shards([parts[f] for f in self._group], axis, dim)
+
+    def _place_quantized(self, w, specs, path):
+        """A W8A8 {"q", "s"} leaf: whole where `q`'s spec does not name the
+        axis, else `Shards` of {"q", "s"} blocks, `q` cut as its parent
+        weight (by column for `wi`/`wg`, by row for `wo` under
+        ``exact=False``) and each block stored column-major for the
+        kernel; `s`, which the spec replicates, cut by the same columns
+        (each block's columns' scales) or whole beside a row block."""
+        q = self._place(w["q"], specs["q"], path + ("q",))
+        if not isinstance(q, Shards):
+            return w
+        out, n = [], w["s"].shape[-1] // len(q) if q.dim == 1 else 0
+        if n:
+            self._note("plan: W8A8 s cut by its q's columns, not whole as "
+                       "cluster_builder.py:260-263 places it: a column "
+                       "block reads only its columns' scales")
+        for i, qi in enumerate(q):
+            s = w["s"][:, i * n:(i + 1) * n] if n else w["s"]
+            out.append({"q": column_major(qi),
+                        "s": s.to(qi.device).contiguous()})
+        return Shards(out, q.axis, q.dim)
 
     def _note(self, note: str) -> None:
         if note not in self.notes:

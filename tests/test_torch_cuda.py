@@ -1463,3 +1463,72 @@ def test_recurrent_blocks_per_shard_equal_one_device(dev, arch, n):
             assert torch.equal(y, y2), (kind, b, s)
             for k in new:
                 assert torch.equal(new[k], whole(new2[k])), (kind, k, b, s)
+
+
+# recurrentgemma-2b's W8A8 tail MLP on a (1, 2) serve plan at 8 lanes: a
+# column block of wi / wg, the whole wo, and a row block of wo under
+# exact=False, each block stored column-major as the executor places it
+@pytest.mark.parametrize("k,n,block", [(2560, 3840, "column"),
+                                       (7680, 2560, None),
+                                       (3840, 2560, "row")])
+def test_int8_matmul_at_the_shard_shapes(dev, k, n, block):
+    from repro_torch.models.quantized import column_major, quantize_leaf
+    rng = np.random.default_rng(k + n)
+    whole = {"column": (k, 2 * n), "row": (2 * k, n), None: (k, n)}[block]
+    q = quantize_leaf(torch.tensor(rng.normal(0, 0.02, whole),
+                                   dtype=torch.bfloat16))["q"]
+    q = column_major({"column": q[:, :n], "row": q[:k],
+                      None: q}[block]).to(dev)
+    assert q.t().is_contiguous()
+    a = torch.tensor(rng.integers(-127, 128, (8, k)), dtype=torch.int8,
+                     device=dev)
+    n0 = ops.launches["int8_matmul"]
+    out = ops.int8_matmul(a, q, 1.0, 1.0)
+    assert ops.launches["int8_matmul"] == n0 + 1
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref.int8_matmul(a, q, 1.0, 1.0))
+    assert torch.equal(out.cpu(), ref.int8_matmul(a.cpu(), q.cpu(), 1.0,
+                                                  1.0))
+
+
+def test_train_step_grads_match_the_cpu(dev):
+    """One train step's loss and gradients (reduced smollm-135m, remat, B 4
+    S 64, init_params seed 0 drawn on the CPU and copied to the card: a
+    generator draws other numbers on the card) on the card against the
+    CPU's: the loss
+    within 2e-3 relative and every gradient leaf within 2e-2 of its
+    largest |value| (bf16 forward and backward in cuBLAS's and the CPU's
+    orders; the card's norms run the row_norm kernel), the grad norm
+    within 1e-2 relative; remat's gradients equal no remat's bit for bit
+    on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import init_params, make_model
+    from repro_torch.optim.optimizer import global_norm, tree_leaves
+    cfg = get_config("smollm-135m").reduced()
+    b = TokenPipeline(cfg.vocab_size, 4, 64, seed=0).next_batch()
+    cpu = init_params(cfg, seed=0, device="cpu")
+
+    def on(tree, d):
+        if isinstance(tree, dict):
+            return {k: on(v, d) for k, v in tree.items()}
+        return tree.to(d)
+    out = {}
+    for d in ("cpu", dev):
+        batch = {k: torch.as_tensor(v, device=d) for k, v in b.items()}
+        out[str(d)] = train._grads(make_model(cfg, device=d), on(cpu, d),
+                                   batch)
+    (lc, gc), (lg, gg) = out["cpu"], out[str(dev)]
+    assert abs(lg.item() - lc.item()) <= 2e-3 * abs(lc.item())
+    for a, c in zip(tree_leaves(gg), tree_leaves(gc)):
+        scale = c.float().abs().max().item()
+        assert (a.cpu().float() - c.float()).abs().max().item() <= \
+            2e-2 * scale + 1e-6
+    nc, ng = global_norm(gc).item(), global_norm(gg).item()
+    assert abs(ng - nc) <= 1e-2 * nc
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+    _, g0 = train._grads(make_model(cfg, remat=False, device=dev),
+                         on(cpu, dev), batch)
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves(g0),
+                                                 tree_leaves(gg)))

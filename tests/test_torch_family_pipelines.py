@@ -28,13 +28,14 @@ device's.
     and serves the bf16 streams.
   * Refusals: recurrentgemma-2b (a 2-layer tail) keeps the reference's
     ValueError, xlstm under the skewed plan the engine's (no paged
-    arena), and a ``mode="serve"`` plan `PlanRefused` for the recurrent
-    families and W8A8 (ROADMAP.md §1 item 1, parts (c) and (d)); the
-    serve CLI and a plan search's serve_pipeline choice serve them, and
-    its ``mode="serve"`` choice serves moonshot.
+    arena); a ``mode="serve"`` plan serves W8A8 (recurrentgemma's tail
+    MLP per shard, smollm with nothing quantized), each stream one
+    device's; the serve CLI and a plan search's serve_pipeline choice
+    serve them, and its ``mode="serve"`` choice serves moonshot.
   * Against JAX under a ``mode="serve"`` plan: the exact (1, 2) cb
     engine's streams on the fitted moonshot equal the JAX plan-free paged
-    engine's; the fitted xlstm under the same plan refuses (part (c)).
+    engine's, and the fitted xlstm's dense-slot cb engine's the JAX
+    dense-slot engine's.
 
 Tolerances: none, every comparison is exact.
 """
@@ -343,9 +344,9 @@ def test_refusals():
     """recurrentgemma-2b's periods leave a tail (the reduced config: 4
     layers in periods of 3), which no stage holds: the reference's
     ValueError at the first decode, from the CLI too.  xlstm has no paged
-    arena for the skewed loop.  A ``mode="serve"`` plan keeps refusing
-    W8A8 by name (ROADMAP.md §1 item 1, part (d)), recurrentgemma's tail
-    MLPs as smollm's."""
+    arena for the skewed loop.  A ``mode="serve"`` plan (1, 2) serves
+    W8A8: recurrentgemma's tail MLP by its shards' blocks, smollm's (3-d)
+    projections unquantized, each stream one device's W8A8 stream."""
     with pytest.raises(ValueError, match="periods to divide the stage"):
         serve_cli.main(CLI + ["--arch", "recurrentgemma-2b"])
     cfg = _cfg(XLSTM)
@@ -358,12 +359,13 @@ def test_refusals():
         cfg = _cfg(arch)
         model = tmake(cfg, device="cpu")
         params = init_params(cfg, device="cpu")
-        with pytest.raises(teng.PlanRefused, match="§1 item 1") as err:
-            teng.ContinuousBatchingEngine(
-                model, params, plan=build_plan(cfg, tp_mesh, mode="serve"),
-                quant_weights=True, **ENGINE)
-        assert "W8A8" in str(err.value) and "part (d)" in str(err.value)
-        assert "mode='serve'" in str(err.value)
+        want, _ = _streams(teng, model, params, quant_weights=True)
+        got, eng = _streams(teng, model, params, quant_weights=True,
+                            plan=build_plan(cfg, tp_mesh, mode="serve"))
+        assert got == want, arch
+        wi = eng.executor.params["tail"].get("0", {}).get("ffn", {}).get(
+            "wi")
+        assert isinstance(wi, Shards) == (arch == "recurrentgemma-2b")
 
 
 def test_a_pipeline_choice_of_the_plan_search_serves():

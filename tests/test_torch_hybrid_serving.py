@@ -25,7 +25,8 @@ with `params_from_jax`:
   keep the streams within 1% of the bf16 ones, as the reference holds
   itself (tests/test_quant_kv.py);
 * under a tensor-parallel ``mode="serve"`` plan on (1, 2) the exact
-  streams equal the JAX plan-free engine's, and ``exact=False`` keeps a
+  streams equal the JAX plan-free engine's (with W8A8 weights, the
+  plan-free W8A8 engine's), and ``exact=False`` keeps a
   token match of at least 0.98 against them.
 """
 import jax
@@ -184,11 +185,18 @@ def test_w8a8_streams_match_bf16(fitted):
     """quant_weights=True: recurrentgemma's tail MLPs run W8A8 and its
     streams agree with the bf16 weights' on >= 99% of tokens; xlstm has
     no 2-d projection, so nothing is quantized and the streams are
-    equal."""
+    equal.  Under an exact ``mode="serve"`` plan on (1, 2) the W8A8
+    streams are one device's (each shard its blocks of the tail MLPs)."""
+    from repro_torch.core.cluster_builder import build_plan
+    from repro_torch.launch.mesh import make_mesh
     cfg, _, _, tm, tp = fitted
     stream = _stream(cfg, 13)
     bf, _ = _serve(teng, tm, tp, stream)
     qq, eng = _serve(teng, tm, tp, stream, quant_weights=True)
+    plan = build_plan(tm.cfg, make_mesh((1, 2), ("data", "model"),
+                                        device="cpu"), mode="serve")
+    assert _serve(teng, tm, tp, stream, quant_weights=True,
+                  plan=plan)[0] == qq
     quantized = [n for n, w in eng.executor.params["tail"].get(
         "0", {}).get("ffn", {}).items() if is_quantized(w)]
     assert [len(t) for t in qq] == [b for _, b in stream]

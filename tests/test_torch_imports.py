@@ -52,7 +52,13 @@ def test_every_port_module_is_walked():
                  "repro_torch.serving.wave", "repro_torch.core.quant",
                  "repro_torch.configs.phi3_medium_14b",
                  "repro_torch.core.plan_search",
-                 "repro_torch.roofline.op_cost"):
+                 "repro_torch.roofline.op_cost",
+                 "repro_torch.launch.train", "repro_torch.optim.optimizer",
+                 "repro_torch.optim.compression",
+                 "repro_torch.data.pipeline",
+                 "repro_torch.checkpoint.checkpointing",
+                 "repro_torch.runtime.fault_tolerance",
+                 "repro_torch.runtime.elastic"):
         assert want in names
 
 
@@ -68,6 +74,14 @@ def test_ibert_cli_refuses_to_start_without_a_card():
         pytest.skip("a CUDA device is present: the CLI would run on it")
     with pytest.raises(SystemExit, match="--device cpu"):
         ibert_encoder.main(["--layers", "1", "--seq-lens", "8"])
+
+
+def test_train_cli_refuses_to_start_without_a_card():
+    from repro_torch.launch import train
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the CLI would run on it")
+    with pytest.raises(SystemExit, match="--device cpu"):
+        train.main(["--reduced", "--steps", "1"])
 
 
 def test_cli_serves_on_cpu_when_asked(capsys):

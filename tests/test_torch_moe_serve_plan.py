@@ -25,9 +25,9 @@ are bit for bit one device's.
     equal their plan-free streams; ``--no-exact`` keeps a token match of
     at least 0.98 against the exact plan's streams.
   * The serve CLI serves moonshot under ``--plan serve --mesh 1,2``, with
-    and without ``--no-exact``, and still refuses recurrentgemma-2b's
-    W8A8 weights (part (d)); a plan search's bf16 ``mode="serve"`` choice
-    serves, a W8A8 one raises part (d)'s refusal.
+    and without ``--no-exact``, and recurrentgemma-2b with W8A8
+    weights; a plan search's bf16 ``mode="serve"`` choice serves, and so
+    does its W8A8 one, with the bf16 choice's streams.
   * An exact plan keeps its reductions whole only where it drops FSDP
     (at most 8 GB of weights a shard): llama4's full-width period keeps
     FSDP on (1, 2) and not on (1, 8), the mesh the card run gates.  A
@@ -308,18 +308,23 @@ def test_cli_serves_moonshot_under_a_serve_plan(extra, capsys):
         in out
 
 
-def test_cli_still_refuses_a_recurrent_family():
-    """A recurrent family serves under the plan (part (c)); with W8A8
-    weights it still refuses, naming part (d)."""
-    with pytest.raises(teng.PlanRefused, match=r"W8A8.*part \(d\)"):
-        serve_cli.main(CLI + ["--arch", "recurrentgemma-2b",
-                              "--quant-weights"])
+def test_cli_still_refuses_a_recurrent_family(capsys):
+    """A recurrent family serves under the plan, with W8A8 weights too:
+    recurrentgemma's tail MLP runs per shard (`int8_matmul` on each
+    shard's block of `wi` and `wg`, `wo` whole on the controller)."""
+    done = serve_cli.main(CLI + ["--arch", "recurrentgemma-2b",
+                                 "--quant-weights"])
+    assert len(done) == 3 and all(
+        r.done and len(r.tokens_out) == r.max_new_tokens for r in done)
+    out = capsys.readouterr().out
+    assert "quant_weights=True" in out and "W8A8 s cut by its q's" in out
 
 
 def test_plan_search_serve_choices():
     """`realize` on a bf16 ``mode="serve"`` choice for moonshot builds an
-    engine that serves; the same choice with W8A8 weights raises part
-    (d)'s refusal."""
+    engine that serves; so does the same choice with W8A8 weights, which
+    quantizes none of moonshot's (stacked) leaves and gives the bf16
+    choice's streams."""
     model, params = _model(MOONSHOT)
     mesh = make_mesh((1, 2), ("data", "model"), device="cpu")
     score = Score(cand=Candidate("serve", tp=2, page_size=4), feasible=True)
@@ -331,11 +336,10 @@ def test_plan_search_serve_choices():
     assert eng.paged and len(done) == 3
     q = Score(cand=Candidate("serve", tp=2, page_size=4, quant_weights=True),
               feasible=True)
-    with pytest.raises(teng.PlanRefused, match=r"W8A8.*part \(d\)"):
-        teng.ContinuousBatchingEngine(
-            model, params, plan=realize(model.cfg, q, mesh),
-            quant_weights=True, **engine_kwargs(q), max_batch=3,
-            buckets=(16,))
+    qeng = teng.ContinuousBatchingEngine(
+        model, params, plan=realize(model.cfg, q, mesh), quant_weights=True,
+        **engine_kwargs(q), max_batch=3, buckets=(16, 32), deadline_s=0.0)
+    assert _streams(qeng, _prompts(model.cfg, 3, seed=6)) == done
 
 
 @pytest.mark.parametrize("tp,fsdp", [(2, True), (8, False)])

@@ -1,8 +1,8 @@
 """The serve CLI's `--plan auto`, `--traffic`, `--no-plan` and
 `--replicas 0` (`repro_torch.launch.serve`), on the CPU at the reduced
 smollm-135m: the search's choice is served as the reference's CLI serves
-it (`repro/launch/serve.py`), and a choice the port does not serve yet
-raises the engine's refusal instead of serving another candidate."""
+it (`repro/launch/serve.py`); a choice the port does not serve raises
+the engine's refusal instead of serving another candidate."""
 import json
 
 import pytest
@@ -104,18 +104,20 @@ def test_plan_auto_dryrun_prints_the_choices_shardings(tmp_path, capsys):
     assert "-- params" in out and "(paged arena)" in out
 
 
-@pytest.mark.parametrize("arch,match", [
+@pytest.mark.parametrize("arch,option", [
     ("smollm-135m", "W8A8 weights under a plan"),
     ("moonshot-v1-16b-a3b", "W8A8 weights under a plan")])
-def test_a_choice_the_port_refuses_raises(arch, match, tmp_path, capsys):
-    with pytest.raises(ValueError, match=match) as err:
-        serve_cli.main(BASE + ["--arch", arch, "--plan", "auto",
-                               "--traffic", _profile(tmp_path, **CUT)])
-    assert isinstance(err.value, NotImplementedError)
-    assert "§1 item 1" in str(err.value)
+def test_a_choice_the_port_refuses_raises(arch, option, tmp_path, capsys):
+    """The port refused this choice's `option` until W8A8 weights served
+    under a tensor-parallel plan; now the CLI serves the choice itself
+    (nothing quantized: both models' projections are stacked)."""
+    done = serve_cli.main(BASE + ["--arch", arch, "--plan", "auto",
+                                  "--traffic", _profile(tmp_path, **CUT)])
     out = capsys.readouterr().out
     assert "chosen: serve.tp2.r1.tput.kv=ps16.int8.w=int8" in out
-    assert "serve[" not in out  # nothing was served in its place
+    assert ("plan=serve mesh={'data': 1, 'model': 2} exact=False "
+            "kv_dtype=int8 quant_weights=True") in out
+    assert len(done) == 6 and all(r.done for r in done)
 
 
 def test_a_profile_with_unknown_keys_is_refused(tmp_path):

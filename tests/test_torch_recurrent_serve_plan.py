@@ -24,8 +24,15 @@ logits are bit for bit one device's.
     (recurrentgemma on (1, 2), xlstm on (1, 2) and (1, 4)); the wave
     engine too; a parked lane keeps its RG-LRU state on every shard.
   * The serve CLI serves both families under ``--plan serve --mesh 1,2``,
-    with and without ``--no-exact``; a plan search's bf16 choice serves
-    and its W8A8 one raises part (d)'s refusal.
+    with and without ``--no-exact``; a plan search's bf16 choice serves,
+    and so does its W8A8 one, with one device's W8A8 streams.
+  * W8A8 (recurrentgemma's tail MLP, `models/quantized.py`): each shard
+    holds its column block of `wi` and `wg` (`q` column-major, with its
+    columns of `s`), `wo` whole in an exact plan and by row (with the
+    whole `s`) under ``exact=False``; an exact plan's streams and logits
+    are one device's, and under ``exact=False`` the quantized MLP is one
+    device's too (int32 partial sums); `int8_matmul` runs 2n + 1 times a
+    MLP in an exact plan on n shards and 3n times under ``exact=False``.
 
 Weights are `init_params`' (seed 0).  Tolerances: none, every comparison
 is exact.
@@ -377,7 +384,7 @@ def test_cli_serves_under_a_serve_plan(arch, extra, capsys):
 def test_plan_search_serve_choices():
     """`realize` on a bf16 ``mode="serve"`` choice (dense slots) for
     recurrentgemma builds an engine that serves; the same choice with
-    W8A8 weights (its tail MLPs) raises part (d)'s refusal."""
+    W8A8 weights (its tail MLPs) serves one device's W8A8 streams."""
     model, params = _model(RG)
     mesh = make_mesh((1, 2), ("data", "model"), device="cpu")
     score = Score(cand=Candidate("serve", tp=2, page_size=0), feasible=True)
@@ -389,11 +396,84 @@ def test_plan_search_serve_choices():
     assert not eng.paged and len(done) == 3
     q = Score(cand=Candidate("serve", tp=2, page_size=0, quant_weights=True),
               feasible=True)
-    with pytest.raises(teng.PlanRefused, match=r"W8A8.*part \(d\)"):
-        teng.ContinuousBatchingEngine(
-            model, params, plan=realize(model.cfg, q, mesh),
-            quant_weights=True, **engine_kwargs(q), max_batch=3,
-            buckets=(16,))
+    kw = dict(**engine_kwargs(q), max_batch=3, buckets=(16, 32),
+              deadline_s=0.0, quant_weights=True)
+    qeng = teng.ContinuousBatchingEngine(
+        model, params, plan=realize(model.cfg, q, mesh), **kw)
+    prompts = _prompts(model.cfg, 3, seed=6)
+    assert _streams(qeng, prompts) == _streams(
+        teng.ContinuousBatchingEngine(model, params, **kw), prompts)
+
+
+def _int8_launches(monkeypatch):
+    """A list that grows by one at every `ops.int8_matmul` call."""
+    from repro_torch.kernels import ops
+    calls, real = [], ops.int8_matmul
+
+    def spy(*a, **k):
+        calls.append(tuple(a[0].shape))
+        return real(*a, **k)
+    monkeypatch.setattr(ops, "int8_matmul", spy)
+    return calls
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_w8a8_under_a_serve_plan(exact, monkeypatch):
+    """recurrentgemma's tail MLP with W8A8 weights on (1, 2): the
+    placement of each {"q", "s"} block, `layers.mlp` on the placed leaves
+    equal to one device's W8A8 MLP bit for bit with 2n + 1 (exact) or 3n
+    `int8_matmul` calls, and (exact) the engine's streams and the decode
+    steps' logits equal one device's."""
+    from repro_torch.models.layers import mlp
+    model, params = _model(RG)
+    cfg, n = model.cfg, 2
+    plan = _plan(cfg, (1, n), exact)
+    one = Executor(model, params, max_batch=3, cache_len=48,
+                   quant_weights=True)
+    ex = Executor(model, params, max_batch=3, cache_len=48, plan=plan,
+                  quant_weights=True)
+    ffn, whole = ex.params["tail"]["0"]["ffn"], one.params["tail"]["0"]["ffn"]
+    for name in ("wi", "wg"):
+        leaf = ffn[name]
+        assert isinstance(leaf, Shards) and leaf.dim == 1
+        for i, blk in enumerate(leaf):
+            cols = slice(i * cfg.d_ff // n, (i + 1) * cfg.d_ff // n)
+            assert blk["q"].t().is_contiguous(), name
+            assert torch.equal(blk["q"], whole[name]["q"][:, cols])
+            assert torch.equal(blk["s"], whole[name]["s"][:, cols])
+    wo = ffn["wo"]
+    if exact:
+        assert not isinstance(wo, Shards) and torch.equal(
+            wo["q"], whole["wo"]["q"])
+    else:
+        assert isinstance(wo, Shards) and wo.dim == 0
+        for i, blk in enumerate(wo):
+            rows = slice(i * cfg.d_ff // n, (i + 1) * cfg.d_ff // n)
+            assert blk["q"].t().is_contiguous()
+            assert torch.equal(blk["q"], whole["wo"]["q"][rows])
+            assert torch.equal(blk["s"], whole["wo"]["s"])
+    gen = torch.Generator().manual_seed(5)
+    for seq in (1, 32):
+        x = torch.randn((3, seq, cfg.d_model), generator=gen).bfloat16()
+        want = mlp(x, whole, cfg)
+        calls = _int8_launches(monkeypatch)
+        with ex._ctx():
+            got = mlp(x, ffn, cfg)
+        assert torch.equal(want, got), seq
+        assert len(calls) == (2 * n + 1 if exact else 3 * n), calls
+        monkeypatch.undo()
+    if not exact:
+        return
+    prompts = _prompts(cfg)
+    kw = dict(ENGINE, quant_weights=True)
+    assert _streams(teng.ContinuousBatchingEngine(
+        model, params, plan=plan, **kw), prompts) == _streams(
+        teng.ContinuousBatchingEngine(model, params, **kw), prompts)
+    base, _ = _step_logits(one, prompts[:3])
+    got, _ = _step_logits(ex, prompts[:3], teacher=[
+        lg.argmax(-1).to(torch.int32) for lg in base[:-1]])
+    for j, (a, b) in enumerate(zip(base, got)):
+        assert torch.equal(a, b), j
 
 
 def test_mlstm_head_probe():

@@ -307,16 +307,22 @@ def test_pipeline_engine_equals_jax_dense_engine(models4):
         eng.stats["decode_steps"] * pipeline_steps(4, 4)
 
 
-def _refuses(match, fn):
-    with pytest.raises(NotImplementedError, match=match):
-        fn()
-
-
 def test_unported_plan_options_refuse(models):
+    """W8A8 weights under the (1, 2) plan serve: smollm's projections are
+    all stacked over layers (3-d), so nothing is quantized and the streams
+    are the bf16 plan's.  The wave engine under a serve_pipeline plan
+    still refuses, as the reference does."""
     _, _, tm, tp = models
     plan = _plan(tm.cfg)
-    _refuses("W8A8", lambda: TorchEngine(tm, tp, plan=plan,
-                                         quant_weights=True, **ENGINE))
+    stream = _stream()
+    eng = TorchEngine(tm, tp, plan=plan, quant_weights=True, **ENGINE)
+    assert _streams(eng, TorchRequest, stream) == _streams(
+        TorchEngine(tm, tp, plan=plan, **ENGINE), TorchRequest, stream)
+
+    def quantized(tree):
+        return isinstance(tree, dict) and ("q" in tree or any(
+            quantized(v) for v in tree.values()))
+    assert not quantized(eng.executor.params)
     for exact in (True, False):  # the reference's refusal, by ValueError
         pipe = build_plan(tm.cfg, make_mesh((2,), ("stage",), device="cpu"),
                           mode="serve_pipeline", exact=exact)
