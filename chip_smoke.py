@@ -249,7 +249,23 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    torch.matmul); the final params saved and restored bit for bit,
    timed; 5 steps of adamw8, finite; one step's gradients with remat
    equal those without bit for bit; steps/s, tokens/s and peak memory
-   logged;
+   logged; then the sharded step (`train.jit_train_step`) on a (2, 3)
+   ("data", "model") train plan, its six shards on the card, against
+   one device's `make_train_step`, 3 adamw steps from the same init at B
+   8, S 512 with remat: the first loss within SHARDED_LOSS_TOL relative
+   of one device's, the later losses within SHARDED_DRIFT_TOL (one
+   device at n_micro 2 logged beside), every grad norm within
+   SHARDED_NORM_TOL; the same 3 steps with a planted fault (data replica
+   1's gradients dropped before the reduction) must fail the grad norm's
+   gate, its gaps and the gates they fail logged;
+   row_norm launched 2 (4n + 1) times a step (each data replica's
+   forward and recompute) and no other kernel, each step's wall time and
+   peak memory beside one device's; the sharded state (params, adamw
+   moments) saved joined and restored onto (1, 3) and onto one device bit
+   for bit, one step from each restore equal in loss to the (2, 3) plan's
+   next step within SHARDED_LOSS_TOL; one step under
+   hints(int8_gather=True) from the init, finite and within
+   INT8_GATHER_TOL of the bf16 step's loss;
 18. encode: the integer I-BERT encoder (ibert-base at full width, 12
    layers, random float weights from seed 0, calibrated at batch 1, seq
    128) through `repro_torch.launch.ibert_encoder`: one forward must
@@ -265,7 +281,7 @@ the JAX package.  Phases, in order — any fault exits non-zero:
    plansearch phase's and the fitted phase's;
    row_norm's are the serve phases' and the families', recurrent, MoE,
    plans, fleet and plansearch models' served streams and the train
-   phase's two CLI runs; gemm's the serve
+   phase's two CLI runs and sharded steps; gemm's the serve
    phases' and the plans, fleet and plansearch phases' streams and the
    recurrent and moe phases' pipelines; int8_matmul's the encoder's and
    recurrentgemma's W8A8
@@ -303,7 +319,10 @@ from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.launch import ibert_encoder  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
-from repro_torch.data.pipeline import TokenPipeline  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.data.pipeline import (  # noqa: E402
+    TokenPipeline, shard_batch)
+from repro_torch.models import shard_hints  # noqa: E402
 from repro_torch.optim.optimizer import tree_leaves  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models import ibert as ib  # noqa: E402
@@ -4572,10 +4591,223 @@ def train_phase(dev) -> dict:
             + f"; wall {wall8:.1f} s; int8 moments on the card")
         del out8
         _remat_probe(cfg, dev)
+        norms += _sharded_train(cfg, dev, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
     return {"row_norm": norms}
+
+
+# the sharded step against one device's (the CPU tests' bounds,
+# tests/test_torch_sharded_train.py), and the int8 gathers' loss against
+# the bf16 gathers'
+SHARDED_LOSS_TOL = 1e-4
+SHARDED_NORM_TOL = 5e-3
+SHARDED_DRIFT_TOL = 2e-4
+INT8_GATHER_TOL = 1e-2
+SHARDED_MESH = (2, 3)
+
+
+def _timed_step(fn, *args) -> tuple:
+    """fn(*args) with the launch counts set to 0 just before and read
+    just after: (its result, the launches, wall seconds to the synchronize,
+    the card's peak GiB in the step)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return (out, dict(ops.launches), time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def _train_plan(cfg, shape, params, state):
+    """(mesh, plan, param specs, opt specs) for a ("data", "model") mesh
+    of `shape` on the card."""
+    mesh = make_mesh(shape, ("data", "model"))
+    plan = build_plan(cfg, mesh, params, batch=8)
+    pspecs = train_cli.train_param_specs(plan, params)
+    ospecs = train_cli.opt_state_specs(state, pspecs)
+    return mesh, plan, pspecs, ospecs
+
+
+def _sharded_train(cfg, dev, root: str) -> int:
+    """The sharded step on the card (module docstring, phase 17).  Returns
+    its row_norm launches."""
+    from repro_torch.optim.optimizer import cosine_schedule, make_optimizer
+    t_phase = time.perf_counter()
+    n = cfg.n_layers
+    params = init_params(cfg, seed=0, device=dev)
+    opt_init, opt_update = make_optimizer("adamw",
+                                          cosine_schedule(3e-3, 5, 30))
+    state = opt_init(params)
+    mesh, plan, pspecs, ospecs = _train_plan(cfg, SHARDED_MESH, params,
+                                             state)
+    model = make_model(cfg, device=dev)
+    step = train_cli.jit_train_step(model, opt_update, plan, ospecs)
+    one = train_cli.make_train_step(model, opt_update)
+    # one device's own spread: the same steps through another bf16
+    # program of the same function (two microbatches)
+    one2 = train_cli.make_train_step(model, opt_update, n_micro=2)
+    pipe = TokenPipeline(cfg.vocab_size, 8, 512, seed=0)
+    batches = [pipe.next_batch() for _ in range(4)]
+    what = (f"train sharded {cfg.name} x{n} on {SHARDED_MESH} "
+            f"(data, model), {mesh.size} shards on {dev}")
+    per_step = SHARDED_MESH[0] * (4 * n + 1)
+    pp = train_cli.place(params, train_cli.plan_shardings(plan, pspecs))
+    ps = train_cli.place(state, train_cli.plan_shardings(plan, ospecs))
+    p1, s1, p2, s2 = params, state, params, state
+    launched, rows, first_loss, gaps, ones = 0, [], None, [], []
+    for i, b in enumerate(batches[:3]):
+        (pp, ps, m), got, wall, peak = _timed_step(
+            step, pp, ps, shard_batch(b, mesh, plan.data_spec))
+        others = {k: v for k, v in got.items() if k != "row_norm" and v}
+        require(got["row_norm"] == per_step and not others,
+                f"{what}: step {i} launches {got}, want row_norm "
+                f"{per_step} (each of {SHARDED_MESH[0]} replicas' forward "
+                f"{2 * n + 1} and recompute {2 * n}) and nothing else")
+        launched += got["row_norm"]
+        dense = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+        (p1, s1, m1), got1, wall1, peak1 = _timed_step(one, p1, s1, dense)
+        p2, s2, m2 = one2(p2, s2, dense)
+        loss, loss1 = float(m["loss"]), float(m1["loss"])
+        gn, gn1 = float(m["grad_norm"]), float(m1["grad_norm"])
+        first_loss = loss if first_loss is None else first_loss
+        ones.append((loss1, gn1))
+        gaps.append((abs(loss - loss1) / loss1, abs(gn - gn1) / gn1))
+        rows.append(f"step {i}: loss {loss:.6f} / {loss1:.6f} (rel "
+                    f"{gaps[-1][0]:.2e}; one device at n_micro 2 "
+                    f"{abs(float(m2['loss']) - loss1) / loss1:.2e}), grad "
+                    f"norm {gn:.5f} / {gn1:.5f} (rel {gaps[-1][1]:.2e}), "
+                    f"{wall * 1e3:.1f} / {wall1 * 1e3:.1f} ms, peak "
+                    f"{peak:.2f} / {peak1:.2f} GiB")
+    diff = max(float((a.join().float() - b.float()).abs().max())
+               for a, b in zip(tree_leaves(pp), tree_leaves(p1)))
+    log(f"{what}: 3 adamw steps at B=8 S=512, sharded / one device: "
+        + "; ".join(rows) + f"; largest param difference {diff:.3g}; "
+        f"row_norm {per_step} a step, no other kernel; {_card()}")
+    fault = _planted_fault(step, params, state, mesh, plan, pspecs, ospecs,
+                           batches[:3], ones)
+    failed = sorted(_sharded_gaps_fail(fault))
+    log(f"{what}: planted fault (data replica 1's gradients dropped), "
+        "relative gaps (loss, grad norm) to one device's: " + "; ".join(
+            f"step {i}: {a:.2e}, {b:.2e}" for i, (a, b) in enumerate(fault))
+        + f"; gates failed: {failed}")
+    require("grad norm" in failed, f"{what}: the planted fault's gaps "
+            f"{fault} pass the grad norm's gate")
+    require(not _sharded_gaps_fail(gaps), f"{what}: relative gaps (loss, "
+            f"grad norm) to one device's {gaps} fail "
+            f"{_sharded_gaps_fail(gaps)}")
+
+    # the sharded state saved joined, restored onto (1, 3) and one device
+    mgr = CheckpointManager(os.path.join(root, "sharded"), keep=2)
+    t0 = time.perf_counter()
+    mgr.save(3, {"params": pp, "opt": ps}, blocking=True)
+    save_s = time.perf_counter() - t0
+    want = {"params": pp, "opt": ps}
+    joined = [x.join() for x in tree_leaves(want)]
+    b = batches[3]
+    (_, _, m), got, _, _ = _timed_step(step, pp, ps, shard_batch(
+        b, mesh, plan.data_spec))
+    launched += got["row_norm"]
+    go_on = float(m["loss"])
+    out = []
+    for shape in ((1, 3), None):
+        t0 = time.perf_counter()
+        if shape is None:
+            _, back = mgr.restore(3, device=dev)
+            fn = one
+            args = (back["params"], back["opt"],
+                    {k: torch.as_tensor(v, device=dev) for k, v in b.items()})
+        else:
+            m13, plan13, ps13, os13 = _train_plan(cfg, shape, params, state)
+            sh = {"params": train_cli.plan_shardings(plan13, ps13),
+                  "opt": train_cli.plan_shardings(plan13, os13)}
+            _, back = mgr.restore(3, device=dev, shardings=sh)
+            fn = train_cli.jit_train_step(model, opt_update, plan13, os13)
+            args = (back["params"], back["opt"],
+                    shard_batch(b, m13, plan13.data_spec))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        got_leaves = [x.join() if hasattr(x, "join") else x
+                      for x in tree_leaves(back)]
+        require(len(got_leaves) == len(joined) and all(
+            x.dtype == y.dtype and torch.equal(x.to(y.device), y)
+            for x, y in zip(got_leaves, joined)),
+            f"{what}: the state restored onto {shape or 'one device'} "
+            "parts from the saved one")
+        (_, _, m2), got, _, _ = _timed_step(fn, *args)
+        launched += got["row_norm"]
+        loss2 = float(m2["loss"])
+        require(np.isfinite(loss2) and abs(loss2 - go_on)
+                <= SHARDED_LOSS_TOL * abs(go_on),
+                f"{what}: the step after the restore onto "
+                f"{shape or 'one device'}: loss {loss2} vs {go_on}")
+        out.append(f"{shape or 'one device'}: restored in {restore_s:.3f} "
+                   f"s bit for bit, next loss {loss2:.6f}")
+    log(f"{what}: state saved joined in {save_s:.3f} s; the (2, 3) plan's "
+        f"next loss {go_on:.6f}; " + "; ".join(out))
+
+    # one step gathering at int8 from the init
+    pp0 = train_cli.place(params, train_cli.plan_shardings(plan, pspecs))
+    ps0 = train_cli.place(state, train_cli.plan_shardings(plan, ospecs))
+    with shard_hints.hints(mesh, int8_gather=True):
+        (_, _, m8), got, wall8, peak8 = _timed_step(
+            step, pp0, ps0, shard_batch(batches[0], mesh, plan.data_spec))
+    launched += got["row_norm"]
+    loss8 = float(m8["loss"])
+    require(np.isfinite(loss8) and abs(loss8 - first_loss)
+            <= INT8_GATHER_TOL * abs(first_loss),
+            f"{what}: int8 gather step loss {loss8} vs bf16 {first_loss}")
+    log(f"{what}: one step under hints(int8_gather=True): loss {loss8:.6f}"
+        f" vs the bf16 gathers' {first_loss:.6f} (rel "
+        f"{abs(loss8 - first_loss) / first_loss:.2e}), {wall8 * 1e3:.1f} ms"
+        f", peak {peak8:.2f} GiB; sharded train "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launched
+
+
+def _sharded_gaps_fail(gaps) -> set:
+    """The gates that a run's relative (loss, grad norm) gaps to one
+    device's fail: the first loss (the same params) within the CPU tests'
+    bound, the later ones within SHARDED_DRIFT_TOL (Adam's early updates
+    are sign-like, so an ulp of a near-zero gradient moves a weight by 2
+    lr), every grad norm within SHARDED_NORM_TOL."""
+    bad = set()
+    for i, (dl, dn) in enumerate(gaps):
+        if not (np.isfinite(dl) and dl <= (
+                SHARDED_DRIFT_TOL if i else SHARDED_LOSS_TOL)):
+            bad.add("loss")
+        if not (np.isfinite(dn) and dn <= SHARDED_NORM_TOL):
+            bad.add("grad norm")
+    return bad
+
+
+def _planted_fault(step, params, state, mesh, plan, pspecs, ospecs,
+                   batches, ones) -> list:
+    """The sharded steps from the init with data replica 1's gradients
+    dropped before the data-axis reduction (`train._data_reduce` wrapped
+    for these steps alone): each step's relative (loss, grad norm) gaps to
+    one device's `ones`."""
+    real = train_cli._data_reduce
+
+    def dropped(gs, leaf, mesh_, tp, dp):
+        return real([torch.zeros_like(g) if mesh_.axis_index(f, dp) else g
+                     for f, g in enumerate(gs)], leaf, mesh_, tp, dp)
+
+    pp = train_cli.place(params, train_cli.plan_shardings(plan, pspecs))
+    ps = train_cli.place(state, train_cli.plan_shardings(plan, ospecs))
+    out = []
+    train_cli._data_reduce = dropped
+    try:
+        for b, (loss1, gn1) in zip(batches, ones):
+            pp, ps, m = step(pp, ps, shard_batch(b, mesh, plan.data_spec))
+            out.append((abs(float(m["loss"]) - loss1) / loss1,
+                        abs(float(m["grad_norm"]) - gn1) / gn1))
+    finally:
+        train_cli._data_reduce = real
+    return out
 
 
 def _remat_probe(cfg, dev) -> None:

@@ -14,7 +14,11 @@ so a checkpoint written by either package restores in the other:
   * async: the device-to-host copy happens in `save` (so the caller may
     go on changing its tensors), the file writes on a background thread;
     at most one save is in flight, `wait` joins it;
-  * the last `keep` checkpoints are kept, older ones pruned.
+  * the last `keep` checkpoints are kept, older ones pruned;
+  * a train plan's placed leaf (`cluster_builder.Sharded`) is saved
+    joined, in the layout above, and `restore(shardings=...)` cuts each
+    leaf straight onto a mesh, which may be another than the one that
+    saved it (the elastic restart, `runtime/elastic.py`).
 """
 from __future__ import annotations
 
@@ -28,6 +32,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.core.cluster_builder import Sharded
 
 BF16 = "bfloat16"
 
@@ -51,9 +57,10 @@ def _unflatten(items: Dict[Tuple[str, ...], Any]):
     return root
 
 
-def _to_host(t: torch.Tensor) -> Tuple[np.ndarray, str]:
-    """(the array to write, the dtype the manifest names)."""
-    t = t.detach().cpu()
+def _to_host(t) -> Tuple[np.ndarray, str]:
+    """(the array to write, the dtype the manifest names); a placed leaf
+    joined first."""
+    t = t.join("cpu") if isinstance(t, Sharded) else t.detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), BF16
     arr = t.numpy()
@@ -146,17 +153,23 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, step: Optional[int] = None, device="cuda",
-                template: Any = None) -> Tuple[int, Any]:
+                template: Any = None,
+                shardings: Any = None) -> Tuple[int, Any]:
         """(step, tree) of checkpoint `step` (default: the latest), every
         leaf a tensor on `device`, each file's checksum checked first (a
         mismatch raises IOError).  `template`: a structure to restore into
-        (keeps empty sub-dicts, which have no leaves and so no files)."""
+        (keeps empty sub-dicts, which have no leaves and so no files).
+        `shardings`: a tree of `cluster_builder.Sharding` at some of the
+        leaves' paths; each of those leaves is placed straight onto its
+        mesh (`Sharded`: each shard's block on its device), as the
+        reference's `device_put` under NamedShardings."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         d = os.path.join(self.dir, f"step_{step:08d}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
+        placed = dict(_flatten(shardings)) if shardings is not None else {}
         items = {}
         for key, meta in manifest["leaves"].items():
             with open(os.path.join(d, meta["file"]), "rb") as f:
@@ -164,8 +177,11 @@ class CheckpointManager:
             if hashlib.sha256(raw).hexdigest() != meta["sha256"]:
                 raise IOError(f"checksum mismatch for {key} in step {step}")
             arr = np.load(io.BytesIO(raw))
-            items[tuple(key.split("/"))] = _to_tensor(arr, meta["dtype"],
-                                                      device)
+            path = tuple(key.split("/"))
+            sh = placed.get(path)
+            items[path] = (_to_tensor(arr, meta["dtype"], device)
+                           if sh is None else
+                           sh.place(_to_tensor(arr, meta["dtype"], "cpu")))
         if template is not None:
             def fill(sub, prefix=()):
                 if isinstance(sub, dict):

@@ -21,8 +21,9 @@ Sharding rules are divisibility-driven: tensor-parallel dims go to `model`,
 FSDP dims to ("pod","data") when divisible, with graceful fallback to
 replication — so every assigned arch (9-head smollm, 151655-vocab internvl2,
 ...) gets a coherent plan on the same production mesh.  The `train` (FSDP)
-rules are spec arithmetic only here; the port's training slice will read
-them.
+rules place the sharded training step's master params, gradients and
+optimizer state (`launch/train.py`), with the tensor-parallel cut of each
+leaf taken from `tp_cut`, the rule the serving executor places by too.
 """
 from __future__ import annotations
 
@@ -517,6 +518,79 @@ def _prod(s) -> int:
     return n
 
 
+# ---------------------------------------------------------------------------
+# Part 3: the port's tensor-parallel cut of a leaf
+# ---------------------------------------------------------------------------
+
+
+def block_kind(cfg: ModelConfig, path) -> Optional[str]:
+    """The block kind of a params or cache leaf from its path: ("scan",
+    "b{j}", ...) is the period's block j, ("tail", "{t}", ...) the tail's
+    t; None elsewhere (embeddings, the final norm, "pos")."""
+    if len(path) > 2 and path[0] in ("scan", "tail"):
+        return cfg.block_kind(int(path[1].lstrip("b")))
+    return None
+
+
+# Where the port's tensor-parallel placement departs from the specs
+# (Part 2, equal to the reference's; the lines are its): the reference's
+# partitioner reshards between ops, the port's per-shard blocks
+# (models/recurrent.py) must give one device's bits alone.  (block kind,
+# leaf) -> (the dim past the layer axis that the port cuts, None for
+# whole on the controller; how; the spec's line; why).  Under
+# exact=False and in training the placement is the same: only the
+# reductions (`w_out`, `down`, `glu_wo`, the MLP's `wo`) take row blocks
+# there.
+DEPARTURES = {
+    **{("rglru", w): (1, "by column", ":311-314",
+                      "a row block of the gate is a partial sum; each shard "
+                      "takes its columns of the gathered conv output's "
+                      "product") for w in ("w_rgate", "w_igate")},
+    **{("mlstm", w): (None, "whole on the controller", ":299-300",
+                      "an ih block is a partial sum of z . w; the cell runs "
+                      "whole on the controller on the gathered z, as the "
+                      "sLSTM's does") for w in ("wq", "wk", "wv")},
+    **{("mlstm", s): (None, "whole on the controller", ":371-376",
+                      "the cell runs whole on the controller, its state "
+                      "with it (a block of heads run alone parts from the "
+                      "nh-head call on an H100: chip_smoke.py's mlstm "
+                      "probe)") for s in ("C", "n", "m")},
+    **{("slstm", s): (None, "whole on the controller", ":371-377",
+                      "the cell runs whole on the controller (:285-291), "
+                      "its state with it") for s in ("h", "c", "n", "m")},
+}
+
+
+def tp_cut(cfg: ModelConfig, n: int, axis: str, path, shape,
+           dim: Optional[int], whole: str = ""
+           ) -> Tuple[Optional[int], Optional[str]]:
+    """(the dim the port cuts the leaf at `path` over the tensor-parallel
+    `axis` of `n` shards, None for whole on the controller; a note when
+    that departs from the spec): the spec's `dim`, except that an
+    attention block whose heads do not divide the axis stays whole (the
+    reference's rule; `whole` ends its note), and a recurrent leaf of
+    DEPARTURES takes the port's dim.  The serving executor and the
+    sharded training step both place by it."""
+    kind = block_kind(cfg, path)
+    if kind == "attn" and "mix" in path and dim is not None and (
+            cfg.n_kv_heads % n or cfg.n_heads % n):
+        return None, (f"plan: {cfg.n_heads} heads / {cfg.n_kv_heads} kv "
+                      f"heads do not divide '{axis}' ({n}): attention runs "
+                      f"unsharded{whole}")
+    rule = DEPARTURES.get((kind, path[-1]))
+    if rule is None:
+        return dim, None
+    want, how, line, why = rule
+    if isinstance(want, int):
+        want += 1 if path[0] == "scan" else 0
+        if shape[want] % n:
+            return None, None
+    if want == dim:
+        return want, None
+    return want, (f"plan: {kind} {path[-1]} {how}, not as "
+                  f"cluster_builder.py{line} cuts it: {why}")
+
+
 def spec_axes(entry) -> Tuple[str, ...]:
     """The mesh axes one spec entry names (a name, a tuple, or None)."""
     if entry is None:
@@ -567,18 +641,68 @@ class Sharding:
             parts.append(held[key])
         return parts
 
+    def place(self, t: torch.Tensor) -> "Sharded":
+        """`t` cut into its per-shard pieces, held with this sharding."""
+        return Sharded(self.split(t), self)
+
+    def full_shape(self, part_shape: Sequence[int]) -> List[int]:
+        """The full tensor's shape from one piece's."""
+        out = list(part_shape)
+        for dim in range(len(out)):
+            axes = spec_axes(self.spec[dim] if dim < len(self.spec)
+                               else None)
+            if axes:
+                out[dim] *= self.mesh.axis_size(axes)
+        return out
+
     def join(self, parts: Sequence[torch.Tensor],
              device=None) -> torch.Tensor:
         """The full tensor from per-shard pieces, on `device` (default:
         shard 0's)."""
-        full_shape = list(parts[0].shape)
-        for dim in range(len(full_shape)):
-            axes = spec_axes(self.spec[dim] if dim < len(self.spec)
-                               else None)
-            if axes:
-                full_shape[dim] *= self.mesh.axis_size(axes)
+        full_shape = self.full_shape(parts[0].shape)
         dev = parts[0].device if device is None else torch.device(device)
         out = torch.empty(full_shape, dtype=parts[0].dtype, device=dev)
         for f, p in enumerate(parts):
             out[self.block(f, full_shape)] = p.to(dev)
+        return out
+
+
+class Sharded(list):
+    """One leaf of a train plan: its pieces, one per flat shard of the
+    mesh in row-major order (shards that hold one block on one device
+    share a tensor), with the `Sharding` that cut them."""
+
+    def __init__(self, parts, sharding: Sharding):
+        super().__init__(parts)
+        self.sharding = sharding
+
+    @property
+    def spec(self) -> Spec:
+        return self.sharding.spec
+
+    @property
+    def shape(self) -> List[int]:
+        return self.sharding.full_shape(self[0].shape)
+
+    def join(self, device=None) -> torch.Tensor:
+        return self.sharding.join(self, device)
+
+    def owners(self) -> Dict[tuple, List[int]]:
+        """{(block, device): the flat shards holding that block there},
+        in shard order: each distinct piece once."""
+        out: Dict[tuple, List[int]] = {}
+        shape = self.shape
+        for f, p in enumerate(self):
+            blk = tuple((s.start, s.stop)
+                        for s in self.sharding.block(f, shape))
+            out.setdefault((blk, str(p.device)), []).append(f)
+        return out
+
+    def blocks(self) -> List[int]:
+        """One flat shard for each distinct block, whatever its device."""
+        seen, out = set(), []
+        for (blk, _), fs in self.owners().items():
+            if blk not in seen:
+                seen.add(blk)
+                out.append(fs[0])
         return out

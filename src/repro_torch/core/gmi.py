@@ -144,6 +144,28 @@ def reduce_scatter(xs: Shards, mesh: DeviceMesh, axis: Axis) -> Shards:
     return _per_group(xs, mesh, axis, fn)
 
 
+def allgather_dim(xs: Shards, mesh: DeviceMesh, axis: Axis,
+                  dim: int) -> Shards:
+    """`allgather`, the members' blocks joined on `dim` in axis-index
+    order (an FSDP gather: each member's block of a leaf -> the leaf)."""
+    held: Dict[int, torch.Tensor] = {}
+    out = []
+    for g in allgather(xs, mesh, axis):
+        if id(g) not in held:  # members on one device share the result
+            held[id(g)] = torch.cat(list(g.unbind(0)), dim)
+        out.append(held[id(g)])
+    return out
+
+
+def reduce_scatter_dim(xs: Shards, mesh: DeviceMesh, axis: Axis,
+                       dim: int) -> Shards:
+    """`reduce_scatter` on `dim`: the sum over the group in axis-index
+    order, member i keeping block i of `dim` (a gradient's data-parallel
+    reduction back to its FSDP block)."""
+    out = reduce_scatter([x.movedim(dim, 0) for x in xs], mesh, axis)
+    return [x.movedim(0, dim).contiguous() for x in out]
+
+
 # -- hierarchical (gateway) collectives: the clusters-of-clusters schedule ---
 
 

@@ -9,9 +9,9 @@ something real to pack (`core/packing.pack_sequences`).  The draws are
 the reference's, call for call: the same seed gives the same batches,
 plain and packed.
 
-Batches are host numpy; the train loop moves them to its device.  The
-reference's `shard_batch` (a batch placed on a mesh's data axis) belongs
-to the sharded training step and is not ported yet (ROADMAP.md §1).
+Batches are host numpy; the train loop moves them to its device, and
+`shard_batch` places one on a train plan's mesh (each data replica's
+rows on its shards' devices), as the reference's `device_put` does.
 """
 from __future__ import annotations
 
@@ -19,7 +19,9 @@ from dataclasses import dataclass
 from typing import Dict, Iterator, List
 
 import numpy as np
+import torch
 
+from repro_torch.core.cluster_builder import Sharded, Sharding
 from repro_torch.core.packing import Packed, pack_sequences
 
 
@@ -95,3 +97,17 @@ class TokenPipeline:
             "segment_ids": packed.segment_ids.astype(np.int32),
             "positions": packed.positions.astype(np.int32),
         }
+
+
+def shard_batch(batch: Dict[str, np.ndarray], mesh,
+                data_spec_fn) -> Dict[str, Sharded]:
+    """Place a host batch on the mesh with the plan's data sharding
+    (`plan.data_spec`): each leaf cut by ``data_spec_fn(ndim, rows)``,
+    its rows in equal contiguous blocks over the data axes where they
+    divide (else whole on every shard), each shard's block on its
+    device."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(np.asarray(v))
+        out[k] = Sharding(mesh, data_spec_fn(t.dim(), t.shape[0])).place(t)
+    return out

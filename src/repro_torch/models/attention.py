@@ -45,7 +45,8 @@ import torch.nn.functional as F
 from repro_torch.core.quant import kv_quantize
 from repro_torch.models.layers import (COMPUTE_DTYPE, apply_rope, dense,
                                       project_out)
-from repro_torch.models.shard_hints import Shards, broadcast_to, part
+from repro_torch.models.shard_hints import (Shards, broadcast_to,
+                                            fsdp_int8_gather, part)
 
 Params = Dict[str, Any]
 
@@ -203,15 +204,17 @@ def attention(x: torch.Tensor, p: Params, cfg, positions: torch.Tensor,
     product through its row block of `wo`, summed in shard order (psum).
     """
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    wq = p["wq"]
+    # the FSDP gathers at int8 width under hints(int8_gather=True)
+    wq, wk, wv = (fsdp_int8_gather(p[w], tp_dim=1) for w in ("wq", "wk",
+                                                              "wv"))
     n = len(wq) if isinstance(wq, Shards) else 1
     xs = broadcast_to(x, wq) if n > 1 else [x]
     qs, q, k, v = [], [], [], []
     for i, xi in enumerate(xs):
         pos_i = positions.to(xi.device)
         qi = _split_heads(dense(xi, part(wq, i)), nh // n)
-        ki = _split_heads(dense(xi, part(p["wk"], i)), nkv // n)
-        vi = _split_heads(dense(xi, part(p["wv"], i)), nkv // n)
+        ki = _split_heads(dense(xi, part(wk, i)), nkv // n)
+        vi = _split_heads(dense(xi, part(wv, i)), nkv // n)
         qi = apply_rope(qi, pos_i, cfg.rope_theta)
         ki = apply_rope(ki, pos_i, cfg.rope_theta)
         q.append(qi)
@@ -237,7 +240,7 @@ def attention(x: torch.Tensor, p: Params, cfg, positions: torch.Tensor,
                 None if segment_ids is None else segment_ids.to(dev),
                 pos_contiguous, None if active is None else active.to(dev)))
     outs = [o.reshape(x.shape[0], x.shape[1], -1) for o in outs]
-    return project_out(outs, p["wo"]), cache
+    return project_out(outs, fsdp_int8_gather(p["wo"], tp_dim=0)), cache
 
 
 def _attend(qs, q, k, v, cfg, cache, positions, segment_ids,

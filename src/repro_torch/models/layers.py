@@ -7,7 +7,7 @@ RoPE compute in f32 and cast back, matmuls round their result to bf16.
 The norms go through the `row_norm` kernel wrapper (`kernels/ops.py`):
 the kernel on the card, its plain version (`kernels/ref.py`) on the CPU.
 A `dense` weight that is a {"q", "s"} leaf (`models/quantized.py`) runs
-W8A8 through the `int8_matmul` wrapper.  `cross_entropy_chunked` is the
+W8A8 through the `int8_matmul` wrapper.  `cross_entropy_sums` is the
 evaluation loss (f32 logsumexp over sequence chunks).
 
 Products: serving needs a row to give the same bits in products of
@@ -30,7 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.shard_hints import (Shards, broadcast_to, hint,
+from repro_torch.models.shard_hints import (Shards, broadcast_to,
+                                            fsdp_int8_gather, hint,
                                             paged_shard_ctx, part)
 
 Params = Dict[str, Any]
@@ -183,9 +184,12 @@ def project_out(hs, wo) -> torch.Tensor:
 
 
 def mlp(x: torch.Tensor, p: Params, cfg) -> torch.Tensor:
-    """The MLP block (`ffn`, tensor parallel under a serve plan)."""
-    return ffn(x, p["wi"], p["wg"] if cfg.mlp_style == "swiglu" else None,
-               p["wo"], act_fn(cfg.act))
+    """The MLP block (`ffn`, tensor parallel under a plan; its weights'
+    FSDP gathers at int8 width under hints(int8_gather=True))."""
+    wg = (fsdp_int8_gather(p["wg"], tp_dim=1) if cfg.mlp_style == "swiglu"
+          else None)
+    return ffn(x, fsdp_int8_gather(p["wi"], tp_dim=1), wg,
+               fsdp_int8_gather(p["wo"], tp_dim=0), act_fn(cfg.act))
 
 
 # -- embedding / head -------------------------------------------------------
@@ -238,12 +242,15 @@ def lm_head(h: torch.Tensor, p: Params) -> torch.Tensor:
 # -- loss -------------------------------------------------------------------
 
 
-def cross_entropy_chunked(h: torch.Tensor, labels: torch.Tensor,
-                          embed_p: Params, chunk: int = 512) -> torch.Tensor:
-    """Mean next-token cross-entropy without materializing (B, S, V)
-    logits: sequence chunks of `chunk` rows, the last one padded with
-    label -1; f32 logsumexp per chunk.  Labels < 0 are ignored; returns a
-    0-d f32 tensor (0 when no label counts)."""
+def cross_entropy_sums(h: torch.Tensor, labels: torch.Tensor,
+                       embed_p: Params, chunk: int = 512):
+    """The next-token cross-entropy's terms without materializing (B, S,
+    V) logits: (the f32 sum of the valid labels' negative
+    log-likelihoods, their int32 count), over sequence chunks of `chunk`
+    rows, the last one padded with label -1, an f32 logsumexp per chunk.
+    Labels < 0 are ignored.  The mean is the sum over the count (at
+    least 1): the reference's `cross_entropy_chunked`; a data-parallel
+    step sums both terms over its replicas before that one division."""
     b, s, _ = h.shape
     chunk = min(chunk, s)
     pad = (-s) % chunk
@@ -261,4 +268,4 @@ def cross_entropy_chunked(h: torch.Tensor, labels: torch.Tensor,
         nll = torch.where(valid, logz - gold, torch.zeros_like(logz))
         tot = tot + nll.sum()
         cnt = cnt + valid.sum().to(torch.int32)
-    return tot / torch.clamp(cnt, min=1)
+    return tot, cnt

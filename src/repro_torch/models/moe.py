@@ -47,7 +47,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import act_fn, at_lanes, by_column, ffn
-from repro_torch.models.shard_hints import Shards, hint, part
+from repro_torch.models.shard_hints import (Shards, fsdp_int8_gather, hint,
+                                            part, record_router)
 
 Params = Dict[str, Any]
 
@@ -102,9 +103,11 @@ def route(x: torch.Tensor, p: Params, cfg, columns: bool = False
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
 
     # load-balance aux loss (Switch): e * sum_e f_e * p_e
+    top1 = F.one_hot(experts[..., 0], e).float()
     me = probs.mean(dim=(0, 1))
-    ce = F.one_hot(experts[..., 0], e).float().mean(dim=(0, 1))
+    ce = top1.mean(dim=(0, 1))
     aux = e * torch.sum(me * ce)
+    record_router(probs, top1)  # the sharded train step's global batch
 
     flat = experts.reshape(b, s * k)
     onehot = F.one_hot(flat, e).to(torch.int32)  # (B, S*k, E)
@@ -134,7 +137,9 @@ def _experts(xe: torch.Tensor, p: Params, cfg, act) -> torch.Tensor:
     each expert's rows are its own products'.  On the card a block of
     E / n experts gives the same bits as those experts of the E-expert
     call (chip_smoke.py's expert probe holds it)."""
-    wi, wg, wo = p["wi"], p.get("wg"), p["wo"]
+    # the FSDP gathers at int8 width under hints(int8_gather=True)
+    wi, wo = fsdp_int8_gather(p["wi"]), fsdp_int8_gather(p["wo"])
+    wg = fsdp_int8_gather(p["wg"]) if "wg" in p else None
     ws = wi if isinstance(wi, Shards) else [wi]
     per = xe.shape[0] // len(ws)
     hs = [_hidden(xe[i * per:(i + 1) * per].to(w.device), w, part(wg, i),

@@ -15,6 +15,7 @@ state (models/recurrent.py), and the serving path updates both in place.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -26,10 +27,10 @@ from repro_torch.core.quant import kv_quantize
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import recurrent as rec_mod
 from repro_torch.models.moe import moe_ffn
+from repro_torch.models import shard_hints
 from repro_torch.models.shard_hints import Shards, zip_parts
 from repro_torch.models.layers import (
-    COMPUTE_DTYPE, at_lanes, cross_entropy_chunked, embed, lm_head, mlp,
-    norm,
+    COMPUTE_DTYPE, at_lanes, cross_entropy_sums, embed, lm_head, mlp, norm,
 )
 
 Params = Dict[str, Any]
@@ -493,6 +494,9 @@ class Model:
                   active=active)
         aux = None
         remat = self.remat and caches is None and torch.is_grad_enabled()
+        # the recompute sees the forward's hints context (on the card it
+        # runs on autograd's device thread)
+        replay = shard_hints.replay() if remat else None
 
         def add(total, a):
             return a if total is None else (total if a is None else total + a)
@@ -520,7 +524,8 @@ class Model:
             if remat:
                 h, period = torch.utils.checkpoint.checkpoint(
                     period_fn, h, pp, pc, positions, segment_ids,
-                    use_reentrant=False, preserve_rng_state=False)
+                    use_reentrant=False, preserve_rng_state=False,
+                    context_fn=lambda: (contextlib.nullcontext(), replay()))
             else:
                 h, period = period_fn(h, pp, pc, positions, segment_ids)
             aux = add(aux, period)
@@ -621,14 +626,23 @@ class Model:
         either): call this under torch.no_grad() there.  So the train CLI
         (launch/train.py) refuses --seq above 1,024 on the card unless
         --pack gives explicit positions (the dense or chunked route)."""
+        nll, cnt, aux = self.loss_terms(params, batch)
+        ce = nll / torch.clamp(cnt, min=1)
+        return ce if aux is None else ce + 0.01 * aux
+
+    def loss_terms(self, params, batch):
+        """`loss`'s terms: (the f32 sum of the valid labels' negative
+        log-likelihoods, their int32 count, the MoE layers' load-balance
+        loss or None).  The sharded train step sums the first two over
+        its data replicas (launch/train.py)."""
         x = self.embed_inputs(params, batch.get("tokens"),
                               batch.get("embeds"))
         positions, contiguous = self._positions(x, batch.get("positions"))
         h, aux = self.backbone(params, x, positions,
                                batch.get("segment_ids"),
                                pos_contiguous=contiguous)
-        ce = cross_entropy_chunked(h, batch["labels"], params["embed"])
-        return ce if aux is None else ce + 0.01 * aux
+        nll, cnt = cross_entropy_sums(h, batch["labels"], params["embed"])
+        return nll, cnt, aux
 
     def forward_logits(self, params, tokens=None, embeds=None,
                        positions=None) -> torch.Tensor:

@@ -7,10 +7,12 @@ place them alike (`launch/train.opt_state_specs`).  `update(grads, state,
 params, wd)` returns new params and a new state and leaves its arguments
 untouched; it does its arithmetic in f32 and casts each param back to its
 dtype, as the reference's does.  The step count is a 0-d int32 tensor on
-the params' device, so an update never waits for the host.
+the params' device, so an update never waits for the host.  Each
+update carries its leaf-at-a-time form (`update.leafwise`, a `Leafwise`),
+which a train plan's step runs on every block of a sharded leaf.
 
 adamw8 keeps both Adam moments block-quantized to int8 along each leaf's
-last dim (`_leaf_block`, `_bq`, `_bdq`: one f32 scale per block, the
+last dim (`_leaf_block`, `bq_cols`, `bdq_cols`: one f32 scale per block, the
 leaf's own shape, so its state shards as its param does).  Rounding is
 `torch.round` (half to even), as `jnp.round`.
 
@@ -20,7 +22,7 @@ takes, so `global_norm` adds the leaves' squares as the reference does.
 from __future__ import annotations
 
 import math
-from typing import Callable, Tuple
+from typing import Callable, NamedTuple, Tuple
 
 import torch
 
@@ -108,7 +110,71 @@ def _split(out, n):
     return tuple(tree_map(lambda o: o[i], out) for i in range(n))
 
 
+class Leafwise(NamedTuple):
+    """An optimizer's update one leaf at a time, which its tree `update`
+    runs over every leaf and a train plan's step over every block
+    (launch/train.py): consts(step, wd) -> the step's constants;
+    leaf(g, moments, p, consts) -> (new p, new moments) with the moments
+    in f32; moments: the state's moment keys; blocked: the moments are
+    stored as adamw8's int8 blocks along the last dim (`bq_cols`)."""
+    consts: Callable
+    leaf: Callable
+    moments: Tuple[str, ...]
+    wd: float
+    blocked: bool = False
+
+
+def _update(lw: Leafwise, grads, state, params, wd: float):
+    step = state["step"] + 1
+    k = lw.consts(step, wd)
+
+    def upd(g, p, *moms):
+        if lw.blocked:  # a grad leaf meets its {"q", "s"} moments whole
+            b = _leaf_block(moms[0]["q"].shape[-1])
+            moms = [bdq_cols(m["q"], m["s"], 0, b) for m in moms]
+        newp, new = lw.leaf(g, moms, p, k)
+        if lw.blocked:
+            new = [dict(zip(("q", "s"), bq_cols(m, block_amax_cols(
+                m, 0, b, m.shape[-1] // b), 0, b))) for m in new]
+        return (newp,) + tuple(new)
+
+    out = _split(tree_map(upd, grads, params,
+                          *(state[n] for n in lw.moments)),
+                 1 + len(lw.moments))
+    return out[0], {**dict(zip(lw.moments, out[1:])), "step": step}
+
+
+def _optimizer(init, lw: Leafwise):
+    """(init, update): update(grads, state, params, wd=lw.wd) -> (new
+    params, new state), the step's arithmetic in f32 and each param cast
+    back to its dtype; `update.leafwise` is lw."""
+    @torch.no_grad()
+    def update(grads, state, params, wd: float = lw.wd):
+        return _update(lw, grads, state, params, wd)
+
+    update.leafwise = lw
+    return init, update
+
+
+def _adam_consts(lr_fn):
+    def consts(step, wd):
+        bc1, bc2 = _corrections(step)
+        return lr_fn(step), bc1, bc2, wd
+    return consts
+
+
 # -- f32-state AdamW ---------------------------------------------------------
+
+
+def _adamw_leaf(g, moms, p, k):
+    lr, bc1, bc2, wd = k
+    m, v = moms
+    g = g.float()
+    m = B1 * m + (1 - B1) * g
+    v = B2 * v + (1 - B2) * g * g
+    u = (m / bc1) / (_sqrt(v / bc2) + EPS)
+    u = u + wd * p.float()
+    return (p.float() - lr * u).to(p.dtype), (m, v)
 
 
 def adamw(lr_fn):
@@ -116,25 +182,8 @@ def adamw(lr_fn):
         return {"m": tree_map(_zeros_f32, params),
                 "v": tree_map(_zeros_f32, params), "step": _step0(params)}
 
-    @torch.no_grad()
-    def update(grads, state, params, wd: float = WD):
-        step = state["step"] + 1
-        lr = lr_fn(step)
-        bc1, bc2 = _corrections(step)
-
-        def upd(g, m, v, p):
-            g = g.float()
-            m = B1 * m + (1 - B1) * g
-            v = B2 * v + (1 - B2) * g * g
-            u = (m / bc1) / (_sqrt(v / bc2) + EPS)
-            u = u + wd * p.float()
-            return (p.float() - lr * u).to(p.dtype), m, v
-
-        new_p, new_m, new_v = _split(
-            tree_map(upd, grads, state["m"], state["v"], params), 3)
-        return new_p, {"m": new_m, "v": new_v, "step": step}
-
-    return init, update
+    return _optimizer(init, Leafwise(_adam_consts(lr_fn), _adamw_leaf,
+                                     ("m", "v"), WD))
 
 
 # -- int8-state AdamW --------------------------------------------------------
@@ -148,21 +197,56 @@ def _leaf_block(last_dim: int, block: int = BLOCK) -> int:
     return b
 
 
-def _bq(x: torch.Tensor):
-    """Block quantization along the last dim, keeping the leaf's shape:
-    (int8 q of x's shape, f32 scales (..., last // block))."""
-    last = x.shape[-1]
-    b = _leaf_block(last)
-    xb = x.reshape(*x.shape[:-1], last // b, b)
-    scale = torch.clamp(xb.abs().amax(-1, keepdim=True), min=1e-12) / 127.0
-    q = torch.clamp(torch.round(xb / scale), -127, 127).to(torch.int8)
-    return q.reshape(x.shape), scale.squeeze(-1).float()
+# The int8 block format, on a block of a leaf's columns [c0, c0 + width)
+# (c0 = 0 over the whole leaf): the quantization blocks are the whole
+# leaf's (b = `_leaf_block` of the whole last dim), so that a shard's
+# edge may fall inside one, and a column's value is the same whether the
+# leaf is whole or cut (a train plan's step requantizes at each block's
+# max over the shards that hold it).
 
 
-def _bdq(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    last, nblk = q.shape[-1], scale.shape[-1]
-    xb = q.float().reshape(*q.shape[:-1], nblk, last // nblk)
-    return (xb * scale[..., None]).reshape(q.shape)
+def _col_blocks(c0: int, width: int, b: int, device) -> torch.Tensor:
+    return torch.arange(c0, c0 + width, device=device) // b
+
+
+def bdq_cols(q: torch.Tensor, s: torch.Tensor, c0: int,
+             b: int) -> torch.Tensor:
+    """Dequantized columns [c0, ...) of a leaf: q (..., width), s the
+    rows' scales over the whole last dim (..., nblk)."""
+    return q.float() * s[..., _col_blocks(c0, q.shape[-1], b, q.device)]
+
+
+def block_amax_cols(x: torch.Tensor, c0: int, b: int,
+                    nblk: int) -> torch.Tensor:
+    """max |x| of the columns [c0, ...) that fall in each quantization
+    block, (..., nblk), 0 in blocks without such a column."""
+    idx = _col_blocks(c0, x.shape[-1], b, x.device).expand(x.shape)
+    out = torch.zeros(x.shape[:-1] + (nblk,), dtype=torch.float32,
+                      device=x.device)
+    return out.scatter_reduce(-1, idx, x.abs(), "amax")
+
+
+def bq_cols(x: torch.Tensor, amax: torch.Tensor, c0: int, b: int):
+    """Columns [c0, ...) of a leaf quantized at the whole rows' block
+    maxima amax (..., nblk): (int8 q of x's shape, f32 scales (...,
+    nblk)); round half to even, as `jnp.round`."""
+    scale = torch.clamp(amax, min=1e-12) / 127.0
+    cols = scale[..., _col_blocks(c0, x.shape[-1], b, x.device)]
+    q = torch.clamp(torch.round(x / cols), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _adamw8_leaf(g, moms, p, k):
+    lr, bc1, bc2, wd = k
+    shape = tuple(p.shape) if p.dim() else (1,)
+    g = g.float().reshape(shape)
+    m = B1 * moms[0] + (1 - B1) * g
+    v = B2 * moms[1] + (1 - B2) * g * g
+    v = torch.clamp(v, min=0.0)
+    u = (m / bc1) / (_sqrt(v / bc2) + EPS)
+    u = u + wd * p.float().reshape(shape)
+    newp = (p.float().reshape(shape) - lr * u).to(p.dtype)
+    return newp.reshape(p.shape), (m, v)
 
 
 def adamw8(lr_fn):
@@ -178,49 +262,22 @@ def adamw8(lr_fn):
         return {"m": tree_map(z, params), "v": tree_map(z, params),
                 "step": _step0(params)}
 
-    @torch.no_grad()
-    def update(grads, state, params, wd: float = WD):
-        step = state["step"] + 1
-        lr = lr_fn(step)
-        bc1, bc2 = _corrections(step)
-
-        def upd(g, mq, vq, p):
-            shape = tuple(p.shape) if p.dim() else (1,)
-            g = g.float().reshape(shape)
-            m = B1 * _bdq(mq["q"], mq["s"]) + (1 - B1) * g
-            v = B2 * _bdq(vq["q"], vq["s"]) + (1 - B2) * g * g
-            v = torch.clamp(v, min=0.0)
-            u = (m / bc1) / (_sqrt(v / bc2) + EPS)
-            u = u + wd * p.float().reshape(shape)
-            newp = (p.float().reshape(shape) - lr * u).to(p.dtype)
-            return (newp.reshape(p.shape), dict(zip(("q", "s"), _bq(m))),
-                    dict(zip(("q", "s"), _bq(v))))
-
-        # a grad leaf meets its {"q", "s"} moments whole
-        new_p, new_m, new_v = _split(
-            tree_map(upd, grads, state["m"], state["v"], params), 3)
-        return new_p, {"m": new_m, "v": new_v, "step": step}
-
-    return init, update
+    return _optimizer(init, Leafwise(_adam_consts(lr_fn), _adamw8_leaf,
+                                     ("m", "v"), WD, blocked=True))
 
 
 def sgdm(lr_fn, momentum: float = 0.9):
     def init(params):
         return {"m": tree_map(_zeros_f32, params), "step": _step0(params)}
 
-    @torch.no_grad()
-    def update(grads, state, params, wd: float = 0.0):
-        step = state["step"] + 1
-        lr = lr_fn(step)
+    def consts(step, wd):
+        return lr_fn(step), wd
 
-        def upd(g, m, p):
-            m = momentum * m + g.float()
-            return (p.float() - lr * m).to(p.dtype), m
+    def leaf(g, moms, p, k):
+        m = momentum * moms[0] + g.float()
+        return (p.float() - k[0] * m).to(p.dtype), (m,)
 
-        new_p, new_m = _split(tree_map(upd, grads, state["m"], params), 2)
-        return new_p, {"m": new_m, "step": step}
-
-    return init, update
+    return _optimizer(init, Leafwise(consts, leaf, ("m",), 0.0))
 
 
 def make_optimizer(name: str, lr_fn) -> Tuple[Callable, Callable]:

@@ -4,10 +4,11 @@
 When a pod/slice drops out, training resumes on a smaller mesh: the `data`
 axis shrinks (model parallelism is kept intact so the sharded weights still
 fit), per-device batch is rebalanced, and the checkpoint is restored with
-the new shardings (the reference's CheckpointManager.restore(shardings=...)
-re-places every leaf; the port's sharded restore comes with its sharded
-training step, ROADMAP.md §1).  The paper's cluster-granular restart (§6)
-maps to exactly this: lose a cluster, keep the rest serving/training.
+the new shardings (`CheckpointManager.restore(shardings=...)` places
+every leaf on the new mesh, as the reference's does; `launch/train.py`'s
+`plan_shardings` gives them for a train plan).  The paper's
+cluster-granular restart (§6) maps to exactly this: lose a cluster, keep
+the rest serving/training.
 """
 from __future__ import annotations
 

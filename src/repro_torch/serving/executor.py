@@ -26,10 +26,12 @@ plan's `shard_hints.hints` context:
     not divide the axis, attention runs unsharded over a replicated
     arena, and when the experts do not, they run whole on the controller
     (the reference's rules, logged).  The recurrent mixers' leaves follow
-    the specs but where `_DEPARTURES` says otherwise (the RG-LRU's gates
-    by column; the mLSTM's q/k/v weights and the two cells' states whole
-    on the controller, where the cells run), since the reference's cuts
-    there are partial sums that its partitioner reshards.  A W8A8 {"q",
+    the specs but where `cluster_builder.DEPARTURES` says otherwise (the
+    RG-LRU's gates by column; the mLSTM's q/k/v weights and the two
+    cells' states whole on the controller, where the cells run), since
+    the reference's cuts there are partial sums that its partitioner
+    reshards (`cluster_builder.tp_cut`, which the sharded training step
+    places by too).  A W8A8 {"q",
     "s"} leaf becomes `Shards` of {"q", "s"} blocks (`_place_quantized`).
     The data axis replicates in serve plans (slot tables never shard the
     batch), so one tensor-parallel group runs.
@@ -64,7 +66,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import gmi
-from repro_torch.core.cluster_builder import spec_axes
+from repro_torch.core.cluster_builder import spec_axes, tp_cut
 from repro_torch.core.packing import bucket_len
 from repro_torch.core.pipeline import pipeline_steps, stage_devices
 from repro_torch.launch.mesh import DeviceMesh
@@ -116,43 +118,6 @@ def _carry(tree, dev):
 def _bound(model: Model, dev) -> Model:
     """`model` bound to `dev` (its cache constructors allocate there)."""
     return model if model.device == dev else type(model)(model.cfg, dev)
-
-
-def _block_kind(cfg, path) -> Optional[str]:
-    """The block kind of a params or cache leaf from its path: ("scan",
-    "b{j}", ...) is the period's block j, ("tail", "{t}", ...) the tail's
-    t; None elsewhere (embeddings, the final norm, "pos")."""
-    if len(path) > 2 and path[0] in ("scan", "tail"):
-        return cfg.block_kind(int(path[1].lstrip("b")))
-    return None
-
-
-# Where a tensor-parallel plan's placement departs from the specs
-# (core/cluster_builder.py, equal to the reference's; the lines are its):
-# the reference's partitioner reshards between ops, the port's per-shard
-# blocks (models/recurrent.py) must give one device's bits alone.
-# (block kind, leaf) -> (the dim past the layer axis that the port cuts,
-# None for whole on the controller; how; the spec's line; why).  Under exact=False the placement is the same:
-# only the reductions (`w_out`, `down`, `glu_wo`, the MLP's `wo`) take
-# row blocks there.
-_DEPARTURES = {
-    **{("rglru", w): (1, "by column", ":311-314",
-                      "a row block of the gate is a partial sum; each shard "
-                      "takes its columns of the gathered conv output's "
-                      "product") for w in ("w_rgate", "w_igate")},
-    **{("mlstm", w): (None, "whole on the controller", ":299-300",
-                      "an ih block is a partial sum of z . w; the cell runs "
-                      "whole on the controller on the gathered z, as the "
-                      "sLSTM's does") for w in ("wq", "wk", "wv")},
-    **{("mlstm", s): (None, "whole on the controller", ":371-376",
-                      "the cell runs whole on the controller, its state "
-                      "with it (a block of heads run alone parts from the "
-                      "nh-head call on an H100: chip_smoke.py's mlstm "
-                      "probe)") for s in ("C", "n", "m")},
-    **{("slstm", s): (None, "whole on the controller", ":371-377",
-                      "the cell runs whole on the controller (:285-291), "
-                      "its state with it") for s in ("h", "c", "n", "m")},
-}
 
 
 class Executor:
@@ -299,29 +264,14 @@ class Executor:
         """The dim a tensor-parallel plan cuts the leaf at `path` over
         (None: whole on the controller): the spec's `dim`, except that an
         attention block whose heads do not divide the axis stays whole
-        (the reference's rule), and a recurrent leaf of _DEPARTURES takes
+        (the reference's rule), and a recurrent leaf of DEPARTURES takes
         the port's dim (each departure noted)."""
-        cfg, axis = self.model.cfg, self._axis
-        n = self.plan.mesh.shape[axis]
-        kind = _block_kind(cfg, path)
-        if kind == "attn" and "mix" in path and dim is not None and (
-                cfg.n_kv_heads % n or cfg.n_heads % n):
-            self._note(f"plan: {cfg.n_heads} heads / {cfg.n_kv_heads} kv "
-                       f"heads do not divide '{axis}' ({n}): attention runs "
-                       "unsharded over a replicated arena")
-            return None
-        rule = _DEPARTURES.get((kind, path[-1]))
-        if rule is None:
-            return dim
-        want, how, line, why = rule
-        if isinstance(want, int):
-            want += 1 if path[0] == "scan" else 0
-            if shape[want] % n:
-                return None
-        if want != dim:
-            self._note(f"plan: {kind} {path[-1]} {how}, not as "
-                       f"cluster_builder.py{line} cuts it: {why}")
-        return want
+        dim, note = tp_cut(self.model.cfg, self.plan.mesh.shape[self._axis],
+                           self._axis, path, shape, dim,
+                           whole=" over a replicated arena")
+        if note:
+            self._note(note)
+        return dim
 
     def place_caches(self, caches, paged: bool, slot_table: bool = True):
         """A cache tree under the plan: the arena (or dense rows) by kv

@@ -1532,3 +1532,52 @@ def test_train_step_grads_match_the_cpu(dev):
                          on(cpu, dev), batch)
     assert all(torch.equal(x, y) for x, y in zip(tree_leaves(g0),
                                                  tree_leaves(gg)))
+
+
+def test_sharded_train_step_on_card(dev):
+    """The sharded step (`train.jit_train_step`: reduced smollm-135m on a
+    (2, 2) ("data", "model") train plan, its four shards on the card)
+    against one device's `make_train_step` on the card from the same
+    init and batch: the loss within 1e-4 relative and the grad norm
+    within 5e-3 (the CPU tests' bounds); every updated block on the card;
+    row_norm launched 2 (4n + 1) times and nothing else; one step under
+    hints(int8_gather=True) finite and within 1e-2 of the bf16 step's
+    loss."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.cluster_builder import build_plan
+    from repro_torch.data.pipeline import TokenPipeline, shard_batch
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import shard_hints
+    from repro_torch.models.transformer import init_params, make_model
+    from repro_torch.optim.optimizer import (cosine_schedule,
+                                             make_optimizer, tree_leaves)
+    cfg = get_config("smollm-135m").reduced()
+    params = init_params(cfg, seed=0, device=dev)
+    init, upd = make_optimizer("adamw", cosine_schedule(3e-3, 5, 30))
+    state = init(params)
+    mesh = make_mesh((2, 2), ("data", "model"))
+    plan = build_plan(cfg, mesh, params, batch=4)
+    pspecs = train.train_param_specs(plan, params)
+    model = make_model(cfg, device=dev)
+    step = train.jit_train_step(model, upd, plan,
+                                train.opt_state_specs(state, pspecs))
+    b = TokenPipeline(cfg.vocab_size, 4, 64, seed=0).next_batch()
+    ops.reset_launches()
+    p, _, m = step(params, state, shard_batch(b, mesh, plan.data_spec))
+    torch.cuda.synchronize()
+    n = cfg.n_layers
+    assert ops.launches["row_norm"] == 2 * (4 * n + 1)
+    assert not any(v for k, v in ops.launches.items() if k != "row_norm")
+    assert all(t.is_cuda for leaf in tree_leaves(p) for t in leaf)
+    _, _, m1 = train.make_train_step(model, upd)(
+        params, state, {k: torch.as_tensor(v, device=dev)
+                        for k, v in b.items()})
+    loss, loss1 = float(m["loss"]), float(m1["loss"])
+    assert abs(loss - loss1) <= 1e-4 * abs(loss1)
+    assert abs(float(m["grad_norm"]) - float(m1["grad_norm"])) <= \
+        5e-3 * float(m1["grad_norm"])
+    with shard_hints.hints(mesh, int8_gather=True):
+        _, _, m8 = step(params, state, shard_batch(b, mesh, plan.data_spec))
+    loss8 = float(m8["loss"])
+    assert np.isfinite(loss8) and abs(loss8 - loss) <= 1e-2 * abs(loss)

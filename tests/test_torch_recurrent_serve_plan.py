@@ -6,7 +6,7 @@ The reference never serves a recurrent family under a plan in a test, so
 the contract held here is the port's own: an exact plan's streams and
 logits are bit for bit one device's.
 
-  * Placement (`Executor._tp_dim`, its `_DEPARTURES` table): the RG-LRU's
+  * Placement (`Executor._tp_dim`, `cluster_builder.DEPARTURES`): the RG-LRU's
     `w_gate_in`, `w_x_in`, `conv`, `lam` and state by width, `w_rgate` and
     `w_igate` by column (the reference cuts their rows); the mLSTM's
     `up_z`, `up_g` by column, its cell, `wq`, `wk`, `wv` and state whole
